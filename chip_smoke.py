@@ -1,19 +1,27 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path once on one NVIDIA GPU.
+"""Drive the PyTorch port's serving paths once on one NVIDIA GPU.
 
-Builds the port's CUDA kernels from ``stvd_torch/csrc``, holds each
-against its plain PyTorch version at the shapes of the preset-3 beam-5
-serving path, captions a few requests at full preset-3 width (dim 3584,
-ctx 1024, K 28, vocab 13056, bf16, beam 5, decode batch 256) through
-``stvd_torch.api.Captioner`` with random weights made from ``--seed``,
-counts the kernel launches of that run, and compares the kernel path with
-the plain path at float32.
+Builds the port's four CUDA kernels from ``stvd_torch/csrc``, holds each
+against its plain PyTorch version at the shapes of the serving paths, and
+captions a few requests through ``stvd_torch.api.Captioner`` at full
+width with random weights made from ``--seed`` (dim 3584, dim_word 512,
+ctx 1024, K 28, vocab 13056, bf16, beam 5, decode batch 256), on three
+paths:
 
-Each phase prints one JSON line; the card's ``nvidia-smi`` name and power
-limit, then a ``{"kernels": [...]}`` summary come before the last line,
-``{"ok": true, "device": {...}}``.  Any failed check raises, so the run
-exits non-zero and prints no result.  There is no CPU path: without a
-CUDA device the script exits 1.
+* preset 3 (``msvd-beam``): attention core + logit tail, cuBLAS gates;
+* preset 2 (``msvd-spatial``, R 49, Dr 1024): + the spatial core;
+* preset 3 with ``decode_quant='int8'``, ``gates_kernel='on'``: the
+  attention core, the W8A8 gates+LSTM kernel and the logit tail.
+
+Each path's kernel launches are counted from zero over its run and must
+equal its decode steps.  The kernel path is then compared with the plain
+path on each: preset 3 and preset 2 at float32, the int8 path in int8.
+
+Each phase prints one JSON line with its seconds; the card's
+``nvidia-smi`` name and power limit, then a ``{"kernels": [...]}``
+summary come before the last line, ``{"ok": true, "device": {...}}``.
+Any failed check raises, so the run exits non-zero and prints no result.
+There is no CPU path: without a CUDA device the script exits 1.
 
     python3 chip_smoke.py [--seed N] [--profile]
 """
@@ -31,11 +39,31 @@ import numpy as np
 import torch
 
 NAME = "msvd-beam"     # preset 3: the serving path bench.py measures
+SPATIAL = "msvd-spatial"   # preset 2: the model the paper is named for
 KERNEL_TOL = 1e-4      # float32 sums over A=1024 / K=28 / dw=512 in another order
+INT8_TOL = 1e-5        # int32 sums are exact; only the pointwise math differs
+KERNELS = ("attention_core", "spatial_core", "gates_lstm", "logit_tail")
+
+
+_T0 = [time.perf_counter()]
 
 
 def emit(obj) -> None:
+    """One JSON line; a phase line also carries its seconds."""
+    if "phase" in obj:
+        now = time.perf_counter()
+        obj["phase_seconds"] = now - _T0[0]
+        _T0[0] = now
     print(json.dumps(obj), flush=True)
+
+
+def reset_launches(kernel) -> None:
+    for name in KERNELS:
+        getattr(kernel, name).launches = 0
+
+
+def read_launches(kernel) -> dict:
+    return {name: getattr(kernel, name).launches for name in KERNELS}
 
 
 def require(cond: bool, msg: str) -> None:
@@ -193,11 +221,113 @@ def phase_tail(kernel, dev, g, seed, cfg) -> dict:
     return out
 
 
+def phase_spatial(kernel, step_mod, dev, g, cfg) -> dict:
+    """Kernel 4 at the path-A shapes (preset 2: Bc=256, K=28, R=49,
+    s=Dr=1024), pregion float32, regions bf16, h_satt a strided column
+    slice of the h-projection, with nb = 5 and nb = 1.  The plain version
+    runs at float32 on the same inputs (its e_s is 7.2 GB at nb=5)."""
+    m = cfg.model
+    bc, k, r, s, dr = (cfg.decode.decode_batch, m.n_frames, m.n_regions,
+                       m.region_dim, m.region_dim)
+    off = m.attn_dim + 1
+    pregion = 0.5 * torch.randn(bc, k, r, s, generator=g, device=dev)
+    regions = torch.randn(bc, k, r, dr, generator=g, device=dev).bfloat16()
+    u = 3.0 * torch.randn(s, generator=g, device=dev) / s ** 0.5
+    c_s = torch.tensor(0.2, device=dev)
+    errs, times = {}, {}
+    for nb in (cfg.decode.beam_size, 1):
+        hp = torch.randn(bc * nb, off + s, generator=g, device=dev)
+        args = (hp[:, off:], pregion, regions, u, c_s)
+        got = kernel.spatial_core(*args, torch.float32)
+        ref = step_mod._spatial_core(*args, torch.float32)
+        torch.cuda.synchronize()
+        require(all(bool(torch.isfinite(t).all()) for t in got),
+                "spatial kernel: non-finite output")
+        errs[f"nb{nb}"] = max_err(got, ref)
+        del ref
+        times[f"nb{nb}"] = {
+            "ms": time_ms(lambda: kernel.spatial_core(*args, torch.float32)),
+            "plain_ms": time_ms(
+                lambda: step_mod._spatial_core(*args, torch.float32), 5)}
+    err = max(errs.values())
+    require(err <= KERNEL_TOL, f"spatial kernel disagrees: {errs}")
+    nb0 = f"nb{cfg.decode.beam_size}"
+    out = {"phase": "kernel_spatial_core", "shape": [bc, k, r, s, dr],
+           "max_abs_err": err, "errs": errs, "tol": KERNEL_TOL,
+           "ms": times[nb0]["ms"], "plain_ms": times[nb0]["plain_ms"],
+           "times": times}
+    emit(out)
+    torch.cuda.empty_cache()
+    return out
+
+
+def gates_operands(step_mod, rows, kx, dim, mode, dev, g):
+    """(x, w, b, c, s_r, scale) of one gates+LSTM call; int8 operands are
+    quantized with the step's own helpers, as the step does."""
+    x = torch.randn(rows, kx, generator=g, device=dev)
+    w = torch.randn(kx, 4 * dim, generator=g, device=dev) / kx ** 0.5
+    b = 0.1 * torch.randn(4 * dim, generator=g, device=dev)
+    c = torch.randn(rows, dim, generator=g, device=dev)
+    if mode == "int8":
+        x_q, s_r = step_mod.quantize_rows(x)
+        w_q, scale = step_mod.quantize_weights(w)
+        return x_q, w_q, b, c, s_r, scale
+    dtype = torch.bfloat16 if mode == "bf16" else torch.float32
+    return x.to(dtype), w.to(dtype), b, c, None, None
+
+
+def phase_gates(kernel, step_mod, dev, g, cfg) -> dict:
+    """Kernel 3 at the path-B shapes (rows 1280, Kx 5120, 4 dim 14336)
+    and at a ragged 185 rows, in float32, bf16 and int8 mode, each
+    against the plain version on the same operands (the plain int8 path
+    multiplies with torch._int_mm)."""
+    m = cfg.model
+    rows = cfg.decode.decode_batch * cfg.decode.beam_size
+    kx, dim = m.dim_word + m.dim + m.ctx_dim, m.dim
+    cases, times = {}, {}
+    for mode in ("f32", "bf16", "int8"):
+        tol = INT8_TOL if mode == "int8" else KERNEL_TOL
+        for n in (rows, 185):
+            ops = gates_operands(step_mod, n, kx, dim, mode, dev, g)
+            got = kernel.gates_lstm(*ops)
+            ref = step_mod._gates_lstm(*ops)
+            torch.cuda.synchronize()
+            err = max_err(got, ref)
+            cases[f"{mode}_rows{n}"] = err
+            require(all(bool(torch.isfinite(t).all()) for t in got),
+                    f"gates kernel {mode}: non-finite output")
+            require(err <= tol, f"gates kernel {mode} rows {n}: {err}")
+            if n == rows and mode != "f32":
+                times[mode] = {
+                    "ms": time_ms(lambda: kernel.gates_lstm(*ops), 20),
+                    "plain_ms": time_ms(
+                        lambda: step_mod._gates_lstm(*ops), 20)}
+    out = {"phase": "kernel_gates_lstm", "shape": [rows, kx, 4 * dim],
+           "max_abs_err": cases["int8_rows%d" % rows], "cases": cases,
+           "tol": {"f32": KERNEL_TOL, "bf16": KERNEL_TOL, "int8": INT8_TOL},
+           "ms": times["int8"]["ms"], "plain_ms": times["int8"]["plain_ms"],
+           "times": times}
+    emit(out)
+    return out
+
+
 def request(rng, n, model_cfg):
     """n videos of random features with frame counts around K."""
     k = model_cfg.n_frames
     return [rng.randn(int(f), model_cfg.ctx_dim).astype(np.float32)
             for f in rng.randint(max(1, k - 8), k + 9, size=n)]
+
+
+def regions_for(feats, model_cfg, seed):
+    """Random (F_i, R, Dr) region features matching each video's frames
+    (1.4 GB of float32 for 256 videos: drawn with numpy's fast
+    generator)."""
+    if not model_cfg.use_spatial:
+        return None
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal((f.shape[0], model_cfg.n_regions,
+                                 model_cfg.region_dim), dtype=np.float32)
+            for f in feats]
 
 
 def counted_step(inner, counter):
@@ -208,33 +338,37 @@ def counted_step(inner, counter):
     return step_fn
 
 
-def phase_serving(api, kernel, dev, seed, params, vocab, cfg) -> dict:
+def phase_serving(api, kernel, dev, seed, params, vocab, cfg, phase,
+                  expect, modes=("natural_eos", "eos_suppressed")) -> dict:
     """Beam requests of 1, 37 and decode_batch (256) videos, with natural
-    EOS and with EOS suppressed (every caption runs all maxlen steps)."""
+    EOS and/or with EOS suppressed (every caption runs all maxlen steps).
+    The launches of every kernel are counted from zero over the run:
+    those in ``expect`` must equal the decode steps, the others 0."""
     cap = api.Captioner(params, cfg, vocab, dev)
     require(cap.step_fn is kernel.step_kernels,
             "Captioner did not pick the kernel step on the GPU")
     steps = [0]
     cap.step_fn = counted_step(cap.step_fn, steps)
     rng = np.random.RandomState(seed)
-    reqs = {n: request(rng, n, cfg.model)
-            for n in (1, 37, cfg.decode.decode_batch)}
-    cap.caption(reqs[1])                          # warm-up (cuBLAS, allocator)
+    reqs = {}
+    for n in (1, 37, cfg.decode.decode_batch):
+        feats = request(rng, n, cfg.model)
+        reqs[n] = (feats, regions_for(feats, cfg.model, seed + n))
+    cap.caption(*reqs[1])                         # warm-up (cuBLAS, allocator)
     torch.cuda.synchronize()
 
-    kernel.attention_core.launches = 0
-    kernel.logit_tail.launches = 0
+    reset_launches(kernel)
     steps[0] = 0
     torch.cuda.reset_peak_memory_stats()
     runs = {}
     eos_bias = cap.params["ff_logit_b"][0].clone()
-    for mode in ("natural_eos", "eos_suppressed"):
+    for mode in modes:
         if mode == "eos_suppressed":
             cap.params["ff_logit_b"][0] = -1e9
-        for n, feats in reqs.items():
+        for n, (feats, regs) in reqs.items():
             s0 = steps[0]
             t0 = time.perf_counter()
-            caps = cap.caption(feats)
+            caps = cap.caption(feats, regs)
             torch.cuda.synchronize()
             dt = time.perf_counter() - t0
             require(len(caps) == n, "wrong number of captions")
@@ -249,11 +383,14 @@ def phase_serving(api, kernel, dev, seed, params, vocab, cfg) -> dict:
                 "decode_steps": steps[0] - s0,
                 "mean_words": float(np.mean([len(ws) for ws in words]))}
     cap.params["ff_logit_b"][0] = eos_bias
-    launches = {"attention_core": kernel.attention_core.launches,
-                "logit_tail": kernel.logit_tail.launches}
-    require(all(n > 0 and n == steps[0] for n in launches.values()),
-            f"kernel launches {launches} != decode steps {steps[0]}")
-    out = {"phase": "serving", "config": NAME,
+    launches = read_launches(kernel)
+    want = {k: (steps[0] if k in expect else 0) for k in KERNELS}
+    require(steps[0] > 0 and launches == want,
+            f"{phase}: kernel launches {launches} != {want}")
+    out = {"phase": phase,
+           "config": {"use_spatial": cfg.model.use_spatial,
+                      "decode_quant": cfg.model.decode_quant,
+                      "gates_kernel": cfg.model.gates_kernel},
            "runs": runs, "decode_steps": steps[0], "launches": launches,
            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
     emit(out)
@@ -261,30 +398,34 @@ def phase_serving(api, kernel, dev, seed, params, vocab, cfg) -> dict:
 
 
 def phase_kernel_vs_plain(api, kernel, step_mod, dev, seed, params, vocab,
-                          cfg, n_videos=64) -> None:
-    """The full decode at float32 and preset-3 widths, once through the
-    kernel step and once through the plain step.  Both sum in different
-    orders, so a near-tie can flip a beam: the bar is a share of videos."""
-    cfg32 = cfg.replace(model=dataclasses.replace(cfg.model,
-                                                  compute_dtype="float32"))
+                          cfg, phase, n_videos=64) -> None:
+    """The full decode of ``n_videos`` through the kernel step and through
+    the plain step on the same config.  Both sum in different orders, so
+    a near-tie can flip a beam: the bar is a share of videos."""
     feats = request(np.random.RandomState(seed + 1), n_videos, cfg.model)
+    regs = regions_for(feats, cfg.model, seed + 1)
     out = {}
     for name, fn in (("kernels", kernel.step_kernels),
                      ("plain", step_mod.step)):
         t0 = time.perf_counter()
-        out[name] = api.Captioner(params, cfg32, vocab, dev,
-                                  step_fn=fn).caption(feats)
+        out[name] = api.Captioner(params, cfg, vocab, dev,
+                                  step_fn=fn).caption(feats, regs)
         out[name + "_seconds"] = time.perf_counter() - t0
     same = float(np.mean([a == b for a, b in zip(out["kernels"],
                                                   out["plain"])]))
-    emit({"phase": "kernel_vs_plain_f32", "videos": len(feats),
+    emit({"phase": phase, "videos": len(feats),
+          "decode_batch": cfg.decode.decode_batch,
+          "compute_dtype": cfg.model.compute_dtype,
+          "decode_quant": cfg.model.decode_quant,
           "token_match_share": same, "bar": 0.95,
           "kernels_seconds": out["kernels_seconds"],
           "plain_seconds": out["plain_seconds"]})
-    require(same >= 0.95, f"kernel and plain paths agree on {same:.3f}")
+    require(same >= 0.95, f"{phase}: kernel and plain paths agree on "
+                          f"{same:.3f}")
+    torch.cuda.empty_cache()
 
 
-def phase_profile(api, dev, params, vocab, seed, cfg) -> None:
+def phase_profile(api, dev, params, vocab, seed, cfg, phase) -> None:
     """Device time by kernel over one worst-case decode of decode_batch
     videos."""
     from torch.profiler import ProfilerActivity, profile
@@ -293,12 +434,13 @@ def phase_profile(api, dev, params, vocab, seed, cfg) -> None:
     cap.params["ff_logit_b"][0] = -1e9
     feats = request(np.random.RandomState(seed + 2),
                     cfg.decode.decode_batch, cfg.model)
-    cap.caption(feats)
+    regs = regions_for(feats, cfg.model, seed + 2)
+    cap.caption(feats, regs)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        cap.caption(feats)
+        cap.caption(feats, regs)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     cap.params["ff_logit_b"][0] = eos_bias
@@ -310,17 +452,22 @@ def phase_profile(api, dev, params, vocab, seed, cfg) -> None:
                    and not ev.key.startswith("Activity Buffer")),
                   reverse=True)
     total = sum(r[0] for r in rows)
-    emit({"phase": "profile", "wall_s": wall, "device_s": total / 1e6,
+    emit({"phase": phase, "wall_s": wall, "device_s": total / 1e6,
           "idle_share": 1.0 - total / 1e6 / wall if wall else None,
           "top": [{"name": k[:80], "ms": us / 1e3, "count": c}
                   for us, k, c in rows[:20]]})
+
+
+def with_model(cfg, **kw):
+    return cfg.replace(model=dataclasses.replace(cfg.model, **kw))
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
-                    help="also print device time by kernel for one decode")
+                    help="also print device time by kernel for one decode "
+                         "on each of the three paths")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on "
@@ -339,32 +486,67 @@ def main() -> int:
     info = phase_device()
     phase_build(_build)
     cfg = api.preset(NAME)
+    cfg_sp = api.preset(SPATIAL)
+    cfg_q = with_model(cfg, decode_quant="int8", gates_kernel="on")
     attn = phase_attention(kernel, step_mod, dev, g, cfg)
     tail = phase_tail(kernel, dev, g, args.seed, cfg)
+    spatial = phase_spatial(kernel, step_mod, dev, g, cfg_sp)
+    gates = phase_gates(kernel, step_mod, dev, g, cfg_q)
 
-    params = init_params(cfg.model, g, dev)
     vocab = api.Vocab({f"w{i}": i for i in range(2, cfg.model.n_words)})
-    serving = phase_serving(api, kernel, dev, args.seed, params, vocab, cfg)
+    params = init_params(cfg.model, g, dev)
+    serving = phase_serving(api, kernel, dev, args.seed, params, vocab, cfg,
+                            "serving", ("attention_core", "logit_tail"))
+    serving_q = phase_serving(api, kernel, dev, args.seed, params, vocab,
+                              cfg_q, "serving_int8_gates",
+                              ("attention_core", "gates_lstm", "logit_tail"),
+                              modes=("eos_suppressed",))
     phase_kernel_vs_plain(api, kernel, step_mod, dev, args.seed, params,
-                          vocab, cfg)
+                          vocab, with_model(cfg, compute_dtype="float32"),
+                          "kernel_vs_plain_f32")
+    # kernel int8 gates against plain int8 gates (torch._int_mm)
+    phase_kernel_vs_plain(api, kernel, step_mod, dev, args.seed, params,
+                          vocab, cfg_q, "kernel_vs_plain_int8")
     if args.profile:
-        phase_profile(api, dev, params, vocab, args.seed, cfg)
+        phase_profile(api, dev, params, vocab, args.seed, cfg, "profile")
+        phase_profile(api, dev, params, vocab, args.seed, cfg_q,
+                      "profile_int8_gates")
+    del params
+    torch.cuda.empty_cache()
+
+    params_sp = init_params(cfg_sp.model, g, dev)
+    serving_sp = phase_serving(api, kernel, dev, args.seed, params_sp, vocab,
+                               cfg_sp, "serving_spatial",
+                               ("attention_core", "spatial_core",
+                                "logit_tail"))
+    # float32 at decode batch 64: the plain spatial core's float32 e_s is
+    # then 1.8 GB a step instead of 7.2 GB
+    cfg_sp32 = with_model(cfg_sp, compute_dtype="float32").replace(
+        decode=dataclasses.replace(cfg_sp.decode, decode_batch=64))
+    phase_kernel_vs_plain(api, kernel, step_mod, dev, args.seed, params_sp,
+                          vocab, cfg_sp32, "kernel_vs_plain_spatial_f32")
+    if args.profile:
+        phase_profile(api, dev, params_sp, vocab, args.seed, cfg_sp,
+                      "profile_spatial")
     require("jax" not in sys.modules, "the port imported jax")
 
     src = "stvd_torch/csrc/"
+
+    def row(name, source, replaces, launches, measured):
+        return {"name": name, "route": "cuda", "source": src + source,
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": measured["max_abs_err"],
+                "ms": measured["ms"], "plain_ms": measured["plain_ms"]}
+
     emit({"kernels": [
-        {"name": "attention_core", "route": "cuda",
-         "source": src + "attn_core.cu",
-         "replaces": "stvd/model/kernel.py:45",
-         "launches": serving["launches"]["attention_core"],
-         "max_abs_err": attn["max_abs_err"], "ms": attn["ms"],
-         "plain_ms": attn["plain_ms"]},
-        {"name": "logit_tail", "route": "cuda",
-         "source": src + "logit_tail.cu",
-         "replaces": "stvd/model/kernel.py:593",
-         "launches": serving["launches"]["logit_tail"],
-         "max_abs_err": tail["max_abs_err"], "ms": tail["ms"],
-         "plain_ms": tail["plain_ms"]},
+        row("attention_core", "attn_core.cu", "stvd/model/kernel.py:45",
+            serving["launches"]["attention_core"], attn),
+        row("logit_tail", "logit_tail.cu", "stvd/model/kernel.py:593",
+            serving["launches"]["logit_tail"], tail),
+        row("spatial_core", "spatial_core.cu", "stvd/model/kernel.py:204",
+            serving_sp["launches"]["spatial_core"], spatial),
+        row("gates_lstm", "gates_lstm.cu", "stvd/model/kernel.py:854",
+            serving_q["launches"]["gates_lstm"], gates),
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": info["name"],
                                  "count": info["count"]}})

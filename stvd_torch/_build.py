@@ -1,6 +1,7 @@
 """Build the port's CUDA kernels on first use and load them with ctypes.
 
-The ``.cu`` sources in ``stvd_torch/csrc`` compile with ``nvcc`` into one
+The ``.cu`` sources in ``stvd_torch/csrc`` compile with ``nvcc``, one
+process per source, all started together, into objects that link into one
 shared library with a plain C interface (no PyTorch headers, so a build
 takes seconds).  The library lands in ``build/stvd_torch/`` beside the
 package, named by a hash of the sources and flags, so an unchanged tree
@@ -22,9 +23,11 @@ from typing import Optional
 _PKG = Path(__file__).resolve().parent
 _CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "stvd_torch"
-SOURCES = ("attn_core.cu", "logit_tail.cu")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+SOURCES = ("attn_core.cu", "logit_tail.cu", "spatial_core.cu",
+           "gates_lstm.cu")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -36,6 +39,10 @@ _SIGNATURES = {
     "stvd_logit_tail": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                         _I, _I, _P],
     "stvd_logit_tail_ntiles": [_I],
+    "stvd_spatial_core": [_P, _L, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I,
+                          _I, _I, _P],
+    "stvd_spatial_core_max_beams": [],
+    "stvd_gates_lstm": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -67,26 +74,40 @@ def library_path() -> Path:
 
 
 def build() -> Path:
-    """Compile the kernels unless a library of the same sources exists;
-    the compiler's report (registers, spills) goes to ``build.log``."""
+    """Compile the kernels unless a library of the same sources exists:
+    one ``nvcc -c`` per source in parallel, then one link.  The
+    compiler's report (registers, spills) goes to ``build.log``."""
     global build_seconds
     out = library_path()
     if out.is_file():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *(str(_CSRC / name) for name in SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    (BUILD_DIR / "build.log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stderr[-4000:]}")
-    os.replace(tmp, out)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+        objs = [str(Path(tmpdir, Path(name).stem + ".o")) for name in SOURCES]
+        cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(_CSRC / name)]
+                for name, obj in zip(SOURCES, objs)]
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for cmd in cmds]
+        outputs = [proc.communicate()[0] for proc in procs]
+        so = str(Path(tmpdir, out.name))
+        link = [nvcc, *ARCH_FLAGS, "-shared", "-o", so, *objs]
+        failed = [(cmd, text) for cmd, text, proc
+                  in zip(cmds, outputs, procs) if proc.returncode != 0]
+        if not failed:
+            proc = subprocess.run(link, capture_output=True, text=True)
+            outputs.append(proc.stdout + proc.stderr)
+            if proc.returncode != 0:
+                failed.append((link, outputs[-1]))
+        (BUILD_DIR / "build.log").write_text("".join(
+            " ".join(cmd) + "\n" + text
+            for cmd, text in zip(cmds + [link], outputs)))
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(
+                " ".join(cmd) + "\n" + text[-4000:] for cmd, text in failed))
+        os.replace(so, out)
     build_seconds = time.perf_counter() - t0
     return out
 

@@ -2,11 +2,14 @@
 
     cap = Captioner(params, cfg, vocab, device="cuda")
     texts = cap.caption(features)          # (N, F, D) numpy -> [str]
+    texts = cap.caption(features, regions=regions)   # spatial (preset 2)
 
 Ported so far: ``pack_request``, ``chunked_caption`` and
-``Captioner.caption`` / ``caption_batch`` for the temporal model, by beam
-search or greedy decoding.  Loading a run directory, n-best lists,
-sampling and bank-resident requests are still to come.
+``Captioner.caption`` / ``caption_batch`` for the temporal and the
+spatial model, by beam search or greedy decoding, with bf16 or W8A8 int8
+gates (``decode_quant='int8'``; ``gates_kernel='on'`` runs them through
+the fused gates kernel).  The motion stream, loading a run directory,
+n-best lists, sampling and bank-resident requests are still to come.
 """
 
 from __future__ import annotations
@@ -56,21 +59,22 @@ def chunked_caption(run: Callable[[Dict], torch.Tensor],
 
 def pack_request(model_cfg, features, device: torch.device | str,
                  regions=None, motion=None) -> Dict[str, torch.Tensor]:
-    """Raw per-video feature arrays -> a device batch (frames in the
-    compute dtype, frame_mask float32).  ``features`` is (N, F, D) or a
-    list of (F_i, D) arrays; frame counts are subsampled or padded to the
+    """Raw per-video feature arrays -> a device batch (frames and regions
+    in the compute dtype, frame_mask float32).  ``features`` is (N, F, D)
+    or a list of (F_i, D) arrays, ``regions`` a matching sequence of
+    (F_i, R, Dr) arrays; frame counts are subsampled or padded to the
     model's K by the shared numpy ``pack_bank``."""
-    if regions is not None or motion is not None:
-        raise NotImplementedError("region and motion streams are not "
-                                  "ported yet")
+    if motion is not None:
+        raise NotImplementedError("the motion stream is not ported yet")
     if isinstance(features, np.ndarray) and features.ndim == 3:
         feats = {f"v{i}": features[i] for i in range(features.shape[0])}
     else:
         feats = {f"v{i}": np.asarray(f) for i, f in enumerate(features)}
     ids = [f"v{i}" for i in range(len(feats))]
-    bank = pack_bank(feats, model_cfg.n_frames, ids=ids)
-    dev = to_device(bank, device, compute_dtype(model_cfg))
-    return {"frames": dev["frames"], "frame_mask": dev["frame_mask"]}
+    regs = ({v: np.asarray(r) for v, r in zip(ids, regions)}
+            if regions is not None else None)
+    bank = pack_bank(feats, model_cfg.n_frames, ids=ids, regions=regs)
+    return to_device(bank, device, compute_dtype(model_cfg))
 
 
 class Captioner:
@@ -112,9 +116,11 @@ class Captioner:
         return chunked_caption(self._run, batch,
                                self.cfg.decode.decode_batch, self.vocab)
 
-    def caption(self, features: Union[np.ndarray, Sequence[np.ndarray]]
+    def caption(self, features: Union[np.ndarray, Sequence[np.ndarray]],
+                regions: Optional[Sequence[np.ndarray]] = None
                 ) -> List[str]:
         """Caption raw per-video feature arrays: (N, F, D) or a list of
-        (F_i, D) arrays."""
+        (F_i, D) arrays, with per-video (F_i, R, Dr) region features for
+        the spatial model."""
         return self.caption_batch(
-            pack_request(self.cfg.model, features, self.device))
+            pack_request(self.cfg.model, features, self.device, regions))

@@ -66,7 +66,8 @@ def beam_decode(params, cfg, batch: Dict[str, torch.Tensor],
             if mk_tail is not None else None)
 
     ctx = encode_context(params, cfg, frames, batch.get("motion"))
-    sc = precompute(params, cfg, ctx, batch["frame_mask"])
+    sc = precompute(params, cfg, ctx, batch["frame_mask"],
+                    batch.get("regions"))
     state0 = init_state(params, cfg, sc)
     h = state0.h.repeat_interleave(k, dim=0)
     c = state0.c.repeat_interleave(k, dim=0)

@@ -23,8 +23,9 @@ class GreedyOut(NamedTuple):
 def greedy_decode(params, cfg, batch: Dict[str, torch.Tensor],
                   maxlen: int = 30, step_fn: Optional[StepFn] = None
                   ) -> GreedyOut:
-    """Greedy argmax decode of a batch (frames (B,K,D), frame_mask (B,K))
-    with an early exit once every sequence has emitted EOS."""
+    """Greedy argmax decode of a batch (frames (B,K,D), frame_mask (B,K)
+    [, regions (B,K,R,Dr)]) with an early exit once every sequence has
+    emitted EOS."""
     step_fn = step_fn or step_mod.step
     params = step_mod.cast_params(params, cfg)
     frames = batch["frames"]
@@ -34,7 +35,8 @@ def greedy_decode(params, cfg, batch: Dict[str, torch.Tensor],
     tail = (mk_tail(params["ff_logit_W"], params["ff_logit_b"], 1)
             if mk_tail is not None else None)
     ctx = encode_context(params, cfg, frames, batch.get("motion"))
-    sc = precompute(params, cfg, ctx, batch["frame_mask"])
+    sc = precompute(params, cfg, ctx, batch["frame_mask"],
+                    batch.get("regions"))
     state = init_state(params, cfg, sc)
 
     prev = torch.zeros((B,), dtype=torch.int64, device=dev)

@@ -1,9 +1,10 @@
 """The decode path's CUDA kernels, each beside its plain PyTorch version.
 
-Counterpart of ``stvd/model/kernel.py`` for the two kernels the serving
-path runs (``step_pallas``): the temporal-attention core and the fused
-logit tail.  Sources are in ``stvd_torch/csrc``; ``_build`` compiles them
-for sm_90a on first use.
+Counterpart of ``stvd/model/kernel.py`` for the four kernels the serving
+paths run: the temporal-attention core, the spatial-attention core
+(preset 2), the fused gates+LSTM step (bf16 or W8A8 int8, engaged by
+``cfg.gates_kernel``) and the fused logit tail.  Sources are in
+``stvd_torch/csrc``; ``_build`` compiles them for sm_90a on first use.
 
 Each wrapper runs the plain version for tensors on the CPU and launches
 its kernel for tensors on a CUDA device, raising on what the kernel does
@@ -168,15 +169,150 @@ def make_logit_tail(w, b, k_sel: int):
 
 
 # ---------------------------------------------------------------------------
+# Kernel 4: spatial-attention core (csrc/spatial_core.cu)
+# ---------------------------------------------------------------------------
+
+def _spatial_core_cuda(h_satt, pregion, regions, u_s, c_s
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    f32 = torch.float32
+    bs, s = h_satt.shape
+    bc, k, r, s2 = pregion.shape
+    dr = regions.shape[-1]
+    lib = _build.lib()
+    _require(s2 == s and tuple(regions.shape[:3]) == (bc, k, r)
+             and tuple(u_s.shape) == (s,),
+             "spatial_core: inconsistent shapes")
+    _require(bs % bc == 0 and bs // bc <= lib.stvd_spatial_core_max_beams(),
+             f"spatial_core: state batch {bs} is not 1..8 beams of {bc}")
+    _require(h_satt.dtype == f32 and h_satt.stride(1) == 1,
+             "spatial_core: h_satt must be float32 rows")
+    _require(pregion.dtype == f32
+             and regions.dtype in (f32, torch.bfloat16),
+             "spatial_core: pregion must be float32, regions float32 or bf16")
+    tensors = (h_satt, pregion, regions, u_s, c_s)
+    _require(h_satt.is_cuda and all(t.device == h_satt.device
+                                    for t in tensors),
+             "spatial_core: all operands must be on one CUDA device")
+    nb = bs // bc
+    pregion = pregion.contiguous()
+    regions = regions.contiguous()
+    u = u_s.to(f32).contiguous()
+    c_s = c_s.to(f32).reshape(())
+    spat = torch.empty((bc, nb, k, dr), dtype=f32, device=h_satt.device)
+    alpha = torch.empty((bc, nb, k, r), dtype=f32, device=h_satt.device)
+    err = lib.stvd_spatial_core(
+        h_satt.data_ptr(), h_satt.stride(0), pregion.data_ptr(),
+        regions.data_ptr(), int(regions.dtype == torch.bfloat16),
+        u.data_ptr(), c_s.data_ptr(), spat.data_ptr(), alpha.data_ptr(),
+        bc, nb, k, r, s, dr, _launch_stream())
+    _build.check(err, "spatial-core kernel")
+    spatial_core.launches += 1
+    return spat, alpha
+
+
+def spatial_core(h_satt, pregion, regions, u_s, c_s, cdtype
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Drop-in for ``step._spatial_core`` (same contract, beam broadcast
+    over an un-tiled region bank).  CPU tensors take the plain version;
+    CUDA tensors take the kernel, whose sums are float32 whatever
+    ``cdtype`` (bf16 regions are upcast in registers) and whose ``spat``
+    is float32."""
+    if h_satt.device.type == "cpu":
+        return step_mod._spatial_core(h_satt, pregion, regions, u_s, c_s,
+                                      cdtype)
+    return _spatial_core_cuda(h_satt, pregion, regions, u_s, c_s)
+
+
+spatial_core.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Kernel 3: fused gates + LSTM step (csrc/gates_lstm.cu)
+# ---------------------------------------------------------------------------
+
+_GATES_MODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+
+
+def _gates_lstm_cuda(x, w, b, c, s_r=None, scale=None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    f32 = torch.float32
+    rows, kx = x.shape
+    n4 = w.shape[1]
+    dim = n4 // 4
+    lib = _build.lib()
+    _require(w.shape[0] == kx and n4 == 4 * dim and dim > 0
+             and tuple(b.shape) == (n4,) and tuple(c.shape) == (rows, dim),
+             "gates_lstm: inconsistent shapes")
+    _require(w.dtype in _GATES_MODES and x.dtype == w.dtype,
+             "gates_lstm: x and w must both be float32, bf16 or int8")
+    quant = w.dtype == torch.int8
+    _require(not quant or (s_r is not None and scale is not None
+                           and s_r.numel() == rows
+                           and tuple(scale.shape) == (n4,)),
+             "gates_lstm: int8 operands need row and column scales")
+    tensors = [x, w, b, c] + ([s_r, scale] if quant else [])
+    _require(x.is_cuda and all(t.device == x.device for t in tensors),
+             "gates_lstm: all operands must be on one CUDA device")
+    x = x.contiguous()
+    w = w.contiguous()
+    b = b.to(f32).contiguous()
+    c = c.to(f32).contiguous()
+    if quant:
+        s_r = s_r.to(f32).reshape(rows).contiguous()
+        scale = scale.to(f32).contiguous()
+    else:
+        s_r = scale = b                  # not read outside int8 mode
+    h_t = torch.empty((rows, dim), dtype=f32, device=x.device)
+    c_t = torch.empty((rows, dim), dtype=f32, device=x.device)
+    err = lib.stvd_gates_lstm(
+        x.data_ptr(), w.data_ptr(), _GATES_MODES[w.dtype], b.data_ptr(),
+        s_r.data_ptr(), scale.data_ptr(), c.data_ptr(), h_t.data_ptr(),
+        c_t.data_ptr(), rows, kx, dim, _launch_stream())
+    _build.check(err, "gates+LSTM kernel")
+    gates_lstm.launches += 1
+    return h_t, c_t
+
+
+def gates_lstm(x, w, b, c, s_r=None, scale=None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Drop-in for ``step._gates_lstm``: (h_t, c_t) from the row block
+    ``x`` and the gates stack ``w`` (float32, bf16, or int8 with its row
+    and column scales), the (rows, 4 dim) preactivation never leaving the
+    kernel.  CPU tensors take the plain version; CUDA tensors take the
+    kernel, which masks ragged rows, depths and dims itself."""
+    if x.device.type == "cpu":
+        return step_mod._gates_lstm(x, w, b, c, s_r, scale)
+    return _gates_lstm_cuda(x, w, b, c, s_r, scale)
+
+
+gates_lstm.launches = 0
+
+
+# ---------------------------------------------------------------------------
 # Step selection
 # ---------------------------------------------------------------------------
 
 def step_kernels(params, cfg, state, sc, emb_t):
-    """Decoder step through the attention-core kernel (drop-in for
-    ``step.step``); decode loops take the fused logit tail from its
-    ``make_logit_tail`` attribute."""
+    """Decoder step through the kernels (drop-in for ``step.step``): the
+    attention core always, the spatial core under spatial attention, the
+    gates+LSTM kernel when ``cfg.gates_kernel`` is 'on' or 'auto' (both
+    mean the kernel for CUDA tensors; 'off', every preset's default,
+    keeps the cuBLAS gates).  Decode loops take the fused logit tail from
+    its ``make_logit_tail`` attribute.
+
+    This step plays the role of the JAX package's ``step_pallas_spatial``,
+    not of ``step_pallas``: the JAX package kept XLA's fusion of the
+    spatial chain because its Pallas kernel lost on a TPU, where XLA
+    never materialized the tanh intermediate.  Eager PyTorch has no such
+    fusion: the plain core builds ``e_s`` of shape (Bc, nb, K, R, s) in
+    float32 every step (7.2 GB at decode batch 256, beam 5), so on the
+    card the kernel is the only path that keeps it out of memory."""
+    gates = (gates_lstm if cfg.gates_kernel != "off"
+             else step_mod._gates_lstm)
     return step_mod.step_with_core(params, cfg, state, sc, emb_t,
-                                   attention_core=attention_core)
+                                   attention_core=attention_core,
+                                   spatial_core=spatial_core,
+                                   gates_core=gates)
 
 
 step_kernels.make_logit_tail = make_logit_tail

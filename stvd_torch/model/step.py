@@ -1,10 +1,14 @@
-"""The temporal-attention + LSTM decoder step in plain PyTorch.
+"""The spatial-temporal attention + LSTM decoder step in plain PyTorch.
 
-Counterpart of ``stvd/model/step.py`` for the serving path of the
-temporal model (preset 3): no spatial stream, no int8 gates, no fused
-gates kernel.  It is the correctness oracle for the CUDA kernels in
-``kernel.py`` — ``_attention_core`` here is the plain version of the
-attention-core kernel, ``step_with_core`` swaps one for the other.
+Counterpart of ``stvd/model/step.py`` for decoding: the temporal model
+(preset 3), the spatial stream over R regions per frame (preset 2) and
+the W8A8 int8 gates (``decode_quant='int8'``).  It is the correctness
+oracle for the CUDA kernels in ``kernel.py``: ``_attention_core``,
+``_spatial_core`` and ``_gates_lstm`` here are the plain versions of the
+attention-core, spatial-core and gates+LSTM kernels, and
+``step_with_core`` swaps each for its kernel through a hook.  The
+teacher-forced ``x_pre`` branch of the JAX step belongs to training and
+is not ported yet.
 
 Layouts follow the JAX package at every public function: batch-major
 ``(B, K, D)`` context, a state batch ``Bs = Bc * nb`` that may carry
@@ -54,8 +58,13 @@ class StepContext(NamedTuple):
     pctx: torch.Tensor      # (Bc, K, attn_dim) f32: ctx @ Wc_att + b_att
     ctx_mask: torch.Tensor  # (Bc, K) f32
     mean_ctx: torch.Tensor  # (Bc, ctx_dim) f32 masked mean (for h0/c0)
-    h_att_w: torch.Tensor   # (dim, attn_dim + 1) = [Wd_att | W_sel]
+    h_att_w: torch.Tensor   # (dim, attn_dim + 1 [+ s]) = [Wd_att | W_sel (| Wsd_att)]
     gates_w: torch.Tensor   # (dim_word + dim + ctx_dim, 4 dim) = [W; U; Wc]
+    regions: Optional[torch.Tensor] = None    # (Bc, K, R, Dr) spatial only
+    pregion: Optional[torch.Tensor] = None    # (Bc, K, R, s) f32
+    w_sf_att: Optional[torch.Tensor] = None   # (Dr, attn_dim) f32 = W_spat_fuse @ Wc_att
+    gates_w_q: Optional[torch.Tensor] = None  # int8 gates stack (decode_quant)
+    gates_scale: Optional[torch.Tensor] = None  # (4 dim,) f32 per-column scale
 
 
 class StepOut(NamedTuple):
@@ -63,6 +72,7 @@ class StepOut(NamedTuple):
     c: torch.Tensor         # (B, dim)
     ctx_t: torch.Tensor     # (B, ctx_dim) attended, gated context, f32
     alpha: torch.Tensor     # (B, K) temporal attention weights, f32
+    alpha_s: Optional[torch.Tensor] = None  # (B, K, R) spatial weights, f32
 
 
 def _dot(a: torch.Tensor, b: torch.Tensor, cdtype: torch.dtype
@@ -98,20 +108,23 @@ def cast_params(params: Params, cfg) -> Params:
             for k, v in params.items()}
 
 
-def _check_ported(cfg) -> None:
-    if cfg.use_spatial:
-        raise NotImplementedError("spatial attention is not ported yet")
-    if cfg.decode_quant == "int8":
-        raise NotImplementedError("int8 decode gates are not ported yet")
-    if cfg.gates_kernel != "off":
-        raise NotImplementedError("the fused gates kernel is not ported yet")
+def _check_options(cfg) -> None:
+    """The decode options this port serves (``stvd.config.validate``
+    checks them too, but a ModelConfig may be built without it)."""
+    if cfg.decode_quant not in ("none", "int8"):
+        raise ValueError(f"unknown decode_quant {cfg.decode_quant!r}")
+    if cfg.gates_kernel not in ("auto", "on", "off"):
+        raise ValueError(f"unknown gates_kernel {cfg.gates_kernel!r}")
 
 
 def _h_att_weights(params: Params, cfg) -> torch.Tensor:
-    """h-projection weights of the decode path: [Wd_att | W_sel]."""
-    return torch.cat([params["Wd_att"],
-                      params["W_sel"][:, None].to(params["Wd_att"].dtype)],
-                     dim=1)
+    """h-projection weights of the decode path:
+    [Wd_att | W_sel (| Wsd_att under spatial attention)]."""
+    cols = [params["Wd_att"],
+            params["W_sel"][:, None].to(params["Wd_att"].dtype)]
+    if cfg.use_spatial:
+        cols.append(params["Wsd_att"])
+    return torch.cat(cols, dim=1)
 
 
 def _gates_weights(params: Params) -> torch.Tensor:
@@ -120,18 +133,58 @@ def _gates_weights(params: Params) -> torch.Tensor:
     return torch.cat([params["W"], params["U"], params["Wc"]], dim=0)
 
 
+def quantize_weights(w: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-output-column symmetric int8 grid of a weight stack:
+    (w_q int8, scale (N,) f32) with scale = max(max|w|, 1e-8) / 127 and
+    w_q = clip(round(w / scale), +-127), round half to even as in JAX."""
+    w32 = w.to(torch.float32)
+    scale = w32.abs().amax(dim=0).clamp_min(1e-8) / 127.0
+    w_q = torch.clamp(torch.round(w32 / scale[None, :]), -127, 127)
+    return w_q.to(torch.int8), scale
+
+
+def quantize_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Dynamic per-row int8 quantization of an activation:
+    (x_q int8, s_r (rows, 1) f32), s_r = max(max|x|, 1e-8) / 127.  A
+    division by s_r, not a multiply by its reciprocal, as in JAX."""
+    x32 = x.to(torch.float32)
+    s_r = x32.abs().amax(dim=1, keepdim=True).clamp_min(1e-8) / 127.0
+    x_q = torch.clamp(torch.round(x32 / s_r), -127, 127).to(torch.int8)
+    return x_q, s_r
+
+
 def precompute(params: Params, cfg, ctx: torch.Tensor,
-               ctx_mask: torch.Tensor) -> StepContext:
-    """Hoist the h-independent work out of the decode loop."""
-    _check_ported(cfg)
+               ctx_mask: torch.Tensor,
+               regions: Optional[torch.Tensor] = None) -> StepContext:
+    """Hoist the h-independent work out of the decode loop: the context
+    and region projections, the stacked weights and, under
+    ``decode_quant='int8'``, the int8 gates grid (quantized once from
+    the compute-dtype stack, as in JAX)."""
+    _check_options(cfg)
     cdtype = compute_dtype(cfg)
     pctx = _dot(ctx, params["Wc_att"], cdtype) + params["b_att"]
     denom = ctx_mask.sum(dim=1, keepdim=True).clamp_min(1.0)
     mean_ctx = (ctx * ctx_mask[..., None]).sum(dim=1) / denom
+    pregion = w_sf_att = None
+    if cfg.use_spatial:
+        if regions is None:
+            raise ValueError("use_spatial=True but no region features given")
+        pregion = _dot(regions, params["Ws_att"], cdtype) + params["bs_att"]
+        # pctx'_t = pctx + spat_t @ (W_spat_fuse @ Wc_att): the composed
+        # (Dr, attn_dim) weight saves one matmul per step
+        w_sf_att = _dot(params["W_spat_fuse"], params["Wc_att"], cdtype)
+    gates_w = _gates_weights(params)
+    gates_w_q = gates_scale = None
+    if cfg.decode_quant == "int8":
+        gates_w_q, gates_scale = quantize_weights(gates_w)
+    gates_w = gates_w.to(cdtype)
     return StepContext(ctx=ctx, pctx=pctx, ctx_mask=ctx_mask,
                        mean_ctx=mean_ctx,
                        h_att_w=_h_att_weights(params, cfg),
-                       gates_w=_gates_weights(params))
+                       gates_w=gates_w, regions=regions, pregion=pregion,
+                       w_sf_att=w_sf_att, gates_w_q=gates_w_q,
+                       gates_scale=gates_scale)
 
 
 def init_state(params: Params, cfg, sc: StepContext) -> StepState:
@@ -172,30 +225,121 @@ def _attention_core(h_att, beta_logit, pctx, ctx, ctx_mask, u_att, c_att,
     return ctx_t, alpha
 
 
-def step_with_core(params: Params, cfg, state: StepState, sc: StepContext,
-                   emb_t: torch.Tensor,
-                   attention_core=_attention_core) -> StepOut:
-    """One decode step; ``emb_t`` (B, dim_word) is the previous word's
-    embedding.  Only the decode branch of the JAX step is ported: the
-    teacher-forced ``x_pre`` branch belongs to training."""
-    cdtype = compute_dtype(cfg)
-    dim = cfg.dim
-    attn = cfg.attn_dim
-    h, c = state
-    hp = _dot(h, sc.h_att_w, cdtype)                  # (B, attn + 1)
-    ctx_t, alpha = attention_core(
-        hp[:, :attn], hp[:, attn], sc.pctx, sc.ctx, sc.ctx_mask,
-        params["U_att"], params["c_att"], params["b_sel"], cfg.selector)
-    x_cat = torch.cat([emb_t.to(cdtype), h.to(cdtype), ctx_t.to(cdtype)],
-                      dim=1)
-    preact = _dot(x_cat, sc.gates_w, cdtype) + params["b"]
+def _spatial_core(h_satt, pregion, regions, u_s, c_s, cdtype
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Spatial attention over R regions per frame: the plain version of
+    the spatial-core kernel (port of ``_spatial_core_jnp``).
+
+    ``h_satt`` (Bs, s) carries nb = Bs // Bc beams per context row of
+    ``pregion`` (Bc, K, R, s) / ``regions`` (Bc, K, R, Dr); the region
+    bank is never tiled nb-fold.  The two contractions run in ``cdtype``
+    as the JAX einsums do.  Returns (spat (Bc, nb, K, Dr),
+    alpha_s (Bc, nb, K, R) f32).
+    """
+    bc = pregion.shape[0]
+    bs = h_satt.shape[0]
+    nb = bs // bc
+    hsk = h_satt.to(torch.float32).reshape(bc, nb, 1, 1, h_satt.shape[-1])
+    e_s = torch.tanh(pregion[:, None] + hsk)            # (Bc, nb, K, R, s)
+    e_s = torch.einsum("bjkrd,d->bjkr", e_s.to(cdtype), u_s.to(cdtype))
+    # c_s is a 0-d float32 tensor: added after the upcast, since torch
+    # would not promote a bf16 tensor for it (JAX does)
+    alpha_s = masked_softmax(e_s.to(torch.float32) + c_s, None, dim=-1)
+    spat = torch.einsum("bjkr,bkrd->bjkd", alpha_s.to(cdtype),
+                        regions.to(cdtype))               # (Bc, nb, K, Dr)
+    return spat, alpha_s
+
+
+def _int8_mm(x_q: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
+    """Exact int32 product of int8 operands.  On the card through
+    ``torch._int_mm`` (cuBLASLt), which refuses shapes whose rows are not
+    a multiple of 16 (at least 32), or whose depth and width are not
+    multiples of 8: zero rows and columns pad the operands where needed,
+    which leaves every sum unchanged.  On the CPU an int32 matmul."""
+    if not x_q.is_cuda:
+        return x_q.to(torch.int32) @ w_q.to(torch.int32)
+    m, k = x_q.shape
+    n = w_q.shape[1]
+    pm, pk, pn = max(32, -(-m // 16) * 16) - m, -k % 8, -n % 8
+    if pm or pk:
+        x_q = torch.nn.functional.pad(x_q, (0, pk, 0, pm))
+    if pk or pn:
+        w_q = torch.nn.functional.pad(w_q, (0, pn, 0, pk))
+    return torch._int_mm(x_q, w_q)[:m, :n]
+
+
+def _gates_lstm(x, w, b, c, s_r=None, scale=None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """LSTM gates and state update: the plain version of the gates+LSTM
+    kernel.  ``x`` (rows, Kx) is the [emb | h | ctx_t] row block and ``w``
+    (Kx, 4 dim) the [W; U; Wc] stack, both in the compute dtype, or both
+    int8 with the row scales ``s_r`` (rows, 1) and column scales ``scale``
+    (4 dim,) of W8A8.  The preactivation is the float32 sum (int32 under
+    int8, dequantized as ``acc * (s_r * scale)``) plus ``b``; gate order
+    i, f, o, g.  Returns (h_t, c_t), float32."""
+    if w.dtype == torch.int8:
+        acc = _int8_mm(x, w)
+        preact = acc.to(torch.float32) * (s_r * scale[None, :]) + b
+    else:
+        preact = _dot(x, w, w.dtype) + b
+    dim = w.shape[1] // 4
     i = torch.sigmoid(preact[:, 0 * dim: 1 * dim])
     f = torch.sigmoid(preact[:, 1 * dim: 2 * dim])
     o = torch.sigmoid(preact[:, 2 * dim: 3 * dim])
     g = torch.tanh(preact[:, 3 * dim: 4 * dim])
     c_t = f * c + i * g
     h_t = o * torch.tanh(c_t)
-    return StepOut(h=h_t, c=c_t, ctx_t=ctx_t, alpha=alpha)
+    return h_t, c_t
+
+
+def step_with_core(params: Params, cfg, state: StepState, sc: StepContext,
+                   emb_t: torch.Tensor,
+                   attention_core=_attention_core,
+                   spatial_core=_spatial_core,
+                   gates_core=_gates_lstm) -> StepOut:
+    """One decode step; ``emb_t`` (B, dim_word) is the previous word's
+    embedding.  Only the decode branch of the JAX step is ported: the
+    teacher-forced ``x_pre`` branch belongs to training.  The three hooks
+    take the plain cores by default and the CUDA kernels in
+    ``kernel.step_kernels``."""
+    cdtype = compute_dtype(cfg)
+    attn = cfg.attn_dim
+    h, c = state
+    hp = _dot(h, sc.h_att_w, cdtype)                  # (B, attn + 1 [+ s])
+    # beam broadcast: context tensors keep their (Bc, ...) batch; only
+    # the recurrent state carries the beam axis (Bs = Bc * nb)
+    bs = h.shape[0]
+    nb = bs // sc.ctx.shape[0]
+    ctx_k, pctx_k, ctx_mask = sc.ctx, sc.pctx, sc.ctx_mask
+    alpha_s = None
+    if cfg.use_spatial:
+        spat, alpha_s = spatial_core(
+            hp[:, attn + 1:], sc.pregion, sc.regions, params["Us_att"],
+            params["cs_att"], cdtype)
+        # the fused context differs per beam: (Bs, K, .) from here on,
+        # and the attention core runs with nb = 1 on Bs rows
+        k_f = ctx_k.shape[1]
+        ctx_k = (ctx_k[:, None] + _dot(spat, params["W_spat_fuse"], cdtype)
+                 ).reshape(bs, k_f, -1)
+        pctx_k = (pctx_k[:, None] + _dot(spat, sc.w_sf_att, cdtype)
+                  ).reshape(bs, k_f, -1)
+        alpha_s = alpha_s.reshape(bs, k_f, -1)
+        if nb > 1:
+            ctx_mask = ctx_mask.repeat_interleave(nb, dim=0)
+    ctx_t, alpha = attention_core(
+        hp[:, :attn], hp[:, attn], pctx_k, ctx_k, ctx_mask,
+        params["U_att"], params["c_att"], params["b_sel"], cfg.selector)
+    x_cat = torch.cat([emb_t.to(cdtype), h.to(cdtype), ctx_t.to(cdtype)],
+                      dim=1)
+    if sc.gates_w_q is not None:
+        # W8A8: the activation is quantized here, once, so the kernel and
+        # the plain core see the same x_q and s_r
+        x_q, s_r = quantize_rows(x_cat)
+        h_t, c_t = gates_core(x_q, sc.gates_w_q, params["b"], c, s_r,
+                              sc.gates_scale)
+    else:
+        h_t, c_t = gates_core(x_cat, sc.gates_w, params["b"], c)
+    return StepOut(h=h_t, c=c_t, ctx_t=ctx_t, alpha=alpha, alpha_s=alpha_s)
 
 
 def step(params: Params, cfg, state: StepState, sc: StepContext,

@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain versions, on the card.
 
 Skips without a CUDA device.  Ragged shapes here (odd batch, K > 32,
-vocab not a multiple of the tile, rows not a multiple of the row tile)
+R > 32, widths not a multiple of 4, vocab not a multiple of the tile,
+rows, depths and dims not a multiple of the row, depth and dim tiles)
 complement chip_smoke.py, which checks the kernels at the serving shapes.
 This file imports no jax, so it runs where only torch is installed:
 
@@ -92,6 +93,63 @@ def test_logit_tail_kernel_zero_weights_pick_lowest_columns(cuda):
     torch.testing.assert_close(lse.cpu(), torch.full((33,), np.log(700.0)))
 
 
+@pytest.mark.parametrize("nb,r,s,dr,reg_dtype", [
+    (1, 7, 12, 10, torch.float32), (3, 49, 130, 67, torch.bfloat16),
+    (8, 37, 13, 301, torch.bfloat16), (5, 49, 1024, 1024, torch.bfloat16)])
+def test_spatial_core_kernel_matches_plain(cuda, nb, r, s, dr, reg_dtype):
+    """h_satt is a strided column slice of a wider projection, as in the
+    step; the plain version runs at float32 on the same inputs."""
+    g = torch.Generator(device=cuda).manual_seed(r)
+    bc, k = 3, 5
+    hp = torch.randn(bc * nb, s + 9, generator=g, device=cuda)
+    pregion = torch.randn(bc, k, r, s, generator=g, device=cuda)
+    regions = torch.randn(bc, k, r, dr, generator=g, device=cuda).to(reg_dtype)
+    u = 3.0 * torch.randn(s, generator=g, device=cuda) / s ** 0.5
+    c_s = torch.tensor(0.3, device=cuda)
+    args = (hp[:, 9:], pregion, regions, u, c_s)
+    before = tkernel.spatial_core.launches
+    got = tkernel.spatial_core(*args, torch.float32)
+    ref = tstep._spatial_core(*args, torch.float32)
+    torch.cuda.synchronize()
+    assert tkernel.spatial_core.launches == before + 1
+    for x, y in zip(got, ref):
+        torch.testing.assert_close(x, y.float(), rtol=1e-4, atol=1e-5)
+
+
+def gates_operands(rows, kx, dim, mode, device, seed=0):
+    """(x, w, b, c, s_r, scale) for one gates+LSTM call in ``mode``; int8
+    operands are quantized with the step's own helpers."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(rows, kx, generator=g, device=device)
+    w = torch.randn(kx, 4 * dim, generator=g, device=device) / kx ** 0.5
+    b = torch.randn(4 * dim, generator=g, device=device)
+    c = torch.randn(rows, dim, generator=g, device=device)
+    if mode == "int8":
+        x_q, s_r = tstep.quantize_rows(x)
+        w_q, scale = tstep.quantize_weights(w)
+        return x_q, w_q, b, c, s_r, scale
+    dtype = torch.bfloat16 if mode == "bf16" else torch.float32
+    return x.to(dtype), w.to(dtype), b, c, None, None
+
+
+@pytest.mark.parametrize("mode", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("rows,kx,dim", [
+    (1, 16, 8), (37, 272, 128), (185, 277, 100), (130, 5120, 35)])
+def test_gates_lstm_kernel_matches_plain(cuda, mode, rows, kx, dim):
+    """Ragged rows, depths and dims in every mode; kx 277 and dim 35/100
+    take the element-load path.  The int8 sums are exact, so int8 is held
+    to 1e-5."""
+    ops = gates_operands(rows, kx, dim, mode, cuda, seed=rows)
+    before = tkernel.gates_lstm.launches
+    got = tkernel.gates_lstm(*ops)
+    ref = tstep._gates_lstm(*ops)
+    torch.cuda.synchronize()
+    assert tkernel.gates_lstm.launches == before + 1
+    tol = 1e-5 if mode == "int8" else 1e-4
+    for x, y in zip(got, ref):
+        torch.testing.assert_close(x, y, rtol=tol, atol=tol)
+
+
 def test_kernel_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError):
         tkernel.logit_tail(torch.zeros(4, 8, device=cuda),
@@ -106,3 +164,20 @@ def test_kernel_wrappers_reject_what_the_kernels_do_not_take(cuda):
             torch.ones(1, 3, device=cuda), torch.zeros(4, device=cuda),
             torch.tensor(0.0, device=cuda), torch.tensor(0.0, device=cuda),
             True)
+    with pytest.raises(ValueError):            # 9 beams of one context row
+        tkernel.spatial_core(
+            torch.zeros(9, 4, device=cuda), torch.zeros(1, 2, 3, 4,
+                                                        device=cuda),
+            torch.zeros(1, 2, 3, 5, device=cuda),
+            torch.zeros(4, device=cuda), torch.tensor(0.0, device=cuda),
+            torch.float32)
+    with pytest.raises(ValueError):            # int8 without its scales
+        tkernel.gates_lstm(
+            torch.zeros(4, 8, device=cuda, dtype=torch.int8),
+            torch.zeros(8, 16, device=cuda, dtype=torch.int8),
+            torch.zeros(16, device=cuda), torch.zeros(4, 4, device=cuda))
+    with pytest.raises(ValueError):            # mixed operand dtypes
+        tkernel.gates_lstm(
+            torch.zeros(4, 8, device=cuda),
+            torch.zeros(8, 16, device=cuda, dtype=torch.bfloat16),
+            torch.zeros(16, device=cuda), torch.zeros(4, 4, device=cuda))

@@ -1,0 +1,239 @@
+"""The port's gates paths (bf16/float32 and W8A8 int8) against the JAX
+package's.
+
+The int8 grid, its scales and the activation quantization must be
+identical to JAX's, bit for bit.  The gates step is held against JAX's
+oracle step and its fused gates+LSTM Pallas kernel (interpret mode,
+``gates_kernel='on'``), on lane-aligned dims like the JAX package's own
+gates tests (dim and ctx_dim multiples of 128, which its kernel needs):
+float32 tensors agree within 1e-5.  Decoded tokens under
+``decode_quant='int8'`` are identical.
+"""
+
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from stvd.config import ModelConfig
+from stvd.decode import beam as jbeam
+from stvd.model import kernel as jkernel
+from stvd.model import step as jstep
+from stvd_torch.decode import beam as tbeam
+from stvd_torch.model import kernel as tkernel
+from stvd_torch.model import step as tstep
+from stvd_torch.model.convert import params_from_numpy
+
+from conftest import small_cfg
+from test_torch_step import close, numpy_frames, numpy_params
+
+TOL = dict(rtol=1e-5, atol=1e-5)
+STEPS = {"plain": tstep.step, "kernels": tkernel.step_kernels}
+
+
+def gk_cfg(**kw):
+    """Lane-aligned dims, as ``tests/test_kernel.py:_gk_cfg``."""
+    base = dict(n_words=48, dim_word=16, dim=128, ctx_dim=128, n_frames=6,
+                compute_dtype="float32", use_dropout=False,
+                gates_kernel="on")
+    base.update(kw)
+    return ModelConfig(**base)
+
+
+def both_contexts(cfg, p, frames, mask):
+    jp = jstep.cast_params({k: jnp.asarray(v) for k, v in p.items()}, cfg)
+    tp = tstep.cast_params(params_from_numpy(p), cfg)
+    jsc = jstep.precompute(jp, cfg, jnp.asarray(frames).astype(
+        jnp.dtype(cfg.compute_dtype)), jnp.asarray(mask))
+    tsc = tstep.precompute(tp, cfg, torch.from_numpy(frames).to(
+        tstep.compute_dtype(cfg)), torch.from_numpy(mask))
+    return jp, jsc, tp, tsc
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_int8_weight_grid_matches_jax(compute_dtype):
+    """Quantized from the compute-dtype [W; U; Wc] stack after the
+    weight cast: identical int8 weights and per-column scales."""
+    cfg = gk_cfg(decode_quant="int8", compute_dtype=compute_dtype)
+    p = numpy_params(cfg, seed=1)
+    p["Wc"][:, 5] = 0.0                         # an all-zero column: 1e-8 floor
+    frames, mask = numpy_frames(cfg, 2)
+    _, jsc, _, tsc = both_contexts(cfg, p, frames, mask)
+    assert tsc.gates_w_q.dtype == torch.int8
+    np.testing.assert_array_equal(tsc.gates_w_q.numpy(),
+                                  np.asarray(jsc.gates_w_q))
+    np.testing.assert_array_equal(tsc.gates_scale.numpy(),
+                                  np.asarray(jsc.gates_scale))
+    assert int(tsc.gates_w_q.abs().max()) == 127
+
+
+def jax_quantize_rows(x):
+    """The JAX int8 branch's activation quantization
+    (``stvd/model/step.py:460-464``, repeated in ``gates_lstm_pallas``)."""
+    x32 = x.astype(jnp.float32)
+    s_r = jnp.maximum(jnp.max(jnp.abs(x32), axis=1, keepdims=True),
+                      1e-8) / 127.0
+    return jnp.clip(jnp.round(x32 / s_r), -127, 127).astype(jnp.int8), s_r
+
+
+def test_activation_quantization_matches_jax():
+    """Identical x_q and s_r for a shared x_cat, exact halves (rounded to
+    even) and an all-zero row included."""
+    rng = np.random.RandomState(3)
+    x = rng.randn(6, 272).astype(np.float32)
+    x[0, :4] = [127.0, 2.5, 3.5, -0.5]          # s_r = 1: halves to even
+    x[1] = 0.0
+    got_q, got_s = tstep.quantize_rows(torch.from_numpy(x))
+    ref_q, ref_s = jax_quantize_rows(jnp.asarray(x))
+    np.testing.assert_array_equal(got_q.numpy(), np.asarray(ref_q))
+    np.testing.assert_array_equal(got_s.numpy(), np.asarray(ref_s))
+    assert got_q[0, :4].tolist() == [127, 2, 4, 0]
+    assert float(got_q[1].abs().max()) == 0.0
+
+
+def step_inputs(cfg, bc=3, nb=2, seed=4):
+    p = numpy_params(cfg, seed=seed)
+    frames, mask = numpy_frames(cfg, bc, seed=seed + 1)
+    rng = np.random.RandomState(seed + 2)
+    h = np.tanh(rng.randn(bc * nb, cfg.dim)).astype(np.float32)
+    c = rng.randn(bc * nb, cfg.dim).astype(np.float32)
+    emb = rng.randn(bc * nb, cfg.dim_word).astype(np.float32)
+    return p, frames, mask, h, c, emb
+
+
+@pytest.mark.parametrize("quant", ["none", "int8"])
+@pytest.mark.parametrize("cfg_fn", [gk_cfg, small_cfg], ids=["aligned",
+                                                             "ragged"])
+def test_gates_step_matches_jax(quant, cfg_fn):
+    """The port's plain step and its kernel step (the gates+LSTM wrapper
+    takes its plain version on the CPU) against JAX's oracle step and,
+    on aligned dims, its fused gates+LSTM Pallas kernel.  The int32 sums
+    are exact and both sides quantize the same x_cat, so int8 holds the
+    float32 bar too."""
+    cfg = cfg_fn(decode_quant=quant, gates_kernel="on")
+    p, frames, mask, h, c, emb = step_inputs(cfg)
+    jp, jsc, tp, tsc = both_contexts(cfg, p, frames, mask)
+    jst = jstep.StepState(jnp.asarray(h), jnp.asarray(c))
+    refs = [jstep.step(jp, cfg, jst, jsc, jnp.asarray(emb))]
+    if cfg_fn is gk_cfg:
+        assert jsc.gk_w is not None              # JAX's kernel engages
+        refs.append(jkernel.step_pallas(jp, cfg, jst, jsc, jnp.asarray(emb)))
+    tst = tstep.StepState(torch.from_numpy(h), torch.from_numpy(c))
+    for fn in STEPS.values():
+        got = fn(tp, cfg, tst, tsc, torch.from_numpy(emb))
+        for ref in refs:
+            for name in ("h", "c", "ctx_t", "alpha"):
+                close(getattr(got, name), getattr(ref, name))
+
+
+@pytest.mark.parametrize("quant", ["none", "int8"])
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_gates_lstm_matches_jax_kernel(quant, compute_dtype):
+    """The gates+LSTM core alone on shared operands: the port's wrapper
+    (plain version on the CPU) against ``gates_lstm_pallas``, with rows
+    off the JAX kernel's 128-row tile.  bf16 operands have exact float32
+    products on both sides, so every mode holds the float32 bar."""
+    cfg = gk_cfg(decode_quant=quant, compute_dtype=compute_dtype)
+    p, frames, mask, h, c, emb = step_inputs(cfg, bc=5, nb=1, seed=9)
+    ctx_t = np.random.RandomState(10).randn(5, cfg.ctx_dim).astype(
+        np.float32)
+    jp, jsc, tp, tsc = both_contexts(cfg, p, frames, mask)
+    ref_h, ref_c = jkernel.gates_lstm_pallas(
+        jnp.asarray(emb), jnp.asarray(h), jnp.asarray(ctx_t),
+        jnp.asarray(c), jsc, cfg)
+    cdtype = tstep.compute_dtype(cfg)
+    x = torch.cat([torch.from_numpy(a).to(cdtype) for a in (emb, h, ctx_t)],
+                  dim=1)
+    if quant == "int8":
+        x_q, s_r = tstep.quantize_rows(x)
+        ref_q, ref_s = jax_quantize_rows(jnp.asarray(x.float().numpy()))
+        np.testing.assert_array_equal(x_q.numpy(), np.asarray(ref_q))
+        got = tkernel.gates_lstm(x_q, tsc.gates_w_q, tp["b"],
+                                 torch.from_numpy(c), s_r, tsc.gates_scale)
+    else:
+        assert tsc.gates_w.dtype == cdtype
+        got = tkernel.gates_lstm(x, tsc.gates_w, tp["b"],
+                                 torch.from_numpy(c))
+    close(got[0], ref_h)
+    close(got[1], ref_c)
+
+
+def test_int8_mm_is_exact():
+    rng = np.random.RandomState(11)
+    a = rng.randint(-127, 128, (7, 45)).astype(np.int8)
+    b = rng.randint(-127, 128, (45, 13)).astype(np.int8)
+    got = tstep._int8_mm(torch.from_numpy(a), torch.from_numpy(b))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(),
+                                  a.astype(np.int64) @ b.astype(np.int64))
+
+
+def test_int8_beam_decode_matches_jax():
+    """Beam decode under decode_quant='int8': tokens identical to JAX's
+    (its oracle step and its Pallas step with the gates kernel on)."""
+    cfg = gk_cfg(decode_quant="int8", n_words=64)
+    p, frames, mask, *_ = step_inputs(cfg, bc=4, nb=1, seed=12)
+    mask[2, 3:] = 0.0
+    jp = {k: jnp.asarray(v) for k, v in p.items()}
+    jbatch = {"frames": jnp.asarray(frames), "frame_mask": jnp.asarray(mask)}
+    refs = [jbeam.beam_decode(jp, cfg, jbatch, beam_size=3, maxlen=8),
+            jbeam.beam_decode(jp, cfg, jbatch, beam_size=3, maxlen=8,
+                              step_fn=jkernel.step_pallas)]
+    tbatch = {"frames": torch.from_numpy(frames),
+              "frame_mask": torch.from_numpy(mask)}
+    for fn in STEPS.values():
+        out = tbeam.beam_decode(params_from_numpy(p), cfg, tbatch,
+                                beam_size=3, maxlen=8, step_fn=fn)
+        for ref in refs:
+            np.testing.assert_array_equal(out.tokens.numpy(),
+                                          np.asarray(ref.tokens))
+            np.testing.assert_allclose(out.scores.numpy(),
+                                       np.asarray(ref.scores), **TOL)
+
+
+def test_wrappers_take_plain_versions_on_cpu():
+    """On CPU tensors neither new wrapper launches a kernel, and the
+    kernel step picks the gates kernel only when gates_kernel asks."""
+    tkernel.spatial_core.launches = 0
+    tkernel.gates_lstm.launches = 0
+    rng = np.random.RandomState(13)
+    args = [torch.from_numpy(a) for a in (
+        rng.randn(6, 8).astype(np.float32),
+        rng.randn(3, 4, 5, 8).astype(np.float32),
+        rng.randn(3, 4, 5, 7).astype(np.float32),
+        rng.randn(8).astype(np.float32))] + [torch.tensor(0.2)]
+    got = tkernel.spatial_core(*args, torch.float32)
+    ref = tstep._spatial_core(*args, torch.float32)
+    assert all(torch.equal(g, r) for g, r in zip(got, ref))
+    x = torch.from_numpy(rng.randn(5, 12).astype(np.float32))
+    w = torch.from_numpy(rng.randn(12, 16).astype(np.float32))
+    b = torch.from_numpy(rng.randn(16).astype(np.float32))
+    c = torch.from_numpy(rng.randn(5, 4).astype(np.float32))
+    got = tkernel.gates_lstm(x, w, b, c)
+    ref = tstep._gates_lstm(x, w, b, c)
+    assert all(torch.equal(g, r) for g, r in zip(got, ref))
+    assert tkernel.spatial_core.launches == 0
+    assert tkernel.gates_lstm.launches == 0
+
+    seen = []
+
+    def spy(*a):
+        seen.append(a[1].dtype)
+        return tstep._gates_lstm(*a)
+
+    cfg = small_cfg(decode_quant="int8", gates_kernel="off")
+    p, frames, mask, h, c, emb = step_inputs(cfg, nb=1)
+    _, _, tp, tsc = both_contexts(cfg, p, frames, mask)
+    st = tstep.StepState(torch.from_numpy(h), torch.from_numpy(c))
+    orig = tkernel.gates_lstm
+    try:
+        tkernel.gates_lstm = spy
+        tkernel.step_kernels(tp, cfg, st, tsc, torch.from_numpy(emb))
+        assert seen == []
+        tkernel.step_kernels(tp, dataclasses.replace(cfg, gates_kernel="on"),
+                             st, tsc, torch.from_numpy(emb))
+        assert seen == [torch.int8]
+    finally:
+        tkernel.gates_lstm = orig

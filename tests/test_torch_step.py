@@ -164,13 +164,15 @@ def test_bf16_dot_keeps_float32_result():
 
 
 @pytest.mark.parametrize("field,value", [("use_spatial", True),
-                                         ("decode_quant", "int8"),
-                                         ("gates_kernel", "on")])
+                                         ("decode_quant", "int4"),
+                                         ("gates_kernel", "maybe")])
 def test_precompute_rejects_unported(field, value):
+    """What precompute cannot serve: a spatial model without region
+    features (as in JAX), and option values nobody implements."""
     cfg = small_cfg(**{field: value})
     tp = params_from_numpy(numpy_params(small_cfg()))
     frames, mask = numpy_frames(cfg, 2)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):
         tstep.precompute(tp, cfg, torch.from_numpy(frames),
                          torch.from_numpy(mask))
 
