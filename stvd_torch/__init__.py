@@ -4,6 +4,7 @@ NVIDIA Hopper.
 A port of the JAX package ``stvd`` beside it, which stays the reference:
 module paths and parameter names mirror it, and the tests hold each
 ported function against its JAX counterpart.  The package imports torch
-and never jax; from ``stvd`` it reuses only the framework-free config,
-vocabulary and numpy feature-bank packing.
+and never jax, and nothing of ``stvd``: what it needs of the JAX
+package's framework-free modules (config, vocabulary, numpy feature-bank
+packing, synthetic data) it keeps as its own copy.
 """

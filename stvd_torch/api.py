@@ -19,18 +19,16 @@ from typing import Callable, Dict, List, Optional, Sequence, Union
 import numpy as np
 import torch
 
-from stvd.config import Config, preset
-from stvd.data.bank import pack_bank
-from stvd.data.text import Vocab
-
-from .data.bank import to_device
+from .config import Config, preset
+from .data.bank import pack_bank, to_device
+from .data.text import Vocab
 from .decode.beam import beam_decode
 from .decode.greedy import greedy_decode
 from .model.decoder import StepFn
 from .model.kernel import get_step_fn
 from .model.step import compute_dtype
 
-# the shared, framework-free config and vocabulary a caller needs
+# the config and vocabulary a caller needs
 __all__ = ["Captioner", "Config", "Vocab", "chunked_caption",
            "pack_request", "preset"]
 
@@ -63,7 +61,7 @@ def pack_request(model_cfg, features, device: torch.device | str,
     in the compute dtype, frame_mask float32).  ``features`` is (N, F, D)
     or a list of (F_i, D) arrays, ``regions`` a matching sequence of
     (F_i, R, Dr) arrays; frame counts are subsampled or padded to the
-    model's K by the shared numpy ``pack_bank``."""
+    model's K by ``pack_bank``."""
     if motion is not None:
         raise NotImplementedError("the motion stream is not ported yet")
     if isinstance(features, np.ndarray) and features.ndim == 3:

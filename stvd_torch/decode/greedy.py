@@ -6,8 +6,7 @@ from typing import Dict, NamedTuple, Optional
 
 import torch
 
-from stvd.data.text import EOS_ID
-
+from ..data.text import EOS_ID
 from ..model import step as step_mod
 from ..model.decoder import StepFn, encode_context
 from ..model.step import (StepState, init_state, logit_activation,

@@ -16,7 +16,7 @@ from .step import Params
 
 
 def params_from_numpy(arrays: Dict[str, np.ndarray],
-                      device: torch.device | str = "cpu",
+                      device: torch.device | str = "cuda",
                       dtype: torch.dtype = torch.float32) -> Params:
     return {k: torch.from_numpy(np.array(v, copy=True)).to(device=device,
                                                            dtype=dtype)

@@ -33,7 +33,7 @@ def _ortho_stack(g: torch.Generator, nin: int, nblocks: int, device
 
 
 def init_params(cfg, generator: torch.Generator,
-                device: torch.device | str = "cpu") -> Params:
+                device: torch.device | str = "cuda") -> Params:
     """The full parameter dict, float32, on ``device``.  ``generator``
     must live on the same device."""
     d, dw, dc, da = cfg.dim, cfg.dim_word, cfg.ctx_dim, cfg.attn_dim

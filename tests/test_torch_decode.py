@@ -67,7 +67,7 @@ def torch_batch(frames, mask):
 @pytest.mark.parametrize("step", sorted(STEPS))
 def test_greedy_matches_jax(step):
     p, frames, mask = inputs()
-    out = greedy_decode(params_from_numpy(p), CFG, torch_batch(frames, mask),
+    out = greedy_decode(params_from_numpy(p, "cpu"), CFG, torch_batch(frames, mask),
                         maxlen=MAXLEN, step_fn=STEPS[step])
     ref = jax_out("greedy")
     np.testing.assert_array_equal(out.tokens.numpy(), ref["tokens"])
@@ -80,7 +80,7 @@ def test_greedy_matches_jax(step):
 @pytest.mark.parametrize("step", sorted(STEPS))
 def test_beam_matches_jax(k, step):
     p, frames, mask = inputs()
-    out = tbeam.beam_decode(params_from_numpy(p), CFG,
+    out = tbeam.beam_decode(params_from_numpy(p, "cpu"), CFG,
                             torch_batch(frames, mask), beam_size=k,
                             maxlen=MAXLEN, step_fn=STEPS[step])
     ref = jax_out("beam", k)
@@ -93,7 +93,7 @@ def test_beam_matches_jax(k, step):
 
 def test_beam_k1_equals_greedy():
     p, frames, mask = inputs()
-    params = params_from_numpy(p)
+    params = params_from_numpy(p, "cpu")
     batch = torch_batch(frames, mask)
     g = greedy_decode(params, CFG, batch, maxlen=MAXLEN)
     b = tbeam.beam_decode(params, CFG, batch, beam_size=1, maxlen=MAXLEN)
@@ -123,7 +123,7 @@ def test_beam_exits_early_once_every_beam_ends():
         calls.append(1)
         return tstep.step(*args)
 
-    out = tbeam.beam_decode(params_from_numpy(p), CFG,
+    out = tbeam.beam_decode(params_from_numpy(p, "cpu"), CFG,
                             torch_batch(frames, mask), beam_size=3,
                             maxlen=MAXLEN, step_fn=counted)
     assert len(calls) == 2

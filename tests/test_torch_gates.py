@@ -44,7 +44,7 @@ def gk_cfg(**kw):
 
 def both_contexts(cfg, p, frames, mask):
     jp = jstep.cast_params({k: jnp.asarray(v) for k, v in p.items()}, cfg)
-    tp = tstep.cast_params(params_from_numpy(p), cfg)
+    tp = tstep.cast_params(params_from_numpy(p, "cpu"), cfg)
     jsc = jstep.precompute(jp, cfg, jnp.asarray(frames).astype(
         jnp.dtype(cfg.compute_dtype)), jnp.asarray(mask))
     tsc = tstep.precompute(tp, cfg, torch.from_numpy(frames).to(
@@ -184,7 +184,7 @@ def test_int8_beam_decode_matches_jax():
     tbatch = {"frames": torch.from_numpy(frames),
               "frame_mask": torch.from_numpy(mask)}
     for fn in STEPS.values():
-        out = tbeam.beam_decode(params_from_numpy(p), cfg, tbatch,
+        out = tbeam.beam_decode(params_from_numpy(p, "cpu"), cfg, tbatch,
                                 beam_size=3, maxlen=8, step_fn=fn)
         for ref in refs:
             np.testing.assert_array_equal(out.tokens.numpy(),

@@ -94,7 +94,7 @@ def test_spatial_precompute_matches_jax():
     jsc = jstep.precompute({k: jnp.asarray(v) for k, v in p.items()}, CFG,
                            jnp.asarray(frames), jnp.asarray(mask),
                            jnp.asarray(regions))
-    tsc = tstep.precompute(params_from_numpy(p), CFG,
+    tsc = tstep.precompute(params_from_numpy(p, "cpu"), CFG,
                            torch.from_numpy(frames), torch.from_numpy(mask),
                            torch.from_numpy(regions))
     for name in ("pctx", "pregion", "w_sf_att", "h_att_w", "gates_w"):
@@ -123,7 +123,7 @@ def test_spatial_step_matches_jax(nb):
     jst = jstep.StepState(jnp.asarray(h), jnp.asarray(c))
     refs = [jstep.step(jp, CFG, jst, jsc, jnp.asarray(emb)),
             jkernel.step_pallas_spatial(jp, CFG, jst, jsc, jnp.asarray(emb))]
-    tp = params_from_numpy(p)
+    tp = params_from_numpy(p, "cpu")
     tsc = tstep.precompute(tp, CFG, torch.from_numpy(frames),
                            torch.from_numpy(mask), torch.from_numpy(regions))
     tst = tstep.StepState(torch.from_numpy(h), torch.from_numpy(c))
@@ -171,7 +171,7 @@ def torch_batch():
 @pytest.mark.parametrize("step", sorted(STEPS))
 def test_spatial_greedy_matches_jax(step, jax_decodes):
     p = decode_inputs()[0]
-    out = greedy_decode(params_from_numpy(p), CFG, torch_batch(),
+    out = greedy_decode(params_from_numpy(p, "cpu"), CFG, torch_batch(),
                         maxlen=MAXLEN, step_fn=STEPS[step])
     ref = jax_decodes["greedy"]
     np.testing.assert_array_equal(out.tokens.numpy(), ref["tokens"])
@@ -182,7 +182,7 @@ def test_spatial_greedy_matches_jax(step, jax_decodes):
 @pytest.mark.parametrize("step", sorted(STEPS))
 def test_spatial_beam_matches_jax(step, jax_decodes):
     p = decode_inputs()[0]
-    out = tbeam.beam_decode(params_from_numpy(p), CFG, torch_batch(),
+    out = tbeam.beam_decode(params_from_numpy(p, "cpu"), CFG, torch_batch(),
                             beam_size=3, maxlen=MAXLEN, step_fn=STEPS[step])
     ref = jax_decodes["beam"]
     for f in ("tokens", "lengths", "all_tokens"):

@@ -48,7 +48,7 @@ def numpy_frames(cfg, n, seed=1):
 def both_params(cfg, seed=0):
     p = numpy_params(cfg, seed)
     return ({k: jnp.asarray(v) for k, v in p.items()},
-            params_from_numpy(p))
+            params_from_numpy(p, "cpu"))
 
 
 def close(t, j, **tol):
@@ -170,7 +170,7 @@ def test_precompute_rejects_unported(field, value):
     """What precompute cannot serve: a spatial model without region
     features (as in JAX), and option values nobody implements."""
     cfg = small_cfg(**{field: value})
-    tp = params_from_numpy(numpy_params(small_cfg()))
+    tp = params_from_numpy(numpy_params(small_cfg()), "cpu")
     frames, mask = numpy_frames(cfg, 2)
     with pytest.raises(ValueError):
         tstep.precompute(tp, cfg, torch.from_numpy(frames),
@@ -196,7 +196,7 @@ def test_encode_context_single_stream_is_identity():
 def test_init_params_names_and_shapes_match_jax(variant):
     cfg = small_cfg(**variant)
     ref = jax_init_params(jax.random.PRNGKey(0), cfg)
-    got = init_params(cfg, torch.Generator().manual_seed(0))
+    got = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     assert sorted(got) == sorted(ref)
     for k in ref:
         assert tuple(got[k].shape) == tuple(ref[k].shape), k
@@ -209,7 +209,7 @@ def test_init_params_names_and_shapes_match_jax(variant):
 
 def test_params_numpy_round_trip_is_lossless():
     p = numpy_params(small_cfg())
-    back = params_to_numpy(params_from_numpy(p))
+    back = params_to_numpy(params_from_numpy(p, "cpu"))
     assert back["c_att"].shape == () and back["b_sel"].shape == ()
     for k in p:
         np.testing.assert_array_equal(back[k], p[k])
