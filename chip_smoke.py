@@ -42,7 +42,14 @@ NAME = "msvd-beam"     # preset 3: the serving path bench.py measures
 SPATIAL = "msvd-spatial"   # preset 2: the model the paper is named for
 KERNEL_TOL = 1e-4      # float32 sums over A=1024 / K=28 / dw=512 in another order
 INT8_TOL = 1e-5        # int32 sums are exact; only the pointwise math differs
-KERNELS = ("attention_core", "spatial_core", "gates_lstm", "logit_tail")
+TRAIN_BF16_TOL = 1e-2  # of the largest entry: one bf16 ulp of tanh may flip
+GRAD_TOL = 1e-4        # per leaf, of its largest entry: kernel vs plain
+KERNELS = ("attention_core", "spatial_core", "gates_lstm", "logit_tail",
+           "spatial_bwd", "train_tail", "dws_gemm")
+# NVIDIA H100 SXM data sheet, dense: HBM3 3.35 TB/s; tensor cores 989
+# TFLOP/s bf16, 1979 TOP/s int8; 67 TFLOP/s float32 outside them
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
 
 
 _T0 = [time.perf_counter()]
@@ -89,6 +96,29 @@ def time_ms(fn, iters: int = 50) -> float:
 def max_err(got, ref) -> float:
     return max(float((g.float() - r.float()).abs().max())
                for g, r in zip(got, ref))
+
+
+def rel_err(got, ref) -> float:
+    """Max abs difference over the reference's largest entry."""
+    return max(float((g.float() - r.float()).abs().max())
+               / max(float(r.float().abs().max()), 1e-30)
+               for g, r in zip(got, ref))
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(n_bytes: float, n_ops: float, kind: str) -> dict:
+    """The least time the card could take for the work: the larger of
+    its bytes (each input read once, each output written once) over the
+    memory rate and its operations over the peak rate of their type
+    (tanh and exp count as one operation)."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / PEAK_OPS_PER_S[kind] * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": n_bytes, "ops": n_ops, "ops_type": kind}
 
 
 def phase_device() -> dict:
@@ -151,9 +181,15 @@ def phase_attention(kernel, step_mod, dev, g, cfg) -> dict:
     args = (hp[:, :a], hp[:, a], pctx, ctx, mask, u, c_att, b_sel, True)
     ms = time_ms(lambda: kernel.attention_core(*args))
     plain_ms = time_ms(lambda: step_mod._attention_core(*args))
+    bs = bc * nb
+    # in: h_att, beta, pctx, ctx, mask, u; out: ctx_t, alpha.  Per
+    # (row, frame): tanh-score over A, then the context sum over Dc
+    traffic = (4 * bs * (a + 1) + nbytes(pctx, ctx, mask, u)
+               + 4 * bs * (dc + k))
     out = {"phase": "kernel_attention_core", "shape": [bc, nb, k, a, dc],
            "max_abs_err": err, "errs": errs, "tol": KERNEL_TOL, "ms": ms,
-           "plain_ms": plain_ms}
+           "plain_ms": plain_ms, "library_ms": None,
+           **bound(traffic, bs * k * (4 * a + 2 * dc), "f32")}
     emit(out)
     return out
 
@@ -214,9 +250,12 @@ def phase_tail(kernel, dev, g, seed, cfg) -> dict:
     err = max(c.get("max_abs_err", 0.0) for c in cases.values())
     ms = time_ms(lambda: kernel.logit_tail(xb, w, b, 5))
     plain_ms = time_ms(lambda: kernel._logit_tail_plain(xb, w, b, 5))
+    # in: x, W, b; out: k values, k int64 ids and the lse per row
+    traffic = nbytes(xb, w, b) + rows * (5 * 12 + 4)
     out = {"phase": "kernel_logit_tail", "shape": [rows, dw, v, 5],
            "max_abs_err": err, "cases": cases, "tol": KERNEL_TOL, "ms": ms,
-           "plain_ms": plain_ms}
+           "plain_ms": plain_ms, "library_ms": None,
+           **bound(traffic, 2 * rows * dw * v, "bf16")}
     emit(out)
     return out
 
@@ -251,11 +290,18 @@ def phase_spatial(kernel, step_mod, dev, g, cfg) -> dict:
                 lambda: step_mod._spatial_core(*args, torch.float32), 5)}
     err = max(errs.values())
     require(err <= KERNEL_TOL, f"spatial kernel disagrees: {errs}")
-    nb0 = f"nb{cfg.decode.beam_size}"
+    nb = cfg.decode.beam_size
+    bs = bc * nb
+    # in: h_satt, pregion, regions, u_s; out: spat (bf16), alpha_s.  Per
+    # (row, frame, region): tanh-score over s, weighted sum over Dr
+    traffic = (4 * bs * s + nbytes(pregion, regions, u)
+               + bs * k * (2 * dr + 4 * r))
     out = {"phase": "kernel_spatial_core", "shape": [bc, k, r, s, dr],
            "max_abs_err": err, "errs": errs, "tol": KERNEL_TOL,
-           "ms": times[nb0]["ms"], "plain_ms": times[nb0]["plain_ms"],
-           "times": times}
+           "ms": times[f"nb{nb}"]["ms"],
+           "plain_ms": times[f"nb{nb}"]["plain_ms"], "times": times,
+           "library_ms": None,
+           **bound(traffic, bs * k * r * (4 * s + 2 * dr), "f32")}
     emit(out)
     torch.cuda.empty_cache()
     return out
@@ -302,11 +348,15 @@ def phase_gates(kernel, step_mod, dev, g, cfg) -> dict:
                     "ms": time_ms(lambda: kernel.gates_lstm(*ops), 20),
                     "plain_ms": time_ms(
                         lambda: step_mod._gates_lstm(*ops), 20)}
+    # int8 mode: in x_q, W_q, bias, s_r, scale, c; out h, c
+    traffic = (rows * kx + kx * 4 * dim + 2 * 4 * 4 * dim + 4 * rows
+               + 3 * 4 * rows * dim)
     out = {"phase": "kernel_gates_lstm", "shape": [rows, kx, 4 * dim],
            "max_abs_err": cases["int8_rows%d" % rows], "cases": cases,
            "tol": {"f32": KERNEL_TOL, "bf16": KERNEL_TOL, "int8": INT8_TOL},
            "ms": times["int8"]["ms"], "plain_ms": times["int8"]["plain_ms"],
-           "times": times}
+           "times": times, "library_ms": None,
+           **bound(traffic, 2 * rows * kx * 4 * dim, "int8")}
     emit(out)
     return out
 
@@ -458,6 +508,304 @@ def phase_profile(api, dev, params, vocab, seed, cfg, phase) -> None:
                   for us, k, c in rows[:20]]})
 
 
+def phase_spatial_bwd(kernel, dev, g, cfg, batch) -> dict:
+    """Kernel 5 at the preset-2 training shapes (B 64, K 28, R 49,
+    s = Dr = 1024): float32 operands with a float32 accumulator, and bf16
+    operands with a bf16 (the default) and a float32 accumulator, each
+    against the plain version on the same inputs, the accumulator
+    updated in place by both."""
+    m = cfg.model
+    b, k, r, s, dr = batch, m.n_frames, m.n_regions, m.region_dim, \
+        m.region_dim
+    off = 4 * m.dim + m.attn_dim + 1
+    f32, bf16 = torch.float32, torch.bfloat16
+    rnd = lambda *shape: torch.randn(*shape, generator=g, device=dev)
+    hp = rnd(b, off + s)
+    pregion = 0.5 * rnd(b, k, r, s)
+    regions = rnd(b, k, r, dr)
+    alpha_s = torch.softmax(rnd(b, k, r), -1)
+    alpha_prev = torch.softmax(rnd(b, k, r), -1)
+    dspat, u_s = rnd(b, k, dr), 3.0 * rnd(s) / s ** 0.5
+    dpe0 = 0.01 * rnd(b, k, r, s)
+    cases, times = {}, {}
+    for cd, acc in ((f32, f32), (bf16, f32), (bf16, bf16)):
+        name = f"{str(cd)[6:]}_acc_{str(acc)[6:]}"
+        args = (hp[:, off:], pregion.to(cd), regions.to(cd), alpha_s,
+                alpha_prev, dspat, u_s)
+        dpe_k, dpe_p = dpe0.to(acc, copy=True), dpe0.to(acc, copy=True)
+        got = (dpe_k, *kernel.spatial_bwd(*args, dpe_k))
+        ref = (dpe_p, *kernel._spatial_bwd_plain(*args, dpe_p))
+        torch.cuda.synchronize()
+        require(all(bool(torch.isfinite(t).all()) for t in got),
+                f"spatial backward kernel {name}: non-finite output")
+        tol = KERNEL_TOL if cd == f32 else TRAIN_BF16_TOL
+        cases[name] = {"max_abs_err": max_err(got, ref),
+                       "rel_err": rel_err(got, ref), "tol_rel": tol}
+        require(cases[name]["rel_err"] <= tol,
+                f"spatial backward kernel {name} disagrees: {cases[name]}")
+        del got, ref
+        times[name] = {
+            "ms": time_ms(lambda: kernel.spatial_bwd(*args, dpe_k), 20),
+            "plain_ms": time_ms(
+                lambda: kernel._spatial_bwd_plain(*args, dpe_p), 5)}
+        # in: h_satt, pregion, regions, alpha_s, alpha_prev, dspat, u_s,
+        # Dpe; out: Dpe, dh_satt, du_s, dss, spat_prev
+        cd_b, acc_b = torch.finfo(cd).bits // 8, torch.finfo(acc).bits // 8
+        traffic = (4 * b * s + b * k * r * (s + dr) * cd_b
+                   + 4 * (2 * b * k * r + b * k * dr + s)
+                   + 2 * b * k * r * s * acc_b
+                   + 4 * (b * s + s + b * k * r) + b * k * dr * cd_b)
+        times[name].update(bound(traffic, b * k * r * (9 * s + 4 * dr),
+                                 "f32"))
+        torch.cuda.empty_cache()
+    main = "bfloat16_acc_bfloat16"
+    out = {"phase": "kernel_spatial_bwd", "shape": [b, k, r, s, dr],
+           "max_abs_err": cases[main]["max_abs_err"], "cases": cases,
+           "times": times, "library_ms": None, **times[main]}
+    emit(out)
+    return out
+
+
+def phase_train_tail(kernel, dev, g, cfg, batch) -> dict:
+    """Kernel 6 at the training shapes (rows 64, dc 1024, 4 dim 14336)
+    and a ragged 37 rows, bf16 and float32 Wc; x_pre is one step of the
+    time-major view and h_gates a column view of the h-projection, as
+    in the scan."""
+    m = cfg.model
+    dc, dim = m.ctx_dim, m.dim
+    f32, bf16 = torch.float32, torch.bfloat16
+    rnd = lambda *shape: torch.randn(*shape, generator=g, device=dev)
+    wc32 = rnd(dc, 4 * dim) / dc ** 0.5
+    cases, times = {}, {}
+    for cd in (bf16, f32):
+        wc = wc32.to(cd)
+        for rows in (batch, 37):
+            x_pre = rnd(rows, 3, 4 * dim).transpose(0, 1)[1]
+            hp = rnd(rows, 4 * dim + m.attn_dim + 1)
+            ctx_t, c = rnd(rows, dc), rnd(rows, dim)
+            args = (ctx_t, x_pre, hp[:, :4 * dim], c, wc, cd)
+            got = kernel.train_tail(*args)
+            ref = kernel._train_tail_plain(*args)
+            torch.cuda.synchronize()
+            name = f"{str(cd)[6:]}_rows{rows}"
+            cases[name] = {"max_abs_err": max_err(got, ref),
+                           "rel_err": rel_err(got, ref)}
+            require(all(bool(torch.isfinite(t).all()) for t in got),
+                    f"train tail kernel {name}: non-finite output")
+            require(cases[name]["max_abs_err"] <= KERNEL_TOL,
+                    f"train tail kernel {name} disagrees: {cases[name]}")
+            if rows == batch:
+                times[str(cd)[6:]] = {
+                    "ms": time_ms(lambda: kernel.train_tail(*args)),
+                    "plain_ms": time_ms(
+                        lambda: kernel._train_tail_plain(*args)),
+                    # in: ctx_t, Wc, x_pre, h_gates, c; out: h, c, preact
+                    **bound(nbytes(ctx_t.to(cd), wc)
+                            + 4 * rows * (3 * 4 * dim + 3 * dim),
+                            2 * rows * dc * 4 * dim,
+                            "bf16" if cd == bf16 else "f32")}
+    out = {"phase": "kernel_train_tail", "shape": [batch, dc, 4 * dim],
+           "max_abs_err": cases[f"bfloat16_rows{batch}"]["max_abs_err"],
+           "cases": cases, "tol": KERNEL_TOL, "times": times,
+           "library_ms": None, **times["bfloat16"]}
+    emit(out)
+    return out
+
+
+def phase_dws(kernel, dev, g, cfg, batch) -> dict:
+    """Kernel 7, dWs_att = regions^T @ d(pregion), at the preset-2
+    training shapes (N = B*K*R = 87808, Dr = s = 1024) in bf16 and in
+    float32, against the plain version; ``torch.mm(a.t(), b,
+    out_dtype=float32)`` is timed beside it as the library yardstick."""
+    m = cfg.model
+    n, dr, s = batch * m.n_frames * m.n_regions, m.region_dim, m.region_dim
+    a32 = torch.randn(n, dr, generator=g, device=dev)
+    b32 = 0.01 * torch.randn(n, s, generator=g, device=dev)
+    cases, times = {}, {}
+    for dt in (torch.bfloat16, torch.float32):
+        a, b = a32.to(dt), b32.to(dt)
+        got = kernel.dws_gemm(a, b)
+        ref = kernel._dws_plain(a, b)
+        torch.cuda.synchronize()
+        name = str(dt)[6:]
+        cases[name] = {"max_abs_err": max_err([got], [ref]),
+                       "rel_err": rel_err([got], [ref])}
+        require(bool(torch.isfinite(got).all()),
+                f"dWs_att kernel {name}: non-finite output")
+        require(cases[name]["rel_err"] <= KERNEL_TOL,
+                f"dWs_att kernel {name} disagrees: {cases[name]}")
+        lib = ((lambda: torch.mm(a.t(), b, out_dtype=torch.float32))
+               if dt == torch.bfloat16 else (lambda: torch.mm(a.t(), b)))
+        times[name] = {
+            "ms": time_ms(lambda: kernel.dws_gemm(a, b), 10),
+            "plain_ms": time_ms(lambda: kernel._dws_plain(a, b), 10),
+            "library_ms": time_ms(lib, 10),
+            **bound(nbytes(a, b) + 4 * dr * s, 2 * n * dr * s,
+                    "bf16" if dt == torch.bfloat16 else "f32")}
+        del a, b, got, ref
+    out = {"phase": "kernel_dws", "shape": [n, dr, s],
+           "max_abs_err": cases["bfloat16"]["max_abs_err"], "cases": cases,
+           "tol_rel": KERNEL_TOL, "times": times, **times["bfloat16"]}
+    emit(out)
+    del a32, b32
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_setup(cfg, dev, seed, batch):
+    """A train state from ``seed`` and one synthetic batch at the
+    config's widths (frames, and regions for the spatial model, made by
+    the port's synthetic dataset from ``seed``)."""
+    from stvd_torch.data.bank import to_device
+    from stvd_torch.data.batching import (BatchIterator, gather_batch,
+                                          synthetic_dataset)
+    from stvd_torch.model.step import compute_dtype
+    from stvd_torch.train.loop import init_train_state
+    m = cfg.model
+    ds = synthetic_dataset(
+        n_videos=batch, captions_per_video=2, k=m.n_frames, d=m.ctx_dim,
+        n_regions=m.n_regions if m.use_spatial else 0,
+        region_dim=m.region_dim, maxlen=cfg.train.maxlen, seed=seed)
+    bank = to_device(ds.bank, dev, compute_dtype(m))
+    idx, w = next(BatchIterator(ds.captions.n, batch, seed=seed).epoch())
+    b = gather_batch(bank, ds.captions, idx)
+    b["weight"] = torch.from_numpy(w).to(dev)
+    state = init_train_state(seed, m, cfg.train, dev)
+    return state, b
+
+
+def phase_train(kernel, dev, seed, cfg, phase, expect, updates=5) -> dict:
+    """``make_train_step`` at full width, batch 64, T 30, adadelta with
+    global-norm clip 10: one warm-up update, then ``updates`` updates on
+    one batch with every kernel's launches counted from zero.  Each
+    update ends in a host read of its loss (synced wall time).  Those
+    in ``expect`` must launch T times an update (``dws_gemm`` once), the
+    others not at all; the loss must stay finite and fall."""
+    from stvd_torch.train.loop import make_train_step
+    state, batch = train_setup(cfg, dev, seed, cfg.train.batch_size)
+    train_step = make_train_step(cfg.model, cfg.train)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, m = train_step(state, batch)
+    first = float(m["loss"])
+    warm_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(kernel)
+    losses, secs = [], []
+    for _ in range(updates):
+        t0 = time.perf_counter()
+        state, m = train_step(state, batch)
+        losses.append(float(m["loss"]))
+        secs.append(time.perf_counter() - t0)
+    launches = read_launches(kernel)
+    steps = batch["tokens"].shape[1]
+    want = {k: 0 for k in KERNELS}
+    for name in expect:
+        want[name] = updates * (1 if name == "dws_gemm" else steps)
+    require(launches == want, f"{phase}: kernel launches {launches} != "
+                              f"{want}")
+    require(all(np.isfinite([first] + losses)), f"{phase}: loss not finite")
+    require(losses[-1] < first, f"{phase}: loss did not fall {losses}")
+    step_s = float(np.median(secs))
+    out = {"phase": phase,
+           "config": {k: getattr(cfg.model, k) for k in (
+               "use_spatial", "compute_dtype", "spatial_bwd_kernel",
+               "train_tail_kernel", "train_fwd_kernel",
+               "spatial_wgrad_dtype")},
+           "batch": cfg.train.batch_size, "steps_T": steps,
+           "optimizer": cfg.train.optimizer, "clip_c": cfg.train.clip_c,
+           "warmup_update_s": warm_s, "loss_warmup": first,
+           "loss_per_update": losses, "seconds_per_update": secs,
+           "median_step_s": step_s, "steps_per_s": 1.0 / step_s,
+           "grad_norm_last": float(m["grad_norm"]),
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "launches": launches}
+    emit(out)
+    del state, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_kernel_vs_plain(kernel, dev, seed, cfg, batch=16) -> None:
+    """One train step's loss and gradients at float32, full width, batch
+    16: every training kernel on against every one off, on the same
+    weights and batch.  Per parameter, max|g_kernel - g_plain| must stay
+    within GRAD_TOL of max|g_plain|; c_att and cs_att shift every score
+    of a softmax alike, so their gradient is zero up to rounding and is
+    held to GRAD_TOL of the largest gradient entry of the model.  Frames
+    and regions are drawn i.i.d. normal: the synthetic dataset's frames
+    of a video differ by 0.1-scale noise, so the attention weights are
+    near uniform and the softmax backwards subtract near-equal terms,
+    which magnifies float32 rounding of any summation order."""
+    from stvd_torch.train.loss import loss_fn
+    cfg = with_model(cfg, compute_dtype="float32", use_dropout=False)
+    state, b = train_setup(cfg, dev, seed, batch)
+    gen = torch.Generator(device=dev).manual_seed(seed + 3)
+    for key in ("frames", "regions"):
+        b[key] = torch.randn(b[key].shape, generator=gen, device=dev)
+    params = state["params"]
+    out = {}
+    for name, switch in (("kernels", "on"), ("plain", "off")):
+        mcfg = dataclasses.replace(cfg.model, spatial_bwd_kernel=switch,
+                                   train_tail_kernel=switch,
+                                   train_fwd_kernel=switch)
+        t0 = time.perf_counter()
+        loss, _ = loss_fn(params, mcfg, b, train=False)
+        grads = [torch.zeros_like(p) if gr is None else gr
+                 for p, gr in zip(params.values(), torch.autograd.grad(
+                     loss, list(params.values()), allow_unused=True))]
+        torch.cuda.synchronize()
+        out[name] = (float(loss.detach()), dict(zip(params, grads)),
+                     time.perf_counter() - t0)
+    (lk, gk, sk), (lp, gp, sp) = out["kernels"], out["plain"]
+    top = max(float(v.abs().max()) for v in gp.values())
+    worst = {}
+    for k in gp:
+        scale = top if k in ("c_att", "cs_att") else max(
+            float(gp[k].abs().max()), 1e-30)
+        worst[k] = float((gk[k] - gp[k]).abs().max()) / scale
+    bad = {k: v for k, v in worst.items() if not v <= GRAD_TOL}
+    loss_rel = abs(lk - lp) / abs(lp)
+    emit({"phase": "train_kernel_vs_plain_f32", "batch": batch,
+          "loss_kernels": lk, "loss_plain": lp, "loss_rel_diff": loss_rel,
+          "worst_leaf": max(worst, key=worst.get),
+          "worst_rel": max(worst.values()), "bar": GRAD_TOL,
+          "kernels_seconds": sk, "plain_seconds": sp})
+    require(loss_rel <= 1e-5, f"train kernel vs plain loss: {lk} vs {lp}")
+    require(not bad, f"train kernel vs plain gradients: {bad}")
+    del state, b, out, gk, gp
+    torch.cuda.empty_cache()
+
+
+def phase_train_profile(dev, seed, cfg) -> None:
+    """Device time by kernel over one preset-2 train step."""
+    from torch.profiler import ProfilerActivity, profile
+    from stvd_torch.train.loop import make_train_step
+    state, batch = train_setup(cfg, dev, seed, cfg.train.batch_size)
+    train_step = make_train_step(cfg.model, cfg.train)
+    state, m = train_step(state, batch)
+    float(m["loss"])
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, m = train_step(state, batch)
+        float(m["loss"])
+        wall = time.perf_counter() - t0
+    rows = sorted(((ev.self_device_time_total, ev.key, ev.count)
+                   for ev in prof.key_averages()
+                   if ev.device_type == torch.autograd.DeviceType.CUDA
+                   and not ev.key.startswith("Activity Buffer")),
+                  reverse=True)
+    total = sum(r[0] for r in rows)
+    emit({"phase": "profile_train_spatial", "wall_s": wall,
+          "device_s": total / 1e6,
+          "idle_share": 1.0 - total / 1e6 / wall if wall else None,
+          "top": [{"name": k[:80], "ms": us / 1e3, "count": c}
+                  for us, k, c in rows[:25]]})
+    del state, batch
+    torch.cuda.empty_cache()
+
+
 def with_model(cfg, **kw):
     return cfg.replace(model=dataclasses.replace(cfg.model, **kw))
 
@@ -528,15 +876,35 @@ def main() -> int:
     if args.profile:
         phase_profile(api, dev, params_sp, vocab, args.seed, cfg_sp,
                       "profile_spatial")
+    del params_sp
+    torch.cuda.empty_cache()
+
+    # training: preset 2 at full width, and preset 3 with the tail kernel
+    batch = cfg_sp.train.batch_size
+    spatial_bwd = phase_spatial_bwd(kernel, dev, g, cfg_sp, batch)
+    train_tail = phase_train_tail(kernel, dev, g, cfg, batch)
+    dws = phase_dws(kernel, dev, g, cfg_sp, batch)
+    train = phase_train(kernel, dev, args.seed, cfg_sp, "train_spatial",
+                        ("spatial_bwd", "dws_gemm"))
+    train_t = phase_train(kernel, dev, args.seed,
+                          with_model(cfg, train_tail_kernel="on"),
+                          "train_temporal_tail", ("train_tail",))
+    phase_train_kernel_vs_plain(kernel, dev, args.seed, cfg_sp)
+    if args.profile:
+        phase_train_profile(dev, args.seed, cfg_sp)
     require("jax" not in sys.modules, "the port imported jax")
+    require(not any(m == "stvd" or m.startswith("stvd.")
+                    for m in sys.modules),
+            "the port imported the JAX package")
 
     src = "stvd_torch/csrc/"
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
 
     def row(name, source, replaces, launches, measured):
         return {"name": name, "route": "cuda", "source": src + source,
                 "replaces": replaces, "launches": launches,
-                "max_abs_err": measured["max_abs_err"],
-                "ms": measured["ms"], "plain_ms": measured["plain_ms"]}
+                **{k: measured[k] for k in keys}}
 
     emit({"kernels": [
         row("attention_core", "attn_core.cu", "stvd/model/kernel.py:45",
@@ -547,6 +915,12 @@ def main() -> int:
             serving_sp["launches"]["spatial_core"], spatial),
         row("gates_lstm", "gates_lstm.cu", "stvd/model/kernel.py:854",
             serving_q["launches"]["gates_lstm"], gates),
+        row("spatial_bwd", "spatial_bwd.cu", "stvd/model/kernel.py:385",
+            train["launches"]["spatial_bwd"], spatial_bwd),
+        row("train_tail", "train_tail.cu", "stvd/model/kernel.py:1032",
+            train_t["launches"]["train_tail"], train_tail),
+        row("dws_gemm", "dws_gemm.cu", "tools/probe_dws_gemm.py:87",
+            train["launches"]["dws_gemm"], dws),
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": info["name"],
                                  "count": info["count"]}})

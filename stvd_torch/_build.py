@@ -24,7 +24,8 @@ _PKG = Path(__file__).resolve().parent
 _CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "stvd_torch"
 SOURCES = ("attn_core.cu", "logit_tail.cu", "spatial_core.cu",
-           "gates_lstm.cu")
+           "gates_lstm.cu", "spatial_bwd.cu", "train_tail.cu", "dws_gemm.cu")
+HEADERS = ("gates_mma.cuh",)
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -43,6 +44,12 @@ _SIGNATURES = {
                           _I, _I, _P],
     "stvd_spatial_core_max_beams": [],
     "stvd_gates_lstm": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "stvd_spatial_bwd": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P,
+                         _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "stvd_train_tail": [_P, _P, _I, _P, _L, _P, _L, _P, _P, _P, _P, _I, _I,
+                        _I, _P],
+    "stvd_dws_splits": [_L, _I, _I, _I],
+    "stvd_dws_gemm": [_P, _P, _I, _P, _P, _L, _I, _I, _I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -63,7 +70,7 @@ def _nvcc() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((_CSRC / name).read_bytes())
     return h.hexdigest()[:16]
@@ -86,7 +93,8 @@ def build() -> Path:
     nvcc = _nvcc()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
         objs = [str(Path(tmpdir, Path(name).stem + ".o")) for name in SOURCES]
-        cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(_CSRC / name)]
+        cmds = [[nvcc, *NVCC_FLAGS, "-I", str(_CSRC), "-c", "-o", obj,
+                 str(_CSRC / name)]
                 for name, obj in zip(SOURCES, objs)]
         procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                   stderr=subprocess.STDOUT, text=True)

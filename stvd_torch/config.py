@@ -45,8 +45,9 @@ class ModelConfig:
     wgrad_dtype: str = "float32"    # JAX-only scan-accumulator knob
     spatial_wgrad_dtype: str = "bfloat16"  # dtype of the spatial VJP's
     # pregion-cotangent accumulator (float32 whenever compute is float32)
-    spatial_bwd_kernel: str = "auto"  # spatial backward-step kernel in
-    # the spatial VJP: 'auto'/'on' = the kernel for CUDA tensors
+    spatial_bwd_kernel: str = "auto"  # spatial backward-step and dWs_att
+    # GEMM kernels of the spatial VJP: 'auto'/'on' = the kernels for CUDA
+    # tensors
     train_fwd_kernel: str = "off"   # attention-core kernel in the train
     # forward scan: 'auto'/'on' = the kernel for CUDA tensors
     train_tail_kernel: str = "off"  # train-scan tail kernel (Wc product

@@ -1,4 +1,5 @@
-"""Parameter init and input fusion (counterpart of stvd/model/decoder.py).
+"""Parameter init, input fusion and the teacher-forced training forward
+(counterpart of stvd/model/decoder.py).
 
 Parameter names, shapes and scales are those of the JAX package's
 ``init_params``; the random numbers differ (a torch generator is not a
@@ -7,10 +8,12 @@ JAX key), so parity tests share weights through ``convert`` instead.
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+import dataclasses
+from typing import Callable, Dict, NamedTuple, Optional
 
 import torch
 
+from . import step as step_mod
 from .step import Params, StepOut
 
 # (params, cfg, state, step_context, emb_t) -> StepOut
@@ -96,3 +99,62 @@ def encode_context(params: Params, cfg, frames: torch.Tensor,
     if cfg.encoder == "lstm":
         raise NotImplementedError("the frame-LSTM encoder is not ported yet")
     return frames
+
+
+class ForwardOut(NamedTuple):
+    logits: torch.Tensor          # (B, T, n_words) float32
+    alphas: torch.Tensor          # (B, T, K) temporal attention maps
+    nll_per_example: torch.Tensor  # (B,)
+
+
+def forward_train(params: Params, cfg, batch: Dict[str, torch.Tensor],
+                  generator: Optional[torch.Generator] = None,
+                  train: bool = True, ss_prob: float = 0.0) -> ForwardOut:
+    """Teacher-forced forward over a batch (frames (B, K, D), frame_mask
+    (B, K), tokens (B, T), token_mask (B, T), regions (B, K, R, Dr) for
+    the spatial model).  The scan runs through the hand-derived sequence
+    VJP of ``seqgrad``; the vocab projection then runs once over all
+    (B, T) states.  ``generator`` draws the train dropout and must live on
+    the batch's device.  Training never quantizes: ``decode_quant`` is
+    forced to 'none'."""
+    if ss_prob > 0.0:
+        raise NotImplementedError(
+            "scheduled sampling (ss_prob > 0) is not ported yet: it comes "
+            "with the scheduled-sampling slice (ROADMAP.md, Queue 1)")
+    if not cfg.fused_seq_grad:
+        raise NotImplementedError(
+            "only the hand-derived sequence VJP (fused_seq_grad=True) is "
+            "ported; the autodiff scan comes with the scheduled-sampling "
+            "slice (ROADMAP.md, Queue 1)")
+    from . import seqgrad
+    if cfg.decode_quant != "none":
+        cfg = dataclasses.replace(cfg, decode_quant="none")
+    params = step_mod.cast_params(params, cfg)
+    cdtype = step_mod.compute_dtype(cfg)
+    tokens = batch["tokens"]
+    ctx = encode_context(params, cfg, batch["frames"], batch.get("motion"))
+    sc = step_mod.precompute(params, cfg, ctx, batch["frame_mask"],
+                             batch.get("regions"))
+    state0 = step_mod.init_state(params, cfg, sc)
+    emb_all = params["Wemb"][tokens]                      # (B, T, dw)
+    # step t sees gold word t-1, zeros at t = 0
+    emb_in = torch.cat([torch.zeros_like(emb_all[:, :1]), emb_all[:, :-1]],
+                       dim=1)
+    x_pre_all = step_mod._dot(emb_in, params["W"], cdtype) + params["b"]
+    run = seqgrad.run_spatial if cfg.use_spatial else seqgrad.run
+    hs, ctxs, alphas = run(params, cfg, sc, state0,
+                           x_pre_all.transpose(0, 1))
+    logits = step_mod.logits_from_states(
+        params, cfg, hs.transpose(0, 1), ctxs.transpose(0, 1), emb_in,
+        generator, train)
+    nll = sequence_nll(logits, tokens, batch["token_mask"])
+    return ForwardOut(logits=logits, alphas=alphas.transpose(0, 1),
+                      nll_per_example=nll)
+
+
+def sequence_nll(logits: torch.Tensor, tokens: torch.Tensor,
+                 mask: torch.Tensor) -> torch.Tensor:
+    """Per-example summed negative log-likelihood of the gold tokens."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    gold = torch.gather(logp, -1, tokens[..., None].long())[..., 0]
+    return -(gold * mask).sum(dim=-1)

@@ -1,16 +1,20 @@
-"""The decode path's CUDA kernels, each beside its plain PyTorch version.
+"""The port's CUDA kernels, each beside its plain PyTorch version.
 
-Counterpart of ``stvd/model/kernel.py`` for the four kernels the serving
-paths run: the temporal-attention core, the spatial-attention core
-(preset 2), the fused gates+LSTM step (bf16 or W8A8 int8, engaged by
-``cfg.gates_kernel``) and the fused logit tail.  Sources are in
+Counterpart of ``stvd/model/kernel.py`` (and of the dWs_att GEMM of
+``tools/probe_dws_gemm.py``).  Serving: the temporal-attention core, the
+spatial-attention core (preset 2), the fused gates+LSTM step (bf16 or
+W8A8 int8, engaged by ``cfg.gates_kernel``) and the fused logit tail.
+Training: the spatial backward step (preset 2), the train-scan tail
+(``cfg.train_tail_kernel``) and the region projection's weight gradient
+``dWs_att = regions^T @ d(pregion)``.  Sources are in
 ``stvd_torch/csrc``; ``_build`` compiles them for sm_90a on first use.
 
 Each wrapper runs the plain version for tensors on the CPU and launches
 its kernel for tensors on a CUDA device, raising on what the kernel does
 not take.  Each keeps a plain-integer ``launches`` count that grows by one
-per kernel call (a call of the logit tail is its two passes), so a run
-can show that the main path went through the kernels.
+per kernel call (a call that takes a second reduction pass, as the logit
+tail, the spatial backward step and the dWs_att GEMM do, counts once), so
+a run can show that the main path went through the kernels.
 """
 
 from __future__ import annotations
@@ -286,6 +290,253 @@ def gates_lstm(x, w, b, c, s_r=None, scale=None
 
 
 gates_lstm.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Kernel 6: train-scan tail (csrc/train_tail.cu)
+# ---------------------------------------------------------------------------
+
+def _train_tail_plain(ctx_t, x_pre_t, h_gates, c, wc, cdtype
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One train-scan step's tail: preact = (x_pre_t + h_gates) + ctx_t @
+    Wc, then the LSTM pointwise.  Returns (h_t, c_t, preact), float32."""
+    preact = x_pre_t + h_gates + step_mod._dot(ctx_t, wc, cdtype)
+    dim = wc.shape[1] // 4
+    i = torch.sigmoid(preact[:, 0 * dim: 1 * dim])
+    f = torch.sigmoid(preact[:, 1 * dim: 2 * dim])
+    o = torch.sigmoid(preact[:, 2 * dim: 3 * dim])
+    g = torch.tanh(preact[:, 3 * dim: 4 * dim])
+    c_t = f * c + i * g
+    return o * torch.tanh(c_t), c_t, preact
+
+
+def _train_tail_cuda(ctx_t, x_pre_t, h_gates, c, wc, cdtype):
+    f32 = torch.float32
+    rows, dc = ctx_t.shape
+    n4 = wc.shape[1]
+    dim = n4 // 4
+    _require(wc.shape[0] == dc and n4 == 4 * dim and dim > 0
+             and tuple(x_pre_t.shape) == (rows, n4)
+             and tuple(h_gates.shape) == (rows, n4)
+             and tuple(c.shape) == (rows, dim),
+             "train_tail: inconsistent shapes")
+    _require(cdtype in (f32, torch.bfloat16),
+             "train_tail: compute dtype must be float32 or bf16")
+    _require(x_pre_t.dtype == f32 and h_gates.dtype == f32
+             and x_pre_t.stride(1) == 1 and h_gates.stride(1) == 1,
+             "train_tail: x_pre and h_gates must be float32 rows")
+    tensors = (ctx_t, x_pre_t, h_gates, c, wc)
+    _require(ctx_t.is_cuda and all(t.device == ctx_t.device for t in tensors),
+             "train_tail: all operands must be on one CUDA device")
+    x = ctx_t.to(cdtype).contiguous()
+    w = wc.to(cdtype).contiguous()
+    c = c.to(f32).contiguous()
+    h_t = torch.empty((rows, dim), dtype=f32, device=x.device)
+    c_t = torch.empty((rows, dim), dtype=f32, device=x.device)
+    pre = torch.empty((rows, n4), dtype=f32, device=x.device)
+    err = _build.lib().stvd_train_tail(
+        x.data_ptr(), w.data_ptr(), int(cdtype == torch.bfloat16),
+        x_pre_t.data_ptr(), x_pre_t.stride(0), h_gates.data_ptr(),
+        h_gates.stride(0), c.data_ptr(), h_t.data_ptr(), c_t.data_ptr(),
+        pre.data_ptr(), rows, dc, dim, _launch_stream())
+    _build.check(err, "train-tail kernel")
+    train_tail.launches += 1
+    return h_t, c_t, pre
+
+
+def train_tail(ctx_t, x_pre_t, h_gates, c, wc, cdtype
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(h_t, c_t, preact) of one train-scan step, the preactivation kept
+    for the hand-derived backward.  CPU tensors take the plain version;
+    CUDA tensors take the kernel, which masks ragged rows and widths."""
+    if ctx_t.device.type == "cpu":
+        return _train_tail_plain(ctx_t, x_pre_t, h_gates, c, wc, cdtype)
+    return _train_tail_cuda(ctx_t, x_pre_t, h_gates, c, wc, cdtype)
+
+
+train_tail.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Kernel 5: spatial backward step (csrc/spatial_bwd.cu)
+# ---------------------------------------------------------------------------
+
+def _spatial_bwd_plain(h_satt, pregion_c, regions_c, alpha_s, alpha_prev,
+                       dspat, u_s, dpe_acc):
+    """One reverse step of the spatial stage at nb = 1, in the compute
+    dtype of ``pregion_c`` / ``regions_c`` with float32 sums (the Pallas
+    kernel's contract).  Adds this step's pregion cotangent into
+    ``dpe_acc`` (B, K, R, s) in place and returns (dh_satt (B, s) f32,
+    du_s (s,) f32, dss (B, K, R) f32, spat_prev (B, K, Dr) compute dtype),
+    ``spat_prev`` being the previous step's attended regions."""
+    cd = pregion_c.dtype
+    f32 = torch.float32
+    e_s = torch.tanh(pregion_c + h_satt.to(cd)[:, None, None, :])
+    dalpha = torch.einsum("bkrd,bkd->bkr", regions_c.to(f32),
+                          dspat.to(f32))
+    al = alpha_s.to(f32)
+    dss = al * (dalpha - (al * dalpha).sum(dim=-1, keepdim=True))
+    du = torch.einsum("bkr,bkrd->d", dss, e_s.to(f32))
+    dpe = (dss[..., None] * u_s.to(f32)).to(cd) * (1.0 - e_s * e_s)
+    dpe_acc.add_(dpe.to(dpe_acc.dtype))
+    dh = dpe.to(f32).sum(dim=(1, 2))
+    # bf16 operands are exact in float32: float32 sums, one rounding
+    spat_prev = torch.einsum("bkr,bkrd->bkd", alpha_prev.to(cd).to(f32),
+                             regions_c.to(f32)).to(cd)
+    return dh, du, dss, spat_prev
+
+
+def _spatial_bwd_cuda(h_satt, pregion_c, regions_c, alpha_s, alpha_prev,
+                      dspat, u_s, dpe_acc):
+    f32, bf16 = torch.float32, torch.bfloat16
+    b, k, r, s = pregion_c.shape
+    dr = regions_c.shape[-1]
+    cd = pregion_c.dtype
+    _require(tuple(h_satt.shape) == (b, s)
+             and tuple(regions_c.shape[:3]) == (b, k, r)
+             and tuple(alpha_s.shape) == (b, k, r)
+             and tuple(alpha_prev.shape) == (b, k, r)
+             and tuple(dspat.shape) == (b, k, dr)
+             and tuple(u_s.shape) == (s,)
+             and tuple(dpe_acc.shape) == (b, k, r, s),
+             "spatial_bwd: inconsistent shapes")
+    _require(cd in (f32, bf16) and regions_c.dtype == cd,
+             "spatial_bwd: pregion and regions must share float32 or bf16")
+    _require(dpe_acc.dtype in (f32, bf16) and (cd == bf16
+                                               or dpe_acc.dtype == f32),
+             "spatial_bwd: the accumulator is float32, or bf16 under bf16")
+    _require(dpe_acc.is_contiguous(),
+             "spatial_bwd: the accumulator must be contiguous (in place)")
+    tensors = (h_satt, pregion_c, regions_c, alpha_s, alpha_prev, dspat,
+               u_s, dpe_acc)
+    _require(h_satt.is_cuda and all(t.device == h_satt.device
+                                    for t in tensors),
+             "spatial_bwd: all operands must be on one CUDA device")
+    dev = h_satt.device
+    h = h_satt.to(f32).contiguous()
+    pre = pregion_c.contiguous()
+    reg = regions_c.contiguous()
+    al = alpha_s.to(f32).contiguous()
+    alp = alpha_prev.to(f32).contiguous()
+    dsp = dspat.to(f32).contiguous()
+    u = u_s.to(f32).contiguous()
+    parts = torch.empty((2, b * k, s), dtype=f32, device=dev)
+    du_b = torch.empty((b, s), dtype=f32, device=dev)
+    dh = torch.empty((b, s), dtype=f32, device=dev)
+    du = torch.empty((s,), dtype=f32, device=dev)
+    dss = torch.empty((b, k, r), dtype=f32, device=dev)
+    spat_prev = torch.empty((b, k, dr), dtype=cd, device=dev)
+    err = _build.lib().stvd_spatial_bwd(
+        h.data_ptr(), pre.data_ptr(), reg.data_ptr(), int(cd == bf16),
+        al.data_ptr(), alp.data_ptr(), dsp.data_ptr(), u.data_ptr(),
+        dpe_acc.data_ptr(), int(dpe_acc.dtype == bf16), parts[0].data_ptr(),
+        parts[1].data_ptr(), du_b.data_ptr(), dh.data_ptr(), du.data_ptr(),
+        dss.data_ptr(), spat_prev.data_ptr(), b, k, r, s, dr,
+        _launch_stream())
+    _build.check(err, "spatial-backward kernel")
+    spatial_bwd.launches += 1
+    return dh, du, dss, spat_prev
+
+
+def spatial_bwd(h_satt, pregion_c, regions_c, alpha_s, alpha_prev, dspat,
+                u_s, dpe_acc):
+    """The spatial sequence VJP's reverse step (contract of
+    ``_spatial_bwd_plain``): ``dpe_acc`` is updated in place.  CPU tensors
+    take the plain version; CUDA tensors take the kernel, whose per-block
+    partial sums are reduced in a fixed order (no atomics)."""
+    if h_satt.device.type == "cpu":
+        return _spatial_bwd_plain(h_satt, pregion_c, regions_c, alpha_s,
+                                  alpha_prev, dspat, u_s, dpe_acc)
+    return _spatial_bwd_cuda(h_satt, pregion_c, regions_c, alpha_s,
+                             alpha_prev, dspat, u_s, dpe_acc)
+
+
+spatial_bwd.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Kernel 7: dWs_att GEMM (csrc/dws_gemm.cu) and the region projection
+# ---------------------------------------------------------------------------
+
+def _dws_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a^T @ b, (N, Dr) x (N, s) -> (Dr, s) float32, operands in their
+    (shared) dtype."""
+    return step_mod._dot(a.t(), b, a.dtype)
+
+
+def _dws_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    f32, bf16 = torch.float32, torch.bfloat16
+    n, dr = a.shape
+    s = b.shape[1]
+    _require(b.shape[0] == n, "dws_gemm: a and b must share their rows")
+    _require(a.dtype == b.dtype and a.dtype in (f32, bf16),
+             "dws_gemm: operands must both be float32 or bf16")
+    _require(a.is_cuda and b.device == a.device,
+             "dws_gemm: operands must be on one CUDA device")
+    lib = _build.lib()
+    is_bf16 = int(a.dtype == bf16)
+    a = a.contiguous()
+    b = b.contiguous()
+    splits = lib.stvd_dws_splits(n, dr, s, is_bf16)
+    part = torch.empty((splits, dr, s), dtype=f32, device=a.device)
+    out = torch.empty((dr, s), dtype=f32, device=a.device)
+    err = lib.stvd_dws_gemm(a.data_ptr(), b.data_ptr(), is_bf16,
+                            part.data_ptr(), out.data_ptr(), n, dr, s, splits,
+                            _launch_stream())
+    _build.check(err, "dWs_att GEMM kernel")
+    dws_gemm.launches += 1
+    return out
+
+
+def dws_gemm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a^T @ b`` with a float32 result: the region projection's weight
+    gradient.  CPU tensors take the plain version; CUDA tensors take the
+    kernel (split over N, splits summed in a fixed order)."""
+    if a.device.type == "cpu":
+        return _dws_plain(a, b)
+    return _dws_cuda(a, b)
+
+
+dws_gemm.launches = 0
+
+
+class RegionProjection(torch.autograd.Function):
+    """pregion = regions @ Ws_att + bs_att (float32), the product taken in
+    the compute dtype.  Its backward forms dWs_att from the compute-dtype
+    operands with ``dws_gemm`` (``use_kernel``) or its plain version,
+    dbs_att as a float32 sum, and d(regions) only when regions require a
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, regions, w, b, cdtype, use_kernel):
+        ctx.save_for_backward(regions, w)
+        ctx.cdtype = cdtype
+        ctx.wgrad = dws_gemm if use_kernel else _dws_plain
+        return step_mod._dot(regions, w, cdtype) + b
+
+    @staticmethod
+    def backward(ctx, g):
+        regions, w = ctx.saved_tensors
+        cd = ctx.cdtype
+        g2 = g.reshape(-1, g.shape[-1])
+        d_reg = d_w = d_b = None
+        if ctx.needs_input_grad[1]:
+            d_w = ctx.wgrad(regions.reshape(-1, regions.shape[-1]).to(cd),
+                            g2.to(cd)).to(w.dtype)
+        if ctx.needs_input_grad[2]:
+            d_b = g2.sum(dim=0)
+        if ctx.needs_input_grad[0]:
+            d_reg = step_mod._dot(g2, w.t(), cd).reshape(
+                regions.shape).to(regions.dtype)
+        return d_reg, d_w, d_b, None, None
+
+
+def region_projection(regions, w, b, cdtype, use_kernel: bool = True
+                      ) -> torch.Tensor:
+    """(B, K, R, Dr) regions -> (B, K, R, s) float32 pregion; the weight
+    gradient goes through the dWs_att GEMM kernel for CUDA tensors when
+    ``use_kernel``, else through its plain version."""
+    return RegionProjection.apply(regions, w, b, cdtype, use_kernel)
 
 
 # ---------------------------------------------------------------------------

@@ -1,14 +1,15 @@
 """The spatial-temporal attention + LSTM decoder step in plain PyTorch.
 
-Counterpart of ``stvd/model/step.py`` for decoding: the temporal model
-(preset 3), the spatial stream over R regions per frame (preset 2) and
-the W8A8 int8 gates (``decode_quant='int8'``).  It is the correctness
-oracle for the CUDA kernels in ``kernel.py``: ``_attention_core``,
-``_spatial_core`` and ``_gates_lstm`` here are the plain versions of the
-attention-core, spatial-core and gates+LSTM kernels, and
-``step_with_core`` swaps each for its kernel through a hook.  The
-teacher-forced ``x_pre`` branch of the JAX step belongs to training and
-is not ported yet.
+Counterpart of ``stvd/model/step.py``: the temporal model (preset 3), the
+spatial stream over R regions per frame (preset 2), the W8A8 int8 gates
+(``decode_quant='int8'``), and what the training forward shares with
+decoding (``precompute``, ``init_state``, the logit stack with its train
+dropout).  It is the correctness oracle for the CUDA kernels in
+``kernel.py``: ``_attention_core``, ``_spatial_core`` and ``_gates_lstm``
+here are the plain versions of the attention-core, spatial-core and
+gates+LSTM kernels, and ``step_with_core`` swaps each for its kernel
+through a hook.  The teacher-forced train scan has its own step body with
+a hand-derived backward (``seqgrad.py``).
 
 Layouts follow the JAX package at every public function: batch-major
 ``(B, K, D)`` context, a state batch ``Bs = Bc * nb`` that may carry
@@ -65,6 +66,7 @@ class StepContext(NamedTuple):
     w_sf_att: Optional[torch.Tensor] = None   # (Dr, attn_dim) f32 = W_spat_fuse @ Wc_att
     gates_w_q: Optional[torch.Tensor] = None  # int8 gates stack (decode_quant)
     gates_scale: Optional[torch.Tensor] = None  # (4 dim,) f32 per-column scale
+    h_proj_w: Optional[torch.Tensor] = None  # (dim, 4 dim + attn + 1 [+ s]) = [U | h_att_w]
 
 
 class StepOut(NamedTuple):
@@ -75,26 +77,51 @@ class StepOut(NamedTuple):
     alpha_s: Optional[torch.Tensor] = None  # (B, K, R) spatial weights, f32
 
 
+def mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(m, k) @ (k, n) of two bf16 matrices with a float32 result: on the
+    card through cuBLAS with ``out_dtype``, on the CPU by upcasting the
+    bf16 operands (their products are exact in float32, the sum
+    accumulates in float32)."""
+    if a.is_cuda:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return a.float() @ b.float()
+
+
+class _DotF32(torch.autograd.Function):
+    """bf16 matmul with a float32 result, differentiable: cuBLAS's
+    ``mm(..., out_dtype=)`` has no derivative, so the backward takes the
+    two transposed products the same way, with the float32 cotangent
+    rounded to bf16, and rounds each gradient to its operand's dtype."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return mm_f32(a, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        g = g.to(a.dtype)
+        da = db = None
+        if ctx.needs_input_grad[0]:
+            da = mm_f32(g, b.t()).to(a.dtype)
+        if ctx.needs_input_grad[1]:
+            db = mm_f32(a.t(), g).to(b.dtype)
+        return da, db
+
+
 def _dot(a: torch.Tensor, b: torch.Tensor, cdtype: torch.dtype
          ) -> torch.Tensor:
     """Matmul with operands in the compute dtype and a float32 result,
-    as JAX's ``preferred_element_type=float32`` gives it.
-
-    A bf16 ``torch.matmul`` rounds its output to bf16, so under bf16 the
-    product is taken with a float32 output: on the card through cuBLAS
-    with ``out_dtype``, on the CPU by upcasting the bf16-rounded operands
-    (their products are exact in float32, the sum accumulates in float32).
-    """
+    as JAX's ``preferred_element_type=float32`` gives it.  A bf16
+    ``torch.matmul`` would round its output to bf16, so under bf16 the
+    product goes through ``_DotF32``."""
     a = a.to(cdtype)
     b = b.to(cdtype)
     if cdtype == torch.float32:
         return a @ b
     lead = a.shape[:-1]
-    a2 = a.reshape(-1, a.shape[-1])
-    if a2.is_cuda:
-        out = torch.mm(a2, b, out_dtype=torch.float32)
-    else:
-        out = a2.float() @ b.float()
+    out = _DotF32.apply(a.reshape(-1, a.shape[-1]), b)
     return out.reshape(*lead, b.shape[-1])
 
 
@@ -125,6 +152,13 @@ def _h_att_weights(params: Params, cfg) -> torch.Tensor:
     if cfg.use_spatial:
         cols.append(params["Wsd_att"])
     return torch.cat(cols, dim=1)
+
+
+def _h_projection_weights(params: Params, cfg) -> torch.Tensor:
+    """h-projection weights of the teacher-forced train scan:
+    [U | Wd_att | W_sel (| Wsd_att)], one product per step gives the
+    LSTM's recurrent term and the attention/selector inputs."""
+    return torch.cat([params["U"], _h_att_weights(params, cfg)], dim=1)
 
 
 def _gates_weights(params: Params) -> torch.Tensor:
@@ -170,7 +204,11 @@ def precompute(params: Params, cfg, ctx: torch.Tensor,
     if cfg.use_spatial:
         if regions is None:
             raise ValueError("use_spatial=True but no region features given")
-        pregion = _dot(regions, params["Ws_att"], cdtype) + params["bs_att"]
+        from .kernel import region_projection   # kernel.py imports step
+        # the spatial backward's switch also picks the dWs_att GEMM kernel
+        pregion = region_projection(regions, params["Ws_att"],
+                                    params["bs_att"], cdtype,
+                                    cfg.spatial_bwd_kernel != "off")
         # pctx'_t = pctx + spat_t @ (W_spat_fuse @ Wc_att): the composed
         # (Dr, attn_dim) weight saves one matmul per step
         w_sf_att = _dot(params["W_spat_fuse"], params["Wc_att"], cdtype)
@@ -184,7 +222,8 @@ def precompute(params: Params, cfg, ctx: torch.Tensor,
                        h_att_w=_h_att_weights(params, cfg),
                        gates_w=gates_w, regions=regions, pregion=pregion,
                        w_sf_att=w_sf_att, gates_w_q=gates_w_q,
-                       gates_scale=gates_scale)
+                       gates_scale=gates_scale,
+                       h_proj_w=_h_projection_weights(params, cfg))
 
 
 def init_state(params: Params, cfg, sc: StepContext) -> StepState:
@@ -357,23 +396,38 @@ def topk_rows(x: torch.Tensor, k: int
 
 
 def logit_activation(params: Params, cfg, h: torch.Tensor,
-                     ctx_t: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
-    """The (.., dim_word) pre-vocab activation at decode time (no
-    dropout): tanh(h W_lstm + b + ctx_t W_ctx [+ emb]).  ``emb`` is added
-    raw: a bf16 embedding promotes to float32 in the sum, as in JAX."""
+                     ctx_t: torch.Tensor, emb: torch.Tensor,
+                     generator: Optional[torch.Generator] = None,
+                     train: bool = False) -> torch.Tensor:
+    """The (.., dim_word) pre-vocab activation:
+    tanh(h W_lstm + b + ctx_t W_ctx [+ emb]), then, in training with
+    ``cfg.use_dropout``, inverted dropout with keep-mask bits drawn from
+    ``generator`` (which must live on the activation's device).  ``emb``
+    is added raw: a bf16 embedding promotes to float32 in the sum, as in
+    JAX."""
     cdtype = compute_dtype(cfg)
     logit = (_dot(h, params["ff_logit_lstm_W"], cdtype)
              + params["ff_logit_lstm_b"]
              + _dot(ctx_t, params["ff_logit_ctx_W"], cdtype))
     if cfg.prev_word_logit:
         logit = logit + emb
-    return torch.tanh(logit)
+    logit = torch.tanh(logit)
+    if cfg.use_dropout and train:
+        if generator is None:
+            raise ValueError("train dropout requires a generator")
+        keep = 1.0 - cfg.dropout_rate
+        mask = torch.rand(logit.shape, generator=generator,
+                          device=logit.device) < keep
+        logit = torch.where(mask, logit / keep, torch.zeros_like(logit))
+    return logit
 
 
 def logits_from_states(params: Params, cfg, h: torch.Tensor,
-                       ctx_t: torch.Tensor, emb: torch.Tensor
-                       ) -> torch.Tensor:
-    """Vocab logits (float32) from the decoder state."""
+                       ctx_t: torch.Tensor, emb: torch.Tensor,
+                       generator: Optional[torch.Generator] = None,
+                       train: bool = False) -> torch.Tensor:
+    """Vocab logits (float32) from the decoder state; leading axes are
+    free, so the train path projects all (B, T) states in one product."""
     cdtype = compute_dtype(cfg)
-    act = logit_activation(params, cfg, h, ctx_t, emb)
+    act = logit_activation(params, cfg, h, ctx_t, emb, generator, train)
     return _dot(act, params["ff_logit_W"], cdtype) + params["ff_logit_b"]

@@ -181,3 +181,172 @@ def test_kernel_wrappers_reject_what_the_kernels_do_not_take(cuda):
             torch.zeros(4, 8, device=cuda),
             torch.zeros(8, 16, device=cuda, dtype=torch.bfloat16),
             torch.zeros(16, device=cuda), torch.zeros(4, 4, device=cuda))
+
+
+# ---------------------------------------------------------------------------
+# Training kernels: spatial backward step, train-scan tail, dWs_att GEMM
+# ---------------------------------------------------------------------------
+
+F32, BF16 = torch.float32, torch.bfloat16
+
+
+def rel_err(got, ref) -> float:
+    """Max abs difference over the reference's largest entry."""
+    scale = max(float(ref.float().abs().max()), 1e-30)
+    return float((got.float() - ref.float()).abs().max()) / scale
+
+
+@pytest.mark.parametrize("b,k,r,s,dr,cd,acc", [
+    (1, 1, 1, 8, 8, F32, F32), (3, 5, 49, 130, 67, BF16, BF16),
+    (2, 7, 37, 1024, 1024, BF16, F32), (5, 3, 49, 64, 96, F32, F32),
+    (4, 28, 49, 1024, 1024, BF16, BF16)])
+def test_spatial_bwd_kernel_matches_plain(cuda, b, k, r, s, dr, cd, acc):
+    """Ragged R, widths that are not whole 16-byte vectors (element
+    loads), both accumulator dtypes; Dpe is updated in place.  float32:
+    1e-4 of the largest entry (sums in another order); bf16: 1e-2 (the
+    kernel rounds where the plain version does, but tanh may differ by
+    one bf16 ulp)."""
+    g = torch.Generator(device=cuda).manual_seed(r + s)
+    rnd = lambda *shape: torch.randn(*shape, generator=g, device=cuda)
+    hp = rnd(b, s + 5)
+    pregion = (0.5 * rnd(b, k, r, s)).to(cd)
+    regions = rnd(b, k, r, dr).to(cd)
+    alpha_s = torch.softmax(rnd(b, k, r), -1)
+    alpha_prev = torch.softmax(rnd(b, k, r), -1)
+    dspat, u_s = rnd(b, k, dr), rnd(s) / s ** 0.5
+    dpe0 = (0.1 * rnd(b, k, r, s)).to(acc)
+    dpe_k, dpe_p = dpe0.clone(), dpe0.clone()
+    args = (hp[:, 5:], pregion, regions, alpha_s, alpha_prev, dspat, u_s)
+    before = tkernel.spatial_bwd.launches
+    got = tkernel.spatial_bwd(*args, dpe_k)
+    ref = tkernel._spatial_bwd_plain(*args, dpe_p)
+    torch.cuda.synchronize()
+    assert tkernel.spatial_bwd.launches == before + 1
+    tol = 1e-4 if cd == F32 else 1e-2
+    for name, x, y in zip(("dpe", "dh_satt", "du_s", "dss", "spat_prev"),
+                          (dpe_k, *got), (dpe_p, *ref)):
+        assert x.dtype == y.dtype and x.shape == y.shape, name
+        assert rel_err(x, y) <= tol, (name, rel_err(x, y))
+
+
+@pytest.mark.parametrize("rows,dc,dim,cd", [
+    (1, 16, 8, BF16), (64, 1024, 3584, BF16), (37, 272, 100, BF16),
+    (130, 277, 35, F32), (64, 1024, 128, F32)])
+def test_train_tail_kernel_matches_plain(cuda, rows, dc, dim, cd):
+    """x_pre is one step of a time-major view of a batch-major array and
+    h_gates a column view of the h-projection, as in the scan; ragged
+    rows, depths (element loads) and dims."""
+    g = torch.Generator(device=cuda).manual_seed(rows + dim)
+    rnd = lambda *shape: torch.randn(*shape, generator=g, device=cuda)
+    x_pre = rnd(rows, 3, 4 * dim).transpose(0, 1)[1]
+    hp = rnd(rows, 4 * dim + 9)
+    ctx_t, c = rnd(rows, dc), rnd(rows, dim)
+    wc = (rnd(dc, 4 * dim) / dc ** 0.5).to(cd)
+    args = (ctx_t, x_pre, hp[:, :4 * dim], c, wc, cd)
+    before = tkernel.train_tail.launches
+    got = tkernel.train_tail(*args)
+    ref = tkernel._train_tail_plain(*args)
+    torch.cuda.synchronize()
+    assert tkernel.train_tail.launches == before + 1
+    for x, y in zip(got, ref):
+        torch.testing.assert_close(x, y, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("n,dr,s,dtype", [
+    (1, 8, 8, BF16), (1000, 24, 40, F32), (777, 130, 67, BF16),
+    (20000, 1024, 1024, BF16), (5000, 200, 136, F32)])
+def test_dws_gemm_kernel_matches_plain(cuda, n, dr, s, dtype):
+    """Ragged N, Dr and s; widths that are not whole 16-byte chunks take
+    element loads.  Both sum bf16 products in float32, in another order:
+    1e-4 of the largest entry."""
+    g = torch.Generator(device=cuda).manual_seed(n)
+    a = torch.randn(n, dr, generator=g, device=cuda).to(dtype)
+    b = torch.randn(n, s, generator=g, device=cuda).to(dtype)
+    before = tkernel.dws_gemm.launches
+    got = tkernel.dws_gemm(a, b)
+    ref = tkernel._dws_plain(a, b)
+    torch.cuda.synchronize()
+    assert tkernel.dws_gemm.launches == before + 1
+    assert got.dtype == F32 and got.shape == (dr, s)
+    assert rel_err(got, ref) <= 1e-4
+
+
+def tiny_train(cuda, spatial, **model):
+    """A small config, its synthetic batch on the card and fresh leaves."""
+    from stvd_torch.config import ModelConfig
+    from stvd_torch.data.bank import to_device
+    from stvd_torch.data.batching import gather_batch, synthetic_dataset
+    from stvd_torch.model.decoder import init_params
+    sp = dict(use_spatial=True, n_regions=5, region_dim=24) if spatial else {}
+    cfg = ModelConfig(n_words=48, dim_word=16, dim=40, ctx_dim=32,
+                      n_frames=6, compute_dtype="float32", use_dropout=False,
+                      **sp, **model)
+    ds = synthetic_dataset(n_videos=6, k=6, d=32, maxlen=9, seed=0,
+                           n_regions=5 if spatial else 0, region_dim=24)
+    batch = gather_batch(to_device(ds.bank, cuda), ds.captions,
+                         np.arange(5, dtype=np.int32))
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                         cuda)
+    for p in params.values():
+        with torch.no_grad():
+            p.mul_(30.0)            # larger than the 0.01 init scale
+    return cfg, batch, params
+
+
+@pytest.mark.parametrize("spatial", [False, True])
+def test_train_kernels_match_plain_gradients(cuda, spatial):
+    """Loss and every gradient of a small model with every training
+    kernel on against the plain path, float32 on the card; each kernel
+    of the path launches once per step (the dWs_att GEMM once).  Weights
+    at 30 times the init scale make the recurrence amplify float32
+    rounding in other orders to ~1e-4 of a leaf: the bar is 1e-3.
+    c_att and cs_att shift every score of a softmax alike, so their
+    gradient is zero up to rounding: they are held to the bar of the
+    largest gradient entry of the model."""
+    from stvd_torch.train.loss import loss_fn
+    on = dict(spatial_bwd_kernel="on", train_tail_kernel="on",
+              train_fwd_kernel="on")
+    off = dict(spatial_bwd_kernel="off", train_tail_kernel="off",
+               train_fwd_kernel="off")
+    out = {}
+    for name, kw in (("kernel", on), ("plain", off)):
+        cfg, batch, params = tiny_train(cuda, spatial, **kw)
+        leaves = {k: v.requires_grad_(True) for k, v in params.items()}
+        counts = [f.launches for f in (tkernel.spatial_bwd,
+                                       tkernel.train_tail, tkernel.dws_gemm,
+                                       tkernel.attention_core)]
+        loss, _ = loss_fn(leaves, cfg, batch, train=False)
+        loss.backward()
+        torch.cuda.synchronize()
+        launched = [f.launches - c for f, c in zip(
+            (tkernel.spatial_bwd, tkernel.train_tail, tkernel.dws_gemm,
+             tkernel.attention_core), counts)]
+        steps = batch["tokens"].shape[1]
+        if name == "kernel":
+            assert launched == ([steps, steps, 1, steps] if spatial
+                                else [0, steps, 0, steps])
+        else:
+            assert launched == [0, 0, 0, 0]
+        out[name] = (float(loss.detach()),
+                     {k: v.grad for k, v in leaves.items()})
+    (lk, gk), (lp, gp) = out["kernel"], out["plain"]
+    assert abs(lk - lp) <= 1e-5 * abs(lp)
+    top = max(float(v.abs().max()) for v in gp.values())
+    for k in gp:
+        err = float((gk[k] - gp[k]).abs().max())
+        scale = top if k in ("c_att", "cs_att") else float(
+            gp[k].abs().max())
+        assert err <= 1e-3 * scale, (k, err, scale)
+
+
+def test_training_kernel_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    z = lambda *s, dtype=F32: torch.zeros(*s, device=cuda, dtype=dtype)
+    with pytest.raises(ValueError):            # f32 compute, bf16 Dpe
+        tkernel.spatial_bwd(z(1, 4), z(1, 2, 3, 4), z(1, 2, 3, 5),
+                            z(1, 2, 3), z(1, 2, 3), z(1, 2, 5), z(4),
+                            z(1, 2, 3, 4, dtype=BF16))
+    with pytest.raises(ValueError):            # x_pre not float32
+        tkernel.train_tail(z(2, 8), z(2, 16, dtype=BF16), z(2, 16), z(2, 4),
+                           z(8, 16), F32)
+    with pytest.raises(ValueError):            # mixed operand dtypes
+        tkernel.dws_gemm(z(4, 8), z(4, 6, dtype=BF16))
