@@ -134,7 +134,7 @@ def forward_train(params: Params, cfg, batch: Dict[str, torch.Tensor],
     tokens = batch["tokens"]
     ctx = encode_context(params, cfg, batch["frames"], batch.get("motion"))
     sc = step_mod.precompute(params, cfg, ctx, batch["frame_mask"],
-                             batch.get("regions"))
+                             batch.get("regions"), train=True)
     state0 = step_mod.init_state(params, cfg, sc)
     emb_all = params["Wemb"][tokens]                      # (B, T, dw)
     # step t sees gold word t-1, zeros at t = 0

@@ -52,21 +52,21 @@ class StepState(NamedTuple):
 
 
 class StepContext(NamedTuple):
-    """Per-sequence tensors that are constant across decode steps,
-    built once by ``precompute`` outside the decode loop."""
+    """Per-sequence tensors that are constant across decode steps (or
+    train-scan steps), built once by ``precompute`` outside the loop."""
 
     ctx: torch.Tensor       # (Bc, K, ctx_dim) frame features
     pctx: torch.Tensor      # (Bc, K, attn_dim) f32: ctx @ Wc_att + b_att
     ctx_mask: torch.Tensor  # (Bc, K) f32
     mean_ctx: torch.Tensor  # (Bc, ctx_dim) f32 masked mean (for h0/c0)
     h_att_w: torch.Tensor   # (dim, attn_dim + 1 [+ s]) = [Wd_att | W_sel (| Wsd_att)]
-    gates_w: torch.Tensor   # (dim_word + dim + ctx_dim, 4 dim) = [W; U; Wc]
+    gates_w: Optional[torch.Tensor]  # decode: (dim_word + dim + ctx_dim, 4 dim) = [W; U; Wc]
     regions: Optional[torch.Tensor] = None    # (Bc, K, R, Dr) spatial only
     pregion: Optional[torch.Tensor] = None    # (Bc, K, R, s) f32
     w_sf_att: Optional[torch.Tensor] = None   # (Dr, attn_dim) f32 = W_spat_fuse @ Wc_att
     gates_w_q: Optional[torch.Tensor] = None  # int8 gates stack (decode_quant)
     gates_scale: Optional[torch.Tensor] = None  # (4 dim,) f32 per-column scale
-    h_proj_w: Optional[torch.Tensor] = None  # (dim, 4 dim + attn + 1 [+ s]) = [U | h_att_w]
+    h_proj_w: Optional[torch.Tensor] = None  # train: (dim, 4 dim + attn + 1 [+ s]) = [U | h_att_w]
 
 
 class StepOut(NamedTuple):
@@ -190,11 +190,16 @@ def quantize_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 def precompute(params: Params, cfg, ctx: torch.Tensor,
                ctx_mask: torch.Tensor,
-               regions: Optional[torch.Tensor] = None) -> StepContext:
-    """Hoist the h-independent work out of the decode loop: the context
-    and region projections, the stacked weights and, under
-    ``decode_quant='int8'``, the int8 gates grid (quantized once from
-    the compute-dtype stack, as in JAX)."""
+               regions: Optional[torch.Tensor] = None,
+               train: bool = False) -> StepContext:
+    """Hoist the h-independent work out of the decode loop or the train
+    scan: the context and region projections and the stacked weights.
+    Decoding stacks the gates weights [W; U; Wc] and, under
+    ``decode_quant='int8'``, quantizes them once (from the compute-dtype
+    stack, as in JAX); training (``train``) stacks the fused h-projection
+    [U | h_att_w] instead.  JAX builds both and lets XLA drop the unused
+    one; run eagerly, each would cost a copy of U (117 MB in bf16 at
+    preset widths)."""
     _check_options(cfg)
     cdtype = compute_dtype(cfg)
     pctx = _dot(ctx, params["Wc_att"], cdtype) + params["b_att"]
@@ -212,18 +217,20 @@ def precompute(params: Params, cfg, ctx: torch.Tensor,
         # pctx'_t = pctx + spat_t @ (W_spat_fuse @ Wc_att): the composed
         # (Dr, attn_dim) weight saves one matmul per step
         w_sf_att = _dot(params["W_spat_fuse"], params["Wc_att"], cdtype)
-    gates_w = _gates_weights(params)
-    gates_w_q = gates_scale = None
-    if cfg.decode_quant == "int8":
-        gates_w_q, gates_scale = quantize_weights(gates_w)
-    gates_w = gates_w.to(cdtype)
+    gates_w = gates_w_q = gates_scale = h_proj_w = None
+    if train:
+        h_proj_w = _h_projection_weights(params, cfg)
+    else:
+        gates_w = _gates_weights(params)
+        if cfg.decode_quant == "int8":
+            gates_w_q, gates_scale = quantize_weights(gates_w)
+        gates_w = gates_w.to(cdtype)
     return StepContext(ctx=ctx, pctx=pctx, ctx_mask=ctx_mask,
                        mean_ctx=mean_ctx,
                        h_att_w=_h_att_weights(params, cfg),
                        gates_w=gates_w, regions=regions, pregion=pregion,
                        w_sf_att=w_sf_att, gates_w_q=gates_w_q,
-                       gates_scale=gates_scale,
-                       h_proj_w=_h_projection_weights(params, cfg))
+                       gates_scale=gates_scale, h_proj_w=h_proj_w)
 
 
 def init_state(params: Params, cfg, sc: StepContext) -> StepState:

@@ -23,7 +23,6 @@ import os
 import time
 from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
-import numpy as np
 import torch
 
 from ..data.bank import to_device

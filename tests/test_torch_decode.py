@@ -67,7 +67,8 @@ def torch_batch(frames, mask):
 @pytest.mark.parametrize("step", sorted(STEPS))
 def test_greedy_matches_jax(step):
     p, frames, mask = inputs()
-    out = greedy_decode(params_from_numpy(p, "cpu"), CFG, torch_batch(frames, mask),
+    out = greedy_decode(params_from_numpy(p, "cpu"), CFG,
+                        torch_batch(frames, mask),
                         maxlen=MAXLEN, step_fn=STEPS[step])
     ref = jax_out("greedy")
     np.testing.assert_array_equal(out.tokens.numpy(), ref["tokens"])

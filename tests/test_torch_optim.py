@@ -23,7 +23,8 @@ STEPS = 5
 
 def numpy_params(seed=0):
     rng = np.random.RandomState(seed)
-    return {k: np.asarray(rng.randn(*s), np.float32) for k, s in SHAPES.items()}
+    return {k: np.asarray(rng.randn(*s), np.float32)
+            for k, s in SHAPES.items()}
 
 
 def numpy_grads(scale, seed=1):

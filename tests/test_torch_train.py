@@ -108,6 +108,27 @@ def test_gather_batch_matches_jax(spatial):
         np.testing.assert_array_equal(tb[k].numpy(), np.asarray(jb[k]), k)
 
 
+@pytest.mark.parametrize("spatial", [False, True])
+def test_train_precompute_stacks_the_h_projection(spatial):
+    """Training's precompute builds the fused h-projection weights
+    [U | Wd_att | W_sel (| Wsd_att)] of JAX's ``precompute`` and no
+    decode gates stack; decoding's builds the gates stack only."""
+    from stvd.model import step as jstep
+    jcfg, tcfg = configs(**(SPATIAL if spatial else {}))
+    p = numpy_params(jcfg)
+    jb, tb = batches(jcfg)
+    jsc = jstep.precompute(jax_params(p), jcfg, jb["frames"],
+                           jb["frame_mask"], jb.get("regions"))
+    tp = params_from_numpy(p, "cpu")
+    args = (tp, tcfg, tb["frames"], tb["frame_mask"], tb.get("regions"))
+    train_sc = tstep.precompute(*args, train=True)
+    np.testing.assert_array_equal(train_sc.h_proj_w.numpy(),
+                                  np.asarray(jsc.h_proj_w))
+    assert train_sc.gates_w is None
+    decode_sc = tstep.precompute(*args)
+    assert decode_sc.h_proj_w is None and decode_sc.gates_w is not None
+
+
 @pytest.mark.parametrize("variant", sorted(VARIANTS))
 def test_forward_train_matches_jax(variant):
     jcfg, tcfg = configs(**VARIANTS[variant])
@@ -139,7 +160,7 @@ def test_loss_and_grads_match_jax(variant):
     tl = tl.detach()
     assert abs(float(tl) - float(jl)) <= 1e-5 * abs(float(jl))
     for k in ("nll", "nll_per_token"):
-        assert abs(float(taux[k]) - float(jaux[k])) <= 1e-5 * abs(
+        assert abs(float(taux[k].detach()) - float(jaux[k])) <= 1e-5 * abs(
             float(jaux[k]))
     assert_grads_close({k: v.grad.numpy() for k, v in tp.items()},
                        {k: np.asarray(v) for k, v in jg.items()}, 1e-5)
