@@ -1,4 +1,4 @@
-"""The training driver (counterpart of stvd/train/loop.py): optimizers, the
+"""The training loop (counterpart of stvd/train/loop.py): optimizers, the
 train step, NLL validation, checkpointing and early stopping, on one
 device.
 
