@@ -1,21 +1,29 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving paths once on one NVIDIA GPU.
+"""Drive the PyTorch port's serving and training paths once on one
+NVIDIA GPU.
 
-Builds the port's four CUDA kernels from ``stvd_torch/csrc``, holds each
-against its plain PyTorch version at the shapes of the serving paths, and
-captions a few requests through ``stvd_torch.api.Captioner`` at full
-width with random weights made from ``--seed`` (dim 3584, dim_word 512,
-ctx 1024, K 28, vocab 13056, bf16, beam 5, decode batch 256), on three
-paths:
+Builds the port's seven CUDA kernels from ``stvd_torch/csrc``, holds each
+against its plain PyTorch version at the shapes of the paths below
+(reporting its time beside the plain version's, the least time the card
+could take for the work, and, for the dWs_att GEMM, the time of the one
+PyTorch call that computes it), then drives at full width with random
+weights made from ``--seed`` (dim 3584, dim_word 512, ctx 1024, K 28,
+vocab 13056, bf16):
 
-* preset 3 (``msvd-beam``): attention core + logit tail, cuBLAS gates;
-* preset 2 (``msvd-spatial``, R 49, Dr 1024): + the spatial core;
-* preset 3 with ``decode_quant='int8'``, ``gates_kernel='on'``: the
-  attention core, the W8A8 gates+LSTM kernel and the logit tail.
+* serving through ``stvd_torch.api.Captioner`` (beam 5, decode batch
+  256): preset 3 (``msvd-beam``: attention core + logit tail, cuBLAS
+  gates), preset 2 (``msvd-spatial``, R 49, Dr 1024: + the spatial
+  core) and preset 3 with ``decode_quant='int8'``, ``gates_kernel='on'``
+  (+ the W8A8 gates+LSTM kernel);
+* training through ``stvd_torch.train.loop.make_train_step`` (batch 64,
+  T 30, adadelta, clip 10): preset 2 (spatial backward step and dWs_att
+  GEMM) and preset 3 with ``train_tail_kernel='on'`` (train-scan tail).
 
-Each path's kernel launches are counted from zero over its run and must
-equal its decode steps.  The kernel path is then compared with the plain
-path on each: preset 3 and preset 2 at float32, the int8 path in int8.
+Each path's kernel launches are counted from zero over its run: those of
+the path must equal its decode steps (serving) or 30 per update (the
+dWs_att GEMM once), the others 0.  The kernel path is then compared with
+the plain path: decoded captions on the serving paths, the loss and
+every gradient of one preset-2 train step at float32.
 
 Each phase prints one JSON line with its seconds; the card's
 ``nvidia-smi`` name and power limit, then a ``{"kernels": [...]}``
@@ -815,7 +823,8 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
                     help="also print device time by kernel for one decode "
-                         "on each of the three paths")
+                         "on each serving path and one preset-2 train "
+                         "update")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on "
