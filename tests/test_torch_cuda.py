@@ -3,7 +3,7 @@
 Skips without a CUDA device.  Ragged shapes here (odd batch, K > 32,
 R > 32, widths not a multiple of 4, vocab not a multiple of the tile,
 rows, depths and dims not a multiple of the row, depth and dim tiles)
-complement chip_smoke.py, which checks the kernels at the serving shapes.
+complement chip_smoke.py, which checks the kernels at the main paths' shapes.
 This file imports no jax, so it runs where only torch is installed:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
