@@ -21,7 +21,10 @@ vocab 13056, bf16):
 
 Each path's kernel launches are counted from zero over its run: those of
 the path must equal its decode steps (serving) or 30 per update (the
-dWs_att GEMM once), the others 0.  The kernel path is then compared with
+dWs_att GEMM once, all on its wgmma route; the spatial backward step all
+on its 16-byte-load route), the others 0.  The two kernels with routes
+(spatial backward step, dWs_att GEMM) also report the route each case
+took, their share of the bound, and that two calls agree bit for bit.  The kernel path is then compared with
 the plain path: decoded captions on the serving paths, the loss and
 every gradient of one preset-2 train step at float32.
 
@@ -74,7 +77,26 @@ def emit(obj) -> None:
 
 def reset_launches(kernel) -> None:
     for name in KERNELS:
-        getattr(kernel, name).launches = 0
+        fn = getattr(kernel, name)
+        fn.launches = 0
+        for route in getattr(fn, "launches_by_route", {}):
+            fn.launches_by_route[route] = 0
+
+
+def read_routes(kernel) -> dict:
+    """Launches by route of the kernels that have more than one."""
+    return {name: dict(getattr(kernel, name).launches_by_route)
+            for name in KERNELS
+            if hasattr(getattr(kernel, name), "launches_by_route")}
+
+
+def route_taken(fn, call):
+    """``call()``'s result and the one route of ``fn`` it launched."""
+    before = dict(fn.launches_by_route)
+    out = call()
+    taken = [r for r, n in fn.launches_by_route.items() if n != before[r]]
+    require(len(taken) == 1, f"expected one launch on one route: {taken}")
+    return out, taken[0]
 
 
 def read_launches(kernel) -> dict:
@@ -282,6 +304,15 @@ def phase_spatial(kernel, step_mod, dev, g, cfg) -> dict:
     u = 3.0 * torch.randn(s, generator=g, device=dev) / s ** 0.5
     c_s = torch.tensor(0.2, device=dev)
     errs, times = {}, {}
+
+    def traffic(nb):
+        # in: h_satt, pregion, regions, u_s; out: spat (bf16), alpha_s.
+        # Per (row, frame, region): tanh-score over s, weighted sum over Dr
+        bs = bc * nb
+        return bound(4 * bs * s + nbytes(pregion, regions, u)
+                     + bs * k * (2 * dr + 4 * r),
+                     bs * k * r * (4 * s + 2 * dr), "f32")
+
     for nb in (cfg.decode.beam_size, 1):
         hp = torch.randn(bc * nb, off + s, generator=g, device=dev)
         args = (hp[:, off:], pregion, regions, u, c_s)
@@ -295,21 +326,16 @@ def phase_spatial(kernel, step_mod, dev, g, cfg) -> dict:
         times[f"nb{nb}"] = {
             "ms": time_ms(lambda: kernel.spatial_core(*args, torch.float32)),
             "plain_ms": time_ms(
-                lambda: step_mod._spatial_core(*args, torch.float32), 5)}
+                lambda: step_mod._spatial_core(*args, torch.float32), 5),
+            **traffic(nb)}
     err = max(errs.values())
     require(err <= KERNEL_TOL, f"spatial kernel disagrees: {errs}")
     nb = cfg.decode.beam_size
-    bs = bc * nb
-    # in: h_satt, pregion, regions, u_s; out: spat (bf16), alpha_s.  Per
-    # (row, frame, region): tanh-score over s, weighted sum over Dr
-    traffic = (4 * bs * s + nbytes(pregion, regions, u)
-               + bs * k * (2 * dr + 4 * r))
     out = {"phase": "kernel_spatial_core", "shape": [bc, k, r, s, dr],
            "max_abs_err": err, "errs": errs, "tol": KERNEL_TOL,
            "ms": times[f"nb{nb}"]["ms"],
            "plain_ms": times[f"nb{nb}"]["plain_ms"], "times": times,
-           "library_ms": None,
-           **bound(traffic, bs * k * r * (4 * s + 2 * dr), "f32")}
+           "library_ms": None, **traffic(nb)}
     emit(out)
     torch.cuda.empty_cache()
     return out
@@ -356,15 +382,18 @@ def phase_gates(kernel, step_mod, dev, g, cfg) -> dict:
                     "ms": time_ms(lambda: kernel.gates_lstm(*ops), 20),
                     "plain_ms": time_ms(
                         lambda: step_mod._gates_lstm(*ops), 20)}
-    # int8 mode: in x_q, W_q, bias, s_r, scale, c; out h, c
-    traffic = (rows * kx + kx * 4 * dim + 2 * 4 * 4 * dim + 4 * rows
-               + 3 * 4 * rows * dim)
+    # int8 mode: in x_q, W_q, bias, scale, s_r, c; out h, c.  bf16 mode:
+    # in x, W (bf16), bias, c; out h, c
+    times["int8"].update(bound(
+        rows * kx + kx * 4 * dim + 2 * 4 * 4 * dim + 4 * rows
+        + 3 * 4 * rows * dim, 2 * rows * kx * 4 * dim, "int8"))
+    times["bf16"].update(bound(
+        2 * rows * kx + 2 * kx * 4 * dim + 4 * 4 * dim + 3 * 4 * rows * dim,
+        2 * rows * kx * 4 * dim, "bf16"))
     out = {"phase": "kernel_gates_lstm", "shape": [rows, kx, 4 * dim],
            "max_abs_err": cases["int8_rows%d" % rows], "cases": cases,
            "tol": {"f32": KERNEL_TOL, "bf16": KERNEL_TOL, "int8": INT8_TOL},
-           "ms": times["int8"]["ms"], "plain_ms": times["int8"]["plain_ms"],
-           "times": times, "library_ms": None,
-           **bound(traffic, 2 * rows * kx * 4 * dim, "int8")}
+           "times": times, "library_ms": None, **times["int8"]}
     emit(out)
     return out
 
@@ -521,7 +550,9 @@ def phase_spatial_bwd(kernel, dev, g, cfg, batch) -> dict:
     s = Dr = 1024): float32 operands with a float32 accumulator, and bf16
     operands with a bf16 (the default) and a float32 accumulator, each
     against the plain version on the same inputs, the accumulator
-    updated in place by both."""
+    updated in place by both; each case reports its load route, its share
+    of the bound and whether two calls from the same Dpe agree bit for
+    bit (they must)."""
     m = cfg.model
     b, k, r, s, dr = batch, m.n_frames, m.n_regions, m.region_dim, \
         m.region_dim
@@ -541,14 +572,22 @@ def phase_spatial_bwd(kernel, dev, g, cfg, batch) -> dict:
         args = (hp[:, off:], pregion.to(cd), regions.to(cd), alpha_s,
                 alpha_prev, dspat, u_s)
         dpe_k, dpe_p = dpe0.to(acc, copy=True), dpe0.to(acc, copy=True)
-        got = (dpe_k, *kernel.spatial_bwd(*args, dpe_k))
+        dpe_2 = dpe0.to(acc, copy=True)
+        out_k, route = route_taken(kernel.spatial_bwd,
+                                   lambda: kernel.spatial_bwd(*args, dpe_k))
+        got = (dpe_k, *out_k)
+        again = (dpe_2, *kernel.spatial_bwd(*args, dpe_2))
         ref = (dpe_p, *kernel._spatial_bwd_plain(*args, dpe_p))
         torch.cuda.synchronize()
+        same = all(torch.equal(x, y) for x, y in zip(got, again))
+        require(same, f"spatial backward kernel {name} is not deterministic")
+        del again, dpe_2
         require(all(bool(torch.isfinite(t).all()) for t in got),
                 f"spatial backward kernel {name}: non-finite output")
         tol = KERNEL_TOL if cd == f32 else TRAIN_BF16_TOL
         cases[name] = {"max_abs_err": max_err(got, ref),
-                       "rel_err": rel_err(got, ref), "tol_rel": tol}
+                       "rel_err": rel_err(got, ref), "tol_rel": tol,
+                       "route": route, "bitwise_repeatable": same}
         require(cases[name]["rel_err"] <= tol,
                 f"spatial backward kernel {name} disagrees: {cases[name]}")
         del got, ref
@@ -565,11 +604,14 @@ def phase_spatial_bwd(kernel, dev, g, cfg, batch) -> dict:
                    + 4 * (b * s + s + b * k * r) + b * k * dr * cd_b)
         times[name].update(bound(traffic, b * k * r * (9 * s + 4 * dr),
                                  "f32"))
+        times[name]["bound_share"] = (times[name]["bound_ms"]
+                                      / times[name]["ms"])
         torch.cuda.empty_cache()
     main = "bfloat16_acc_bfloat16"
     out = {"phase": "kernel_spatial_bwd", "shape": [b, k, r, s, dr],
            "max_abs_err": cases[main]["max_abs_err"], "cases": cases,
-           "times": times, "library_ms": None, **times[main]}
+           "route": cases[main]["route"], "times": times,
+           "library_ms": None, **times[main]}
     emit(out)
     return out
 
@@ -624,7 +666,10 @@ def phase_dws(kernel, dev, g, cfg, batch) -> dict:
     """Kernel 7, dWs_att = regions^T @ d(pregion), at the preset-2
     training shapes (N = B*K*R = 87808, Dr = s = 1024) in bf16 and in
     float32, against the plain version; ``torch.mm(a.t(), b,
-    out_dtype=float32)`` is timed beside it as the library yardstick."""
+    out_dtype=float32)`` is timed beside it as the library yardstick.
+    Each case reports its route (bf16 at this shape must take wgmma), its
+    share of the bound and whether two calls agree bit for bit (they
+    must)."""
     m = cfg.model
     n, dr, s = batch * m.n_frames * m.n_regions, m.region_dim, m.region_dim
     a32 = torch.randn(n, dr, generator=g, device=dev)
@@ -632,12 +677,18 @@ def phase_dws(kernel, dev, g, cfg, batch) -> dict:
     cases, times = {}, {}
     for dt in (torch.bfloat16, torch.float32):
         a, b = a32.to(dt), b32.to(dt)
-        got = kernel.dws_gemm(a, b)
+        got, route = route_taken(kernel.dws_gemm,
+                                 lambda: kernel.dws_gemm(a, b))
+        same = torch.equal(got, kernel.dws_gemm(a, b))
         ref = kernel._dws_plain(a, b)
         torch.cuda.synchronize()
         name = str(dt)[6:]
         cases[name] = {"max_abs_err": max_err([got], [ref]),
-                       "rel_err": rel_err([got], [ref])}
+                       "rel_err": rel_err([got], [ref]), "route": route,
+                       "bitwise_repeatable": same}
+        require(same, f"dWs_att kernel {name} is not deterministic")
+        require(route == ("wgmma" if dt == torch.bfloat16 else "f32"),
+                f"dWs_att kernel {name} took the {route} route")
         require(bool(torch.isfinite(got).all()),
                 f"dWs_att kernel {name}: non-finite output")
         require(cases[name]["rel_err"] <= KERNEL_TOL,
@@ -650,10 +701,15 @@ def phase_dws(kernel, dev, g, cfg, batch) -> dict:
             "library_ms": time_ms(lib, 10),
             **bound(nbytes(a, b) + 4 * dr * s, 2 * n * dr * s,
                     "bf16" if dt == torch.bfloat16 else "f32")}
+        times[name]["bound_share"] = (times[name]["bound_ms"]
+                                      / times[name]["ms"])
+        times[name]["library_ratio"] = (times[name]["ms"]
+                                        / times[name]["library_ms"])
         del a, b, got, ref
     out = {"phase": "kernel_dws", "shape": [n, dr, s],
            "max_abs_err": cases["bfloat16"]["max_abs_err"], "cases": cases,
-           "tol_rel": KERNEL_TOL, "times": times, **times["bfloat16"]}
+           "tol_rel": KERNEL_TOL, "route": cases["bfloat16"]["route"],
+           "times": times, **times["bfloat16"]}
     emit(out)
     del a32, b32
     torch.cuda.empty_cache()
@@ -682,13 +738,15 @@ def train_setup(cfg, dev, seed, batch):
     return state, b
 
 
-def phase_train(kernel, dev, seed, cfg, phase, expect, updates=5) -> dict:
+def phase_train(kernel, dev, seed, cfg, phase, expect, updates=5,
+                routes=None) -> dict:
     """``make_train_step`` at full width, batch 64, T 30, adadelta with
     global-norm clip 10: one warm-up update, then ``updates`` updates on
     one batch with every kernel's launches counted from zero.  Each
     update ends in a host read of its loss (synced wall time).  Those
     in ``expect`` must launch T times an update (``dws_gemm`` once), the
-    others not at all; the loss must stay finite and fall."""
+    others not at all, each of ``routes`` (kernel -> route) all of its
+    launches on that route; the loss must stay finite and fall."""
     from stvd_torch.train.loop import make_train_step
     state, batch = train_setup(cfg, dev, seed, cfg.train.batch_size)
     train_step = make_train_step(cfg.model, cfg.train)
@@ -706,12 +764,17 @@ def phase_train(kernel, dev, seed, cfg, phase, expect, updates=5) -> dict:
         losses.append(float(m["loss"]))
         secs.append(time.perf_counter() - t0)
     launches = read_launches(kernel)
+    by_route = read_routes(kernel)
     steps = batch["tokens"].shape[1]
     want = {k: 0 for k in KERNELS}
     for name in expect:
         want[name] = updates * (1 if name == "dws_gemm" else steps)
     require(launches == want, f"{phase}: kernel launches {launches} != "
                               f"{want}")
+    for name, route in (routes or {}).items():
+        require(by_route[name][route] == want[name],
+                f"{phase}: {name} launches by route {by_route[name]}, "
+                f"want all {want[name]} on {route}")
     require(all(np.isfinite([first] + losses)), f"{phase}: loss not finite")
     require(losses[-1] < first, f"{phase}: loss did not fall {losses}")
     step_s = float(np.median(secs))
@@ -727,7 +790,7 @@ def phase_train(kernel, dev, seed, cfg, phase, expect, updates=5) -> dict:
            "median_step_s": step_s, "steps_per_s": 1.0 / step_s,
            "grad_norm_last": float(m["grad_norm"]),
            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
-           "launches": launches}
+           "launches": launches, "launches_by_route": by_route}
     emit(out)
     del state, batch
     torch.cuda.empty_cache()
@@ -894,7 +957,9 @@ def main() -> int:
     train_tail = phase_train_tail(kernel, dev, g, cfg, batch)
     dws = phase_dws(kernel, dev, g, cfg_sp, batch)
     train = phase_train(kernel, dev, args.seed, cfg_sp, "train_spatial",
-                        ("spatial_bwd", "dws_gemm"))
+                        ("spatial_bwd", "dws_gemm"),
+                        routes={"dws_gemm": "wgmma",
+                                "spatial_bwd": "vector"})
     train_t = phase_train(kernel, dev, args.seed,
                           with_model(cfg, train_tail_kernel="on"),
                           "train_temporal_tail", ("train_tail",))

@@ -29,6 +29,7 @@ HEADERS = ("gates_mma.cuh",)
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
+LINK_FLAGS = (*ARCH_FLAGS, "-shared")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -45,7 +46,7 @@ _SIGNATURES = {
     "stvd_spatial_core_max_beams": [],
     "stvd_gates_lstm": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "stvd_spatial_bwd": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P,
-                         _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+                         _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "stvd_train_tail": [_P, _P, _I, _P, _L, _P, _L, _P, _P, _P, _P, _I, _I,
                         _I, _P],
     "stvd_dws_splits": [_L, _I, _I, _I],
@@ -68,8 +69,20 @@ def _nvcc() -> str:
     return found
 
 
+def compile_command(nvcc: str, source: str, obj: str) -> list:
+    """One source's nvcc command (a header is found beside the source
+    that includes it, so no include path is passed)."""
+    return [nvcc, *NVCC_FLAGS, "-c", "-o", obj, source]
+
+
+def link_command(nvcc: str, so: str, objs) -> list:
+    return [nvcc, *LINK_FLAGS, "-o", so, *objs]
+
+
 def _digest() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    # the commands themselves, paths left blank: every flag they pass
+    h = hashlib.sha256(repr((compile_command("", "", ""),
+                             link_command("", "", []))).encode())
     for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((_CSRC / name).read_bytes())
@@ -93,15 +106,14 @@ def build() -> Path:
     nvcc = _nvcc()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
         objs = [str(Path(tmpdir, Path(name).stem + ".o")) for name in SOURCES]
-        cmds = [[nvcc, *NVCC_FLAGS, "-I", str(_CSRC), "-c", "-o", obj,
-                 str(_CSRC / name)]
+        cmds = [compile_command(nvcc, str(_CSRC / name), obj)
                 for name, obj in zip(SOURCES, objs)]
         procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                   stderr=subprocess.STDOUT, text=True)
                  for cmd in cmds]
         outputs = [proc.communicate()[0] for proc in procs]
         so = str(Path(tmpdir, out.name))
-        link = [nvcc, *ARCH_FLAGS, "-shared", "-o", so, *objs]
+        link = link_command(nvcc, so, objs)
         failed = [(cmd, text) for cmd, text, proc
                   in zip(cmds, outputs, procs) if proc.returncode != 0]
         if not failed:

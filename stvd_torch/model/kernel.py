@@ -14,7 +14,11 @@ its kernel for tensors on a CUDA device, raising on what the kernel does
 not take.  Each keeps a plain-integer ``launches`` count that grows by one
 per kernel call (a call that takes a second reduction pass, as the logit
 tail, the spatial backward step and the dWs_att GEMM do, counts once), so
-a run can show that the main path went through the kernels.
+a run can show that the main path went through the kernels.  The two
+kernels with more than one route (the spatial backward step: 16-byte or
+element loads; the dWs_att GEMM: wgmma, wmma or float32) pick it from
+shapes, dtype and alignment in a pure function and also count launches
+by route in ``launches_by_route``.
 """
 
 from __future__ import annotations
@@ -361,6 +365,22 @@ train_tail.launches = 0
 # Kernel 5: spatial backward step (csrc/spatial_bwd.cu)
 # ---------------------------------------------------------------------------
 
+SPATIAL_BWD_ROUTES = ("vector", "element")
+
+
+def spatial_bwd_route(s: int, dr: int, cdtype, ptrs) -> str:
+    """Kernel 5's load route, from widths, dtype and alignment alone:
+    'vector' (16-byte loads) when s and Dr are whole 16-byte vectors of
+    the compute dtype and every streamed operand (pregion, regions, Dpe,
+    spat_prev; addresses in ``ptrs``) starts 16-byte aligned, else
+    'element'."""
+    per_vec = 16 // cdtype.itemsize
+    if s % per_vec == 0 and dr % per_vec == 0 and all(p % 16 == 0
+                                                       for p in ptrs):
+        return "vector"
+    return "element"
+
+
 def _spatial_bwd_plain(h_satt, pregion_c, regions_c, alpha_s, alpha_prev,
                        dspat, u_s, dpe_acc):
     """One reverse step of the spatial stage at nb = 1, in the compute
@@ -416,6 +436,10 @@ def _spatial_bwd_cuda(h_satt, pregion_c, regions_c, alpha_s, alpha_prev,
     h = h_satt.to(f32).contiguous()
     pre = pregion_c.contiguous()
     reg = regions_c.contiguous()
+    spat_prev = torch.empty((b, k, dr), dtype=cd, device=dev)
+    route = spatial_bwd_route(s, dr, cd, (pre.data_ptr(), reg.data_ptr(),
+                                          dpe_acc.data_ptr(),
+                                          spat_prev.data_ptr()))
     al = alpha_s.to(f32).contiguous()
     alp = alpha_prev.to(f32).contiguous()
     dsp = dspat.to(f32).contiguous()
@@ -425,16 +449,16 @@ def _spatial_bwd_cuda(h_satt, pregion_c, regions_c, alpha_s, alpha_prev,
     dh = torch.empty((b, s), dtype=f32, device=dev)
     du = torch.empty((s,), dtype=f32, device=dev)
     dss = torch.empty((b, k, r), dtype=f32, device=dev)
-    spat_prev = torch.empty((b, k, dr), dtype=cd, device=dev)
     err = _build.lib().stvd_spatial_bwd(
         h.data_ptr(), pre.data_ptr(), reg.data_ptr(), int(cd == bf16),
         al.data_ptr(), alp.data_ptr(), dsp.data_ptr(), u.data_ptr(),
         dpe_acc.data_ptr(), int(dpe_acc.dtype == bf16), parts[0].data_ptr(),
         parts[1].data_ptr(), du_b.data_ptr(), dh.data_ptr(), du.data_ptr(),
         dss.data_ptr(), spat_prev.data_ptr(), b, k, r, s, dr,
-        _launch_stream())
+        int(route == "vector"), _launch_stream())
     _build.check(err, "spatial-backward kernel")
     spatial_bwd.launches += 1
+    spatial_bwd.launches_by_route[route] += 1
     return dh, du, dss, spat_prev
 
 
@@ -452,6 +476,7 @@ def spatial_bwd(h_satt, pregion_c, regions_c, alpha_s, alpha_prev, dspat,
 
 
 spatial_bwd.launches = 0
+spatial_bwd.launches_by_route = dict.fromkeys(SPATIAL_BWD_ROUTES, 0)
 
 
 # ---------------------------------------------------------------------------
@@ -464,6 +489,25 @@ def _dws_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return step_mod._dot(a.t(), b, a.dtype)
 
 
+# index = the route's number in csrc/dws_gemm.cu
+DWS_ROUTES = ("wgmma", "mma", "f32")
+
+
+def dws_route(n: int, dr: int, s: int, dtype, a_ptr: int, b_ptr: int
+              ) -> str:
+    """The dWs_att GEMM's route, from shapes, dtype and alignment alone:
+    'f32' for float32 operands; for bf16 'wgmma' (TMA tiles need row
+    strides of whole 16 bytes, 16-byte aligned bases and int32 row
+    coordinates) when Dr and s are multiples of 8 and both bases are
+    aligned, else 'mma'."""
+    if dtype == torch.float32:
+        return "f32"
+    if (dr % 8 == 0 and s % 8 == 0 and a_ptr % 16 == 0 and b_ptr % 16 == 0
+            and n < 2 ** 31):
+        return "wgmma"
+    return "mma"
+
+
 def _dws_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     f32, bf16 = torch.float32, torch.bfloat16
     n, dr = a.shape
@@ -474,30 +518,34 @@ def _dws_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     _require(a.is_cuda and b.device == a.device,
              "dws_gemm: operands must be on one CUDA device")
     lib = _build.lib()
-    is_bf16 = int(a.dtype == bf16)
     a = a.contiguous()
     b = b.contiguous()
-    splits = lib.stvd_dws_splits(n, dr, s, is_bf16)
+    route = dws_route(n, dr, s, a.dtype, a.data_ptr(), b.data_ptr())
+    code = DWS_ROUTES.index(route)
+    splits = lib.stvd_dws_splits(n, dr, s, code)
     part = torch.empty((splits, dr, s), dtype=f32, device=a.device)
     out = torch.empty((dr, s), dtype=f32, device=a.device)
-    err = lib.stvd_dws_gemm(a.data_ptr(), b.data_ptr(), is_bf16,
+    err = lib.stvd_dws_gemm(a.data_ptr(), b.data_ptr(), code,
                             part.data_ptr(), out.data_ptr(), n, dr, s, splits,
                             _launch_stream())
     _build.check(err, "dWs_att GEMM kernel")
     dws_gemm.launches += 1
+    dws_gemm.launches_by_route[route] += 1
     return out
 
 
 def dws_gemm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a^T @ b`` with a float32 result: the region projection's weight
     gradient.  CPU tensors take the plain version; CUDA tensors take the
-    kernel (split over N, splits summed in a fixed order)."""
+    kernel on the route ``dws_route`` picks (split over N, splits summed
+    in a fixed order)."""
     if a.device.type == "cpu":
         return _dws_plain(a, b)
     return _dws_cuda(a, b)
 
 
 dws_gemm.launches = 0
+dws_gemm.launches_by_route = dict.fromkeys(DWS_ROUTES, 0)
 
 
 class RegionProjection(torch.autograd.Function):

@@ -196,18 +196,11 @@ def rel_err(got, ref) -> float:
     return float((got.float() - ref.float()).abs().max()) / scale
 
 
-@pytest.mark.parametrize("b,k,r,s,dr,cd,acc", [
-    (1, 1, 1, 8, 8, F32, F32), (3, 5, 49, 130, 67, BF16, BF16),
-    (2, 7, 37, 1024, 1024, BF16, F32), (5, 3, 49, 64, 96, F32, F32),
-    (4, 28, 49, 1024, 1024, BF16, BF16)])
-def test_spatial_bwd_kernel_matches_plain(cuda, b, k, r, s, dr, cd, acc):
-    """Ragged R, widths that are not whole 16-byte vectors (element
-    loads), both accumulator dtypes; Dpe is updated in place.  float32:
-    1e-4 of the largest entry (sums in another order); bf16: 1e-2 (the
-    kernel rounds where the plain version does, but tanh may differ by
-    one bf16 ulp)."""
-    g = torch.Generator(device=cuda).manual_seed(r + s)
-    rnd = lambda *shape: torch.randn(*shape, generator=g, device=cuda)
+def spatial_bwd_inputs(b, k, r, s, dr, cd, acc, device):
+    """(args without Dpe, Dpe) of one spatial backward step; h_satt is a
+    column view of a wider projection, as in the scan."""
+    g = torch.Generator(device=device).manual_seed(r + s)
+    rnd = lambda *shape: torch.randn(*shape, generator=g, device=device)
     hp = rnd(b, s + 5)
     pregion = (0.5 * rnd(b, k, r, s)).to(cd)
     regions = rnd(b, k, r, dr).to(cd)
@@ -215,18 +208,59 @@ def test_spatial_bwd_kernel_matches_plain(cuda, b, k, r, s, dr, cd, acc):
     alpha_prev = torch.softmax(rnd(b, k, r), -1)
     dspat, u_s = rnd(b, k, dr), rnd(s) / s ** 0.5
     dpe0 = (0.1 * rnd(b, k, r, s)).to(acc)
+    return (hp[:, 5:], pregion, regions, alpha_s, alpha_prev, dspat,
+            u_s), dpe0
+
+
+@pytest.mark.parametrize("b,k,r,s,dr,cd,acc,route", [
+    (1, 1, 1, 8, 8, F32, F32, "vector"),
+    (3, 5, 49, 130, 67, BF16, BF16, "element"),
+    (2, 7, 37, 1024, 1024, BF16, F32, "vector"),
+    (5, 3, 49, 64, 96, F32, F32, "vector"),
+    (4, 28, 49, 1024, 1024, BF16, BF16, "vector"),
+    (2, 3, 1, 1024, 1024, BF16, BF16, "vector"),
+    (2, 3, 64, 256, 128, BF16, F32, "vector"),
+    (3, 1, 49, 1024, 1024, F32, F32, "vector"),
+    (2, 4, 49, 1024, 72, BF16, BF16, "vector"),
+    (2, 4, 49, 1024, 72, BF16, F32, "vector"),
+    (2, 4, 49, 1024, 72, F32, F32, "vector"),
+    (2, 3, 33, 1000, 10, F32, F32, "element")])
+def test_spatial_bwd_kernel_matches_plain(cuda, b, k, r, s, dr, cd, acc,
+                                          route):
+    """R 1, 33, 37, 49 and 64, K 1, s = 1024 with Dr 72 (9 vectors: 8
+    region lanes in the regions pass), widths that are not whole 16-byte
+    vectors (element loads), all three dtype mixes; Dpe is updated in
+    place.  float32: 1e-4 of the largest entry (sums in another order);
+    bf16: 1e-2 (the kernel rounds where the plain version does, but tanh
+    may differ by one bf16 ulp)."""
+    args, dpe0 = spatial_bwd_inputs(b, k, r, s, dr, cd, acc, cuda)
     dpe_k, dpe_p = dpe0.clone(), dpe0.clone()
-    args = (hp[:, 5:], pregion, regions, alpha_s, alpha_prev, dspat, u_s)
     before = tkernel.spatial_bwd.launches
+    by_route = dict(tkernel.spatial_bwd.launches_by_route)
     got = tkernel.spatial_bwd(*args, dpe_k)
     ref = tkernel._spatial_bwd_plain(*args, dpe_p)
     torch.cuda.synchronize()
     assert tkernel.spatial_bwd.launches == before + 1
+    assert tkernel.spatial_bwd.launches_by_route[route] == by_route[route] + 1
     tol = 1e-4 if cd == F32 else 1e-2
     for name, x, y in zip(("dpe", "dh_satt", "du_s", "dss", "spat_prev"),
                           (dpe_k, *got), (dpe_p, *ref)):
         assert x.dtype == y.dtype and x.shape == y.shape, name
         assert rel_err(x, y) <= tol, (name, rel_err(x, y))
+
+
+@pytest.mark.parametrize("cd,acc", [(F32, F32), (BF16, F32), (BF16, BF16)])
+def test_spatial_bwd_kernel_is_deterministic(cuda, cd, acc):
+    """Two calls on the same inputs (Dpe restored between them) agree bit
+    for bit: every cross-thread and cross-block sum has a fixed order."""
+    args, dpe0 = spatial_bwd_inputs(3, 28, 49, 1024, 1024, cd, acc, cuda)
+    outs = []
+    for _ in range(2):
+        dpe = dpe0.clone()
+        outs.append((dpe, *tkernel.spatial_bwd(*args, dpe)))
+    torch.cuda.synchronize()
+    for x, y in zip(*outs):
+        assert torch.equal(x, y)
 
 
 @pytest.mark.parametrize("rows,dc,dim,cd", [
@@ -252,23 +286,65 @@ def test_train_tail_kernel_matches_plain(cuda, rows, dc, dim, cd):
         torch.testing.assert_close(x, y, rtol=1e-4, atol=1e-4)
 
 
-@pytest.mark.parametrize("n,dr,s,dtype", [
-    (1, 8, 8, BF16), (1000, 24, 40, F32), (777, 130, 67, BF16),
-    (20000, 1024, 1024, BF16), (5000, 200, 136, F32)])
-def test_dws_gemm_kernel_matches_plain(cuda, n, dr, s, dtype):
-    """Ragged N, Dr and s; widths that are not whole 16-byte chunks take
-    element loads.  Both sum bf16 products in float32, in another order:
-    1e-4 of the largest entry."""
-    g = torch.Generator(device=cuda).manual_seed(n)
-    a = torch.randn(n, dr, generator=g, device=cuda).to(dtype)
-    b = torch.randn(n, s, generator=g, device=cuda).to(dtype)
+def check_dws(a, b, route):
+    """One dWs_att GEMM call against the plain version, on ``route``.
+    Both sum bf16 products in float32, in another order: 1e-4 of the
+    largest entry."""
     before = tkernel.dws_gemm.launches
+    by_route = dict(tkernel.dws_gemm.launches_by_route)
     got = tkernel.dws_gemm(a, b)
     ref = tkernel._dws_plain(a, b)
     torch.cuda.synchronize()
     assert tkernel.dws_gemm.launches == before + 1
-    assert got.dtype == F32 and got.shape == (dr, s)
+    assert tkernel.dws_gemm.launches_by_route[route] == by_route[route] + 1
+    assert got.dtype == F32 and got.shape == (a.shape[1], b.shape[1])
     assert rel_err(got, ref) <= 1e-4
+
+
+@pytest.mark.parametrize("n,dr,s,dtype,route", [
+    (1, 8, 8, BF16, "wgmma"), (1000, 24, 40, F32, "f32"),
+    (777, 130, 67, BF16, "mma"), (20000, 1024, 1024, BF16, "wgmma"),
+    (5000, 200, 136, F32, "f32"), (87808, 1024, 1024, BF16, "wgmma"),
+    (1000, 128, 256, BF16, "wgmma"), (37, 64, 64, BF16, "wgmma"),
+    (3000, 1000, 520, BF16, "wgmma"), (300, 8, 264, BF16, "wgmma"),
+    (999, 130, 67, F32, "f32")])
+def test_dws_gemm_kernel_matches_plain(cuda, n, dr, s, dtype, route):
+    """The main shape (87808, 1024, 1024) and ragged ones: N not a
+    multiple of the 64-row stage (1000, 20000, 3000) or below one stage
+    (1, 37), Dr and s multiples of 8 but not of the 128 x 256 tile (1000 x
+    520, 8 x 264); widths that are not whole 16-byte chunks (130 x 67)
+    take the wmma route (bf16) or element loads (float32)."""
+    g = torch.Generator(device=cuda).manual_seed(n)
+    a = torch.randn(n, dr, generator=g, device=cuda).to(dtype)
+    b = torch.randn(n, s, generator=g, device=cuda).to(dtype)
+    check_dws(a, b, route)
+
+
+def test_dws_gemm_unaligned_base_takes_the_mma_route(cuda):
+    """A base one element past 16-byte alignment cannot be a TMA tile's
+    origin: the wrapper picks the wmma route from the address."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    n, dr, s = 500, 64, 128
+    flat = torch.randn(n * dr + 1, generator=g, device=cuda).to(BF16)
+    a = flat[1:].view(n, dr)
+    b = torch.randn(n, s, generator=g, device=cuda).to(BF16)
+    assert a.is_contiguous() and a.data_ptr() % 16 != 0
+    check_dws(a, b, "mma")
+
+
+@pytest.mark.parametrize("n,dr,s,dtype", [
+    (87808, 1024, 1024, BF16), (777, 130, 67, BF16), (5000, 200, 136, F32)])
+def test_dws_gemm_kernel_is_deterministic(cuda, n, dr, s, dtype):
+    """Two calls on the same operands agree bit for bit on every route:
+    each split sums in a fixed order, and the splits are summed in order
+    (no atomics)."""
+    g = torch.Generator(device=cuda).manual_seed(n)
+    a = torch.randn(n, dr, generator=g, device=cuda).to(dtype)
+    b = torch.randn(n, s, generator=g, device=cuda).to(dtype)
+    first = tkernel.dws_gemm(a, b)
+    second = tkernel.dws_gemm(a, b)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 def tiny_train(cuda, spatial, **model):
