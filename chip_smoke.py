@@ -5,8 +5,9 @@ NVIDIA GPU.
 Builds the port's seven CUDA kernels from ``stvd_torch/csrc``, holds each
 against its plain PyTorch version at the shapes of the paths below
 (reporting its time beside the plain version's, the least time the card
-could take for the work, and, for the dWs_att GEMM, the time of the one
-PyTorch call that computes it), then drives at full width with random
+could take for the work, and, for the dWs_att GEMM and the bf16
+gates+LSTM step, the time of the one PyTorch call that computes it),
+then drives at full width with random
 weights made from ``--seed`` (dim 3584, dim_word 512, ctx 1024, K 28,
 vocab 13056, bf16):
 
@@ -20,13 +21,18 @@ vocab 13056, bf16):
   GEMM) and preset 3 with ``train_tail_kernel='on'`` (train-scan tail).
 
 Each path's kernel launches are counted from zero over its run: those of
-the path must equal its decode steps (serving) or 30 per update (the
+the path must equal its decode steps (serving; the logit tail and the
+int8 gates+LSTM step all on their wgmma routes) or 30 per update (the
 dWs_att GEMM once, all on its wgmma route; the spatial backward step all
-on its 16-byte-load route), the others 0.  The two kernels with routes
-(spatial backward step, dWs_att GEMM) also report the route each case
-took, their share of the bound, and that two calls agree bit for bit.  The kernel path is then compared with
-the plain path: decoded captions on the serving paths, the loss and
-every gradient of one preset-2 train step at float32.
+on its 16-byte-load route), the others 0.  The four kernels with routes
+(logit tail, gates+LSTM step, spatial backward step, dWs_att GEMM) also
+report the route each case took, their share of the bound, and that two
+calls agree bit for bit; the logit tail and the gates step are timed
+beside their wmma route and the library product (``torch.mm``,
+``torch._int_mm``), the bf16 gates step beside ``torch.lstm_cell``.  The
+kernel path is then compared with the plain path: decoded captions on
+the serving paths, the loss and every gradient of one preset-2 train
+step at float32.
 
 Each phase prints one JSON line with its seconds; the card's
 ``nvidia-smi`` name and power limit, then a ``{"kernels": [...]}``
@@ -35,6 +41,7 @@ Any failed check raises, so the run exits non-zero and prints no result.
 There is no CPU path: without a CUDA device the script exits 1.
 
     python3 chip_smoke.py [--seed N] [--profile]
+    python3 chip_smoke.py --serving-only [--root TREE]   # serving A/B
 """
 
 from __future__ import annotations
@@ -42,6 +49,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 import time
@@ -237,36 +245,44 @@ def exact_tail_inputs(rows, dw, v, dtype, dev, rng):
 def phase_tail(kernel, dev, g, seed, cfg) -> dict:
     """Kernel 2 at the serving shapes (preset 3: rows=1280, dw=512,
     V=13056) with k=5 and 1 in bf16, plus a ragged vocab, float32
-    operands and all-zero weights."""
+    operands and all-zero weights; each case reports its route (the
+    serving shapes must take wgmma, the ragged vocab wmma).  Timed beside
+    the plain version: the wmma route at the same shapes, and ``torch.mm``
+    of the product alone (``product_ms``: no one PyTorch call gives top-k
+    and logsumexp, so ``library_ms`` is null)."""
     rows = cfg.decode.decode_batch * cfg.decode.beam_size
     dw, v = cfg.model.dim_word, cfg.model.n_words
     rng = np.random.RandomState(seed)
     cases = {}
 
-    def check(name, x, w, b, k, exact):
-        got = kernel.logit_tail(x, w, b, k)
+    def check(name, x, w, b, k, exact, want):
+        got, route = route_taken(kernel.logit_tail,
+                                 lambda: kernel.logit_tail(x, w, b, k))
         ref = kernel._logit_tail_plain(x, w, b, k)
         torch.cuda.synchronize()
         same_idx = bool(torch.equal(got[1], ref[1]))
         err = max_err((got[0], got[2]), (ref[0], ref[2]))
-        cases[name] = {"max_abs_err": err, "idx_equal": same_idx}
+        cases[name] = {"max_abs_err": err, "idx_equal": same_idx,
+                       "route": route}
         require(err <= KERNEL_TOL, f"logit tail {name} disagrees: {err}")
         require(same_idx or not exact, f"logit tail {name}: top-k ids differ")
+        require(route == want, f"logit tail {name} took the {route} route")
         return err
 
     for k in (5, 1):
         check(f"exact_bf16_k{k}",
               *exact_tail_inputs(rows, dw, v, torch.bfloat16, dev, rng),
-              k, True)
+              k, True, "wgmma")
     check(f"exact_bf16_k5_v{v - 61}",
           *exact_tail_inputs(rows, dw, v - 61, torch.bfloat16, dev, rng),
-          5, True)
+          5, True, "wmma")
     check("exact_f32_k5",
-          *exact_tail_inputs(rows, dw, v, torch.float32, dev, rng), 5, True)
+          *exact_tail_inputs(rows, dw, v, torch.float32, dev, rng), 5, True,
+          "f32")
     x = torch.tanh(torch.randn(rows, dw, generator=g, device=dev))
     w = (0.1 * torch.randn(dw, v, generator=g, device=dev)).bfloat16()
     b = torch.randn(v, generator=g, device=dev)
-    check("gaussian_bf16_k5", x, w, b, 5, False)
+    check("gaussian_bf16_k5", x, w, b, 5, False, "wgmma")
     zeros = torch.zeros(dw, v, device=dev).bfloat16()
     vals, idx, lse = kernel.logit_tail(x, zeros, torch.zeros(v, device=dev),
                                        5)
@@ -277,15 +293,29 @@ def phase_tail(kernel, dev, g, seed, cfg) -> dict:
     cases["zero_weights_k5"] = {"idx_equal": True}
 
     xb = x.bfloat16()
+    first = kernel.logit_tail(xb, w, b, 5)
+    second = kernel.logit_tail(xb, w, b, 5)
+    torch.cuda.synchronize()
+    same = all(torch.equal(p, q) for p, q in zip(first, second))
+    require(same, "logit tail wgmma is not deterministic")
     err = max(c.get("max_abs_err", 0.0) for c in cases.values())
     ms = time_ms(lambda: kernel.logit_tail(xb, w, b, 5))
+    wmma_ms = time_ms(lambda: kernel._logit_tail_cuda(xb, w, b, 5,
+                                                      route="wmma"))
     plain_ms = time_ms(lambda: kernel._logit_tail_plain(xb, w, b, 5))
+    product_ms = time_ms(lambda: torch.mm(xb, w, out_dtype=torch.float32))
     # in: x, W, b; out: k values, k int64 ids and the lse per row
     traffic = nbytes(xb, w, b) + rows * (5 * 12 + 4)
     out = {"phase": "kernel_logit_tail", "shape": [rows, dw, v, 5],
-           "max_abs_err": err, "cases": cases, "tol": KERNEL_TOL, "ms": ms,
-           "plain_ms": plain_ms, "library_ms": None,
+           "max_abs_err": err, "cases": cases, "tol": KERNEL_TOL,
+           "route": cases["exact_bf16_k5"]["route"],
+           "bitwise_repeatable": same, "ms": ms, "wmma_ms": wmma_ms,
+           "plain_ms": plain_ms, "product_ms": product_ms,
+           "library_ms": None,
            **bound(traffic, 2 * rows * dw * v, "bf16")}
+    out["bound_share"] = out["bound_ms"] / ms
+    out["wmma_ratio"] = ms / wmma_ms
+    out["product_ratio"] = ms / product_ms
     emit(out)
     return out
 
@@ -356,11 +386,32 @@ def gates_operands(step_mod, rows, kx, dim, mode, dev, g):
     return x.to(dtype), w.to(dtype), b, c, None, None
 
 
+def lstm_cell_operands(x, w, b, c, dw, dim):
+    """``torch.lstm_cell``'s operands for the bf16 gates call (x, w, b,
+    c): input [emb | ctx], hidden h, w_ih / w_hh from the [W; U; Wc]
+    stack transposed, gates permuted from i, f, o, g to PyTorch's i, f,
+    g, o; bias and cell state rounded to bf16 (the call takes one dtype)."""
+    bf16 = torch.bfloat16
+    perm = torch.cat([torch.arange(0, 2 * dim), torch.arange(3 * dim, 4 * dim),
+                      torch.arange(2 * dim, 3 * dim)]).to(w.device)
+    inp = torch.cat([x[:, :dw], x[:, dw + dim:]], dim=1).contiguous()
+    h = x[:, dw:dw + dim].contiguous()
+    w_ih = torch.cat([w[:dw], w[dw + dim:]], dim=0).t()[perm].contiguous()
+    w_hh = w[dw:dw + dim].t()[perm].contiguous()
+    return (inp, (h, c.to(bf16)), w_ih, w_hh, b[perm].to(bf16),
+            torch.zeros_like(b, dtype=bf16))
+
+
 def phase_gates(kernel, step_mod, dev, g, cfg) -> dict:
     """Kernel 3 at the path-B shapes (rows 1280, Kx 5120, 4 dim 14336)
     and at a ragged 185 rows, in float32, bf16 and int8 mode, each
     against the plain version on the same operands (the plain int8 path
-    multiplies with torch._int_mm)."""
+    multiplies with torch._int_mm), each case with its route (bf16 and
+    int8 must take wgmma).  Timed beside the plain version: the wmma route
+    at the same shapes; in bf16 ``torch.lstm_cell`` (library_ms: the same
+    function in one call, checked against the plain version); in int8,
+    where no one call computes it, ``torch._int_mm`` of the product alone
+    (product_ms)."""
     m = cfg.model
     rows = cfg.decode.decode_batch * cfg.decode.beam_size
     kx, dim = m.dim_word + m.dim + m.ctx_dim, m.dim
@@ -369,19 +420,49 @@ def phase_gates(kernel, step_mod, dev, g, cfg) -> dict:
         tol = INT8_TOL if mode == "int8" else KERNEL_TOL
         for n in (rows, 185):
             ops = gates_operands(step_mod, n, kx, dim, mode, dev, g)
-            got = kernel.gates_lstm(*ops)
+            got, route = route_taken(kernel.gates_lstm,
+                                     lambda: kernel.gates_lstm(*ops))
             ref = step_mod._gates_lstm(*ops)
             torch.cuda.synchronize()
             err = max_err(got, ref)
-            cases[f"{mode}_rows{n}"] = err
+            name = f"{mode}_rows{n}"
+            cases[name] = {"max_abs_err": err, "route": route}
             require(all(bool(torch.isfinite(t).all()) for t in got),
                     f"gates kernel {mode}: non-finite output")
             require(err <= tol, f"gates kernel {mode} rows {n}: {err}")
-            if n == rows and mode != "f32":
-                times[mode] = {
-                    "ms": time_ms(lambda: kernel.gates_lstm(*ops), 20),
-                    "plain_ms": time_ms(
-                        lambda: step_mod._gates_lstm(*ops), 20)}
+            want = "f32" if mode == "f32" else "wgmma"
+            require(route == want, f"gates kernel {name} took {route}")
+            if n != rows or mode == "f32":
+                continue
+            again = kernel.gates_lstm(*ops)
+            torch.cuda.synchronize()
+            same = all(torch.equal(p, q) for p, q in zip(got, again))
+            require(same, f"gates kernel {mode} is not deterministic")
+            cases[name]["bitwise_repeatable"] = same
+            # the wmma route reads the (Kx, 4 dim) stack row-major
+            old = (ops[0], ops[1].contiguous(), *ops[2:])
+            t = {"ms": time_ms(lambda: kernel.gates_lstm(*ops), 20),
+                 "wmma_ms": time_ms(lambda: kernel._gates_lstm_cuda(
+                     *old, route="wmma"), 20),
+                 "plain_ms": time_ms(lambda: step_mod._gates_lstm(*ops), 20)}
+            if mode == "bf16":
+                lc = lstm_cell_operands(*ops[:4], m.dim_word, dim)
+                lib_out = torch.lstm_cell(*lc)
+                t["library_rel_err"] = rel_err(lib_out, ref)
+                require(t["library_rel_err"] <= TRAIN_BF16_TOL,
+                        f"torch.lstm_cell is not the gates function: "
+                        f"{t['library_rel_err']}")
+                t["library_ms"] = time_ms(lambda: torch.lstm_cell(*lc), 20)
+                t["product_ms"] = time_ms(
+                    lambda: torch.mm(ops[0], ops[1], out_dtype=torch.float32),
+                    20)
+                del lc, lib_out
+            else:
+                t["library_ms"] = None
+                t["product_ms"] = time_ms(
+                    lambda: step_mod._int8_mm(ops[0], ops[1]), 20)
+            times[mode] = t
+            del old, again
     # int8 mode: in x_q, W_q, bias, scale, s_r, c; out h, c.  bf16 mode:
     # in x, W (bf16), bias, c; out h, c
     times["int8"].update(bound(
@@ -390,11 +471,19 @@ def phase_gates(kernel, step_mod, dev, g, cfg) -> dict:
     times["bf16"].update(bound(
         2 * rows * kx + 2 * kx * 4 * dim + 4 * 4 * dim + 3 * 4 * rows * dim,
         2 * rows * kx * 4 * dim, "bf16"))
+    for t in times.values():
+        t["bound_share"] = t["bound_ms"] / t["ms"]
+        t["wmma_ratio"] = t["ms"] / t["wmma_ms"]
+        t["product_ratio"] = t["ms"] / t["product_ms"]
+        if t["library_ms"] is not None:
+            t["library_ratio"] = t["ms"] / t["library_ms"]
     out = {"phase": "kernel_gates_lstm", "shape": [rows, kx, 4 * dim],
-           "max_abs_err": cases["int8_rows%d" % rows], "cases": cases,
+           "max_abs_err": cases["int8_rows%d" % rows]["max_abs_err"],
+           "cases": cases, "route": cases["int8_rows%d" % rows]["route"],
            "tol": {"f32": KERNEL_TOL, "bf16": KERNEL_TOL, "int8": INT8_TOL},
-           "times": times, "library_ms": None, **times["int8"]}
+           "times": times, **times["int8"]}
     emit(out)
+    torch.cuda.empty_cache()
     return out
 
 
@@ -426,11 +515,13 @@ def counted_step(inner, counter):
 
 
 def phase_serving(api, kernel, dev, seed, params, vocab, cfg, phase,
-                  expect, modes=("natural_eos", "eos_suppressed")) -> dict:
+                  expect, modes=("natural_eos", "eos_suppressed"),
+                  routes=None) -> dict:
     """Beam requests of 1, 37 and decode_batch (256) videos, with natural
     EOS and/or with EOS suppressed (every caption runs all maxlen steps).
     The launches of every kernel are counted from zero over the run:
-    those in ``expect`` must equal the decode steps, the others 0."""
+    those in ``expect`` must equal the decode steps, the others 0, and
+    each of ``routes`` (kernel -> route) all on that route."""
     cap = api.Captioner(params, cfg, vocab, dev)
     require(cap.step_fn is kernel.step_kernels,
             "Captioner did not pick the kernel step on the GPU")
@@ -474,11 +565,17 @@ def phase_serving(api, kernel, dev, seed, params, vocab, cfg, phase,
     want = {k: (steps[0] if k in expect else 0) for k in KERNELS}
     require(steps[0] > 0 and launches == want,
             f"{phase}: kernel launches {launches} != {want}")
+    by_route = read_routes(kernel)
+    for name, route in (routes or {}).items():
+        require(by_route[name][route] == want[name],
+                f"{phase}: {name} launches by route {by_route[name]}, "
+                f"want all {want[name]} on {route}")
     out = {"phase": phase,
            "config": {"use_spatial": cfg.model.use_spatial,
                       "decode_quant": cfg.model.decode_quant,
                       "gates_kernel": cfg.model.gates_kernel},
            "runs": runs, "decode_steps": steps[0], "launches": launches,
+           "launches_by_route": by_route,
            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
     emit(out)
     return out
@@ -877,6 +974,28 @@ def phase_train_profile(dev, seed, cfg) -> None:
     torch.cuda.empty_cache()
 
 
+def serving_only(api, kernel, dev, g, args, cfg, cfg_q) -> int:
+    """Worst-case (EOS suppressed) serving of preset 3 and path B with the
+    tree ``args.root`` (or this one): captions/s of the 256-video request
+    of each, for a parent/change A/B run alternately in one call."""
+    from stvd_torch.model.decoder import init_params
+    import stvd_torch
+    vocab = api.Vocab({f"w{i}": i for i in range(2, cfg.model.n_words)})
+    params = init_params(cfg.model, g, dev)
+    out = {}
+    for name, c, expect in (
+            ("preset3", cfg, ("attention_core", "logit_tail")),
+            ("path_b", cfg_q, ("attention_core", "gates_lstm",
+                               "logit_tail"))):
+        res = phase_serving(api, kernel, dev, args.seed, params, vocab, c,
+                            f"serving_{name}", expect,
+                            modes=("eos_suppressed",))
+        n = cfg.decode.decode_batch
+        out[name] = res["runs"][f"eos_suppressed_{n}"]["captions_per_s"]
+    emit({"serving_ab": out, "tree": os.path.dirname(stvd_torch.__file__)})
+    return 0
+
+
 def with_model(cfg, **kw):
     return cfg.replace(model=dataclasses.replace(cfg.model, **kw))
 
@@ -888,11 +1007,21 @@ def main() -> int:
                     help="also print device time by kernel for one decode "
                          "on each serving path and one preset-2 train "
                          "update")
+    ap.add_argument("--serving-only", action="store_true",
+                    help="only the worst-case serving runs of preset 3 and "
+                         "path B (int8 gates kernel), for an A/B of two "
+                         "trees in one call; prints no ok line")
+    ap.add_argument("--root", default=None,
+                    help="import stvd_torch from this tree (e.g. an "
+                         "unpacked parent commit) instead of the "
+                         "script's own")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on "
               "an NVIDIA GPU", file=sys.stderr)
         return 1
+    if args.root is not None:
+        sys.path.insert(0, os.path.abspath(args.root))
     from stvd_torch import _build, api
     from stvd_torch.model import kernel
     from stvd_torch.model import step as step_mod
@@ -908,6 +1037,8 @@ def main() -> int:
     cfg = api.preset(NAME)
     cfg_sp = api.preset(SPATIAL)
     cfg_q = with_model(cfg, decode_quant="int8", gates_kernel="on")
+    if args.serving_only:
+        return serving_only(api, kernel, dev, g, args, cfg, cfg_q)
     attn = phase_attention(kernel, step_mod, dev, g, cfg)
     tail = phase_tail(kernel, dev, g, args.seed, cfg)
     spatial = phase_spatial(kernel, step_mod, dev, g, cfg_sp)
@@ -916,11 +1047,14 @@ def main() -> int:
     vocab = api.Vocab({f"w{i}": i for i in range(2, cfg.model.n_words)})
     params = init_params(cfg.model, g, dev)
     serving = phase_serving(api, kernel, dev, args.seed, params, vocab, cfg,
-                            "serving", ("attention_core", "logit_tail"))
+                            "serving", ("attention_core", "logit_tail"),
+                            routes={"logit_tail": "wgmma"})
     serving_q = phase_serving(api, kernel, dev, args.seed, params, vocab,
                               cfg_q, "serving_int8_gates",
                               ("attention_core", "gates_lstm", "logit_tail"),
-                              modes=("eos_suppressed",))
+                              modes=("eos_suppressed",),
+                              routes={"gates_lstm": "wgmma",
+                                      "logit_tail": "wgmma"})
     phase_kernel_vs_plain(api, kernel, step_mod, dev, args.seed, params,
                           vocab, with_model(cfg, compute_dtype="float32"),
                           "kernel_vs_plain_f32")
@@ -938,7 +1072,8 @@ def main() -> int:
     serving_sp = phase_serving(api, kernel, dev, args.seed, params_sp, vocab,
                                cfg_sp, "serving_spatial",
                                ("attention_core", "spatial_core",
-                                "logit_tail"))
+                                "logit_tail"),
+                               routes={"logit_tail": "wgmma"})
     # float32 at decode batch 64: the plain spatial core's float32 e_s is
     # then 1.8 GB a step instead of 7.2 GB
     cfg_sp32 = with_model(cfg_sp, compute_dtype="float32").replace(

@@ -30,12 +30,10 @@
 // * f32: float32 FMA for float32 operands (the parity runs), 8 x 8 outputs
 //   per thread in registers over double-buffered shared-memory stages.
 
-#include <cuda.h>   // CUtensorMap and its enums; the encoder is fetched at
-                    // run time, so the library does not link libcuda
 #include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <mma.h>
-#include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -59,120 +57,6 @@ constexpr int kWgThreads = 384;          // warpgroups 0-1 consume, 2 loads
 constexpr int kConsumerWarps = 8;
 constexpr size_t kWgSmem = 1024 + kRing * kStageBytes + 2 * kRing * 8;
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
-                   "r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-// Spin until the phase of parity `parity` has completed.  A wait that
-// never completes (a fault in the ring's phases) traps, so the launch
-// fails instead of hanging the card; a real wait lasts microseconds.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  for (uint32_t spin = 0;; ++spin) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (spin == (1u << 26)) __trap();
-  }
-}
-
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
-      : "memory");
-}
-
-// Shared-memory matrix descriptor of a 128-byte-swizzled MN-major operand:
-// lbo = bytes between 64-element MN atoms, sbo = bytes between groups of
-// 8 K rows (each K row is one 128-byte swizzle row).
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
-                                               uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         static_cast<uint64_t>(lbo >> 4) << 16 |
-         static_cast<uint64_t>(sbo >> 4) << 32 | 1ull << 62;
-}
-
-// d (64 x 256, this warpgroup's fragment) += A (64 x 16) B (16 x 256),
-// both MN-major (transposed) in shared memory.
-__device__ __forceinline__ void wgmma_256(float* d, uint64_t desc_a,
-                                         uint64_t desc_b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, "
-      "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
-      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
-      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
-      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
-      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, "
-      "%70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
-      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, "
-      "%90, %91, %92, %93, %94, %95, %96, %97, %98, %99, "
-      "%100, %101, %102, %103, %104, %105, %106, %107, %108, %109, "
-      "%110, %111, %112, %113, %114, %115, %116, %117, %118, %119, "
-      "%120, %121, %122, %123, %124, %125, %126, %127"
-      "}, %128, %129, p, 1, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
-        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
-        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
-        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
-        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
-        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
-        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
-        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
-        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
-        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
-        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
-        "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
-        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
-        "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "l"(desc_a), "l"(desc_b), "r"(1));
-}
-
-__device__ __forceinline__ void fence_acc(float* d) {
-#pragma unroll
-  for (int i = 0; i < 128; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
 __global__ void __launch_bounds__(kWgThreads, 1)
 dws_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
                  const __grid_constant__ CUtensorMap map_b,
@@ -191,18 +75,12 @@ dws_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
                      ? static_cast<int>((k_end - k_beg + kTK - 1) / kTK) : 0;
   const int wg = threadIdx.x / 128;
 
-  if (threadIdx.x == 0) {
-    for (int i = 0; i < kRing; ++i) {
-      mbar_init(full + 8 * i, 1);                 // the producer's arrival
-      mbar_init(empty + 8 * i, kConsumerWarps);   // one per consumer warp
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
+  ring_init(full, kRing, kConsumerWarps);
   __syncthreads();
 
   if (wg == 2) {
     // producer warpgroup: one thread issues every TMA load
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    producer_regs();
     if (threadIdx.x == 2 * 128) {
       for (int kt = 0; kt < nk; ++kt) {
         const int st = kt % kRing;
@@ -222,7 +100,7 @@ dws_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
     }
   } else {
     // consumer warpgroups 0 and 1: Dr rows m0 + 64 * wg ..
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    consumer_regs();
     float d[128];
 #pragma unroll
     for (int i = 0; i < 128; ++i) d[i] = 0.f;
@@ -233,18 +111,18 @@ dws_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
       const uint32_t a_s = base + st * kStageBytes + wg * kBoxBytes;
       const uint32_t b_s = base + st * kStageBytes + kABytes;
       fence_acc(d);
-      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+      wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kTK / 16; ++kk)   // 16 K rows = 2048 bytes
-        wgmma_256(d, sw128_desc(a_s + kk * 2048, kBoxBytes, 1024),
-                  sw128_desc(b_s + kk * 2048, kBoxBytes, 1024));
-      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+        wgmma_bf16_256<1, 1>(d, sw128_desc(a_s + kk * 2048, kBoxBytes, 1024),
+                             sw128_desc(b_s + kk * 2048, kBoxBytes, 1024));
+      wgmma_commit();
       // the previous stage's products are done: hand its buffers back
-      asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+      wgmma_wait<1>();
       fence_acc(d);
       if (kt > 0 && lane == 0) mbar_arrive(empty + 8 * ((kt - 1) % kRing));
     }
-    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    wgmma_wait<0>();
     fence_acc(d);
 
     // fragment layout of m64nNk16: d[4c + 2i + j] is row 16 warp + lane/4
@@ -498,60 +376,19 @@ __global__ void reduce_splits_kernel(const float* __restrict__ part,
 // Route numbers shared with stvd_torch/model/kernel.py:DWS_ROUTES.
 enum Route { kRouteWgmma = 0, kRouteMma = 1, kRouteF32 = 2 };
 
-bool aligned16(const void* p) {
-  return (reinterpret_cast<unsigned long long>(p) & 15) == 0;
-}
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled, looked up through the CUDA runtime's entry-point
-// query (the CUDA library the runtime loaded provides it).
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    if (e == cudaSuccess &&
-        q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// A (rows, width) row-major bf16 tensor read in (kBox, kTK) boxes with
-// 128-byte swizzle; reads past its edges fill zeros.
-bool encode_map(CUtensorMap* map, const void* ptr, long long rows,
-                int width) {
-  const EncodeTiled fn = encoder();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(width),
-                              static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(width) * 2};
-  const cuuint32_t box[2] = {kBox, kTK};
-  const cuuint32_t elem[2] = {1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr),
-            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+// A (rows, width) row-major bf16 tensor read in (kBox, kTK) boxes
+bool encode_operand(CUtensorMap* map, const void* ptr, long long rows,
+                    int width) {
+  return encode_map(map, ptr, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rows, width,
+                    kBox, kTK);
 }
 
 cudaError_t launch_wgmma(const void* a, const void* b, float* part,
                          long long n, long long chunk, int splits, int dr,
                          int s, cudaStream_t st) {
   CUtensorMap map_a, map_b;
-  if (!encode_map(&map_a, a, n, dr) || !encode_map(&map_b, b, n, s))
+  if (!encode_operand(&map_a, a, n, dr) ||
+      !encode_operand(&map_b, b, n, s))
     return cudaErrorInvalidValue;
   const cudaError_t e = cudaFuncSetAttribute(
       dws_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -587,10 +424,7 @@ cudaError_t launch_mma(const void* a, const void* b, float* part, long long n,
 // sizes the float32 scratch as splits * dr * s): as many as fit one wave
 // of blocks on the card's SMs, at least one.
 extern "C" int stvd_dws_splits(long long n, int dr, int s, int route) {
-  int sms = 132;
-  int dev = 0;
-  if (cudaGetDevice(&dev) == cudaSuccess)
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int sms = num_sms();
   int tm, tn, step, per_sm;
   if (route == kRouteWgmma) {
     tm = kTM, tn = kTN, step = kTK, per_sm = 1;

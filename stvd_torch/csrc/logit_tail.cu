@@ -13,33 +13,42 @@
 //
 // The TPU grid ran vocab tiles in order and carried a running (max,
 // sumexp, top-k) through scratch; Hopper blocks run in no order, so the
-// work is two passes:
-//   1. tail_tile_kernel: one block per (64-row x 128-column) tile computes
-//      its logits into shared memory (bf16 operands on the tensor cores
-//      through nvcuda::wmma with float32 accumulation; float32 operands
-//      with FMAs), then a warp per row reduces the tile to a partial
-//      (max, sumexp, top-k values, top-k columns) in scratch the wrapper
-//      allocates.  Columns >= V are masked inside the kernel, so the
-//      ragged vocab needs no padded copy of W.
-//   2. tail_merge_kernel: a warp per row combines the partials: the
-//      rescaled logsumexp lse = m + log(max(s, 1e-38)) and a k-way top-k
-//      merge in the same (value desc, column asc) order.
-// Top-k selection takes k rounds of a warp-wide arg-best, each round
-// restricted to candidates strictly after the previous winner in that
-// order, so no candidate needs marking.
+// work is two passes: a tile pass writes one partial (max, sumexp, top-k
+// values, top-k columns) per (row, vocab strip) into scratch the wrapper
+// allocates, and tail_merge_kernel (a warp per row) combines the partials:
+// the rescaled logsumexp lse = m + log(max(s, 1e-38)) and a k-way top-k
+// merge in the same (value desc, column asc) order.  Columns >= V are
+// masked inside the kernels, so the ragged vocab needs no padded copy of W.
 //
 // Bound: at rows=1280, dw=512, V=13056 the product is 2*1280*512*13056 =
-// 17 GFLOP and W is 13.4 MB (bf16).  The grid walks row tiles fastest, so
-// the 20 row tiles of one vocab tile run together and share that W tile
-// in the 50 MB L2: W streams from HBM about once per step.  The HBM floor
-// is ~4 us and the bf16 tensor-core floor ~17 us; this first version is
-// bound by its staging instead (scalar loads into shared memory, two
-// barriers per 32-deep slice, no pipelining, plain wmma).
+// 17 GFLOP and W is 13.4 MB (bf16): ~17 us at the bf16 tensor-core peak,
+// ~4 us of HBM.  x and W fit the 50 MB L2, so the tiles re-read them from
+// there.  Three routes, picked by the caller from dtype, widths and
+// alignment (stvd_torch/model/kernel.py:logit_tail_route):
+//
+// * wgmma (bf16; dw and V multiples of 8, 16-byte aligned bases): a
+//   persistent, warp-specialised kernel.  A tile is 128 rows x 256 vocab
+//   columns; one producer thread streams 64-deep stages of x (K-major) and
+//   W (MN-major: its transpose bit is set, so W is never copied) by TMA
+//   into a 4-stage mbarrier ring, and two consumer warpgroups each run
+//   m64n256k16 wgmma on them.  The epilogue stays in registers: in the
+//   accumulator layout a row's 256 columns sit in the four lanes of one
+//   quad, so each thread keeps a sorted top-k and (max, sumexp) over its 64
+//   columns of each of its two rows, and the quad merges them by shuffles.
+//   The block walks tiles with its ring running on, so the next tile's
+//   loads overlap this tile's epilogue.
+// * wmma (other bf16): one block per 64-row x 128-column tile, logits into
+//   shared memory through nvcuda::wmma (scalar staging, two barriers per
+//   32-deep slice), then a warp per row takes k rounds of a warp-wide
+//   arg-best, each restricted to candidates strictly after the previous
+//   winner in (value desc, column asc) order.
+// * f32: the same tile kernel with float32 FMAs (the parity runs).
 
 #include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
 #include <mma.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -297,6 +306,273 @@ tail_merge_kernel(const float* __restrict__ part_m,
   }
 }
 
+// ---------------------------------------------------------------------------
+// Route wgmma: TMA + mbarrier ring + wgmma, persistent and warp-specialised
+// ---------------------------------------------------------------------------
+
+constexpr int kWgRows = 128;             // rows per tile: two warpgroups
+constexpr int kWgCols = 256;             // vocab columns per tile (a strip)
+constexpr int kWgK = 64;                 // dw per stage: 128 bytes of bf16
+constexpr int kWgRing = 4;               // stages
+constexpr int kWgABytes = kWgRows * kWgK * 2;           // 16 KB, one box
+constexpr int kWgBBoxBytes = 64 * kWgK * 2;             // 8 KB
+constexpr int kWgStageBytes = kWgABytes + kWgCols / 64 * kWgBBoxBytes;
+constexpr int kWgThreads = 384;          // warpgroups 0-1 consume, 2 loads
+constexpr size_t kWgSmem = 1024 + kWgRing * kWgStageBytes + 2 * kWgRing * 8;
+
+// Insert (v, c) into the descending list (lv, li) of K entries.  The
+// caller visits its columns in ascending order, so v goes above an equal
+// value only if it is strictly greater: ties keep the lower column first.
+template <int K>
+__device__ __forceinline__ void insert_sorted(float (&lv)[K], int (&li)[K],
+                                              float v, int c) {
+#pragma unroll
+  for (int t = K - 1; t > 0; --t) {
+    const bool up = v > lv[t - 1];
+    const bool here = v > lv[t];
+    lv[t] = up ? lv[t - 1] : (here ? v : lv[t]);
+    li[t] = up ? li[t - 1] : (here ? c : li[t]);
+  }
+  if (v > lv[0]) {
+    lv[0] = v;
+    li[0] = c;
+  }
+}
+
+// The quad's (four lanes') sorted lists -> the K best of their union in
+// (value desc, column asc) order, written to slot by lane t % 4 in round t.
+// All 32 lanes call it (shuffles); `live` says whether the row exists.
+template <int K>
+__device__ __forceinline__ void quad_topk(float (&lv)[K], int (&li)[K],
+                                          bool live, float* __restrict__ pv,
+                                          int* __restrict__ pi, int q) {
+#pragma unroll
+  for (int t = 0; t < K; ++t) {
+    float bv = lv[0];
+    int bi = li[0];
+#pragma unroll
+    for (int o = 1; o < 4; o <<= 1) {
+      const float ov = __shfl_xor_sync(kFull, bv, o);
+      const int oi = __shfl_xor_sync(kFull, bi, o);
+      if (before(ov, oi, bv, bi)) {
+        bv = ov;
+        bi = oi;
+      }
+    }
+    if (li[0] == bi) {   // this lane held the winner: pop it
+#pragma unroll
+      for (int u = 0; u + 1 < K; ++u) {
+        lv[u] = lv[u + 1];
+        li[u] = li[u + 1];
+      }
+      lv[K - 1] = -INFINITY;
+      li[K - 1] = kNoIdx;
+    }
+    if (live && q == (t & 3)) {
+      pv[t] = bv;
+      pi[t] = bi;
+    }
+  }
+}
+
+template <int K>
+__global__ void __launch_bounds__(kWgThreads, 1)
+tail_wgmma_kernel(const __grid_constant__ CUtensorMap map_x,
+                  const __grid_constant__ CUtensorMap map_w,
+                  const float* __restrict__ bias, float* __restrict__ part_m,
+                  float* __restrict__ part_s, float* __restrict__ part_v,
+                  int* __restrict__ part_i, int rows, int dw, int v,
+                  int nstrips) {
+  extern __shared__ unsigned char wg_smem[];
+  // 128-byte swizzle atoms are 1024 bytes and must start 1024-aligned
+  const uint32_t base = (smem_u32(wg_smem) + 1023u) & ~1023u;
+  const uint32_t full = base + kWgRing * kWgStageBytes;   // full[kWgRing]
+  const uint32_t empty = full + kWgRing * 8;              // empty[kWgRing]
+  const int nrt = (rows + kWgRows - 1) / kWgRows;
+  const int ntiles = nrt * nstrips;
+  const int nk = (dw + kWgK - 1) / kWgK;
+  const int wg = threadIdx.x / 128;
+
+  ring_init(full, kWgRing, 8);
+  __syncthreads();
+
+  if (wg == 2) {
+    // producer warpgroup: one thread issues every TMA load; the ring's
+    // stage counter runs on across tiles
+    producer_regs();
+    if (threadIdx.x == 2 * 128) {
+      int it = 0;
+      for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+        const int m0 = (tile % nrt) * kWgRows;
+        const int n0 = (tile / nrt) * kWgCols;
+        for (int kt = 0; kt < nk; ++kt, ++it) {
+          const int st = it % kWgRing;
+          mbar_wait(empty + 8 * st, ((it / kWgRing) & 1) ^ 1);
+          mbar_expect_tx(full + 8 * st, kWgStageBytes);
+          const uint32_t a_s = base + st * kWgStageBytes;
+          tma_load(a_s, &map_x, full + 8 * st, kt * kWgK, m0);
+#pragma unroll
+          for (int q = 0; q < kWgCols / 64; ++q)
+            tma_load(a_s + kWgABytes + q * kWgBBoxBytes, &map_w,
+                     full + 8 * st, n0 + 64 * q, kt * kWgK);
+        }
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroups 0 and 1: rows m0 + 64 * wg ..
+  consumer_regs();
+  const int lane = threadIdx.x & 31;
+  const int q = lane & 3;
+  float d[128];
+  int it = 0;
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+    const int m0 = (tile % nrt) * kWgRows;
+    const int strip = tile / nrt;
+    const int n0 = strip * kWgCols;
+#pragma unroll
+    for (int i = 0; i < 128; ++i) d[i] = 0.f;
+    for (int kt = 0; kt < nk; ++kt, ++it) {
+      const int st = it % kWgRing;
+      mbar_wait(full + 8 * st, (it / kWgRing) & 1);
+      const uint32_t a_s = base + st * kWgStageBytes + wg * (kWgABytes / 2);
+      const uint32_t b_s = base + st * kWgStageBytes + kWgABytes;
+      fence_acc(d);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kWgK / 16; ++kk)
+        // x K-major: a k16 step is 32 bytes of each 128-byte row; W
+        // MN-major: 16 rows of 128 bytes
+        wgmma_bf16_256<0, 1>(d, sw128_desc(a_s + kk * 32, 16, 1024),
+                             sw128_desc(b_s + kk * 2048, kWgBBoxBytes, 1024));
+      wgmma_commit();
+      // the previous stage's products are done: hand its buffers back
+      wgmma_wait<1>();
+      fence_acc(d);
+      if (kt > 0 && lane == 0) mbar_arrive(empty + 8 * ((it - 1) % kWgRing));
+    }
+    wgmma_wait<0>();
+    fence_acc(d);
+    if (lane == 0) mbar_arrive(empty + 8 * ((it - 1) % kWgRing));
+
+    // Epilogue in registers.  d[4c + 2i + j] is row r_i = 16 warp + lane/4
+    // + 8i of this warpgroup's 64, column 8c + 2q + j of the strip: a
+    // thread holds 64 columns of each of its two rows, in ascending order
+    // of (c, j), and the quad's four lanes hold the whole strip.
+    const int r0 = m0 + wg * 64 + ((threadIdx.x & 127) >> 5) * 16 + (lane >> 2);
+    float lv0[K], lv1[K];
+    int li0[K], li1[K];
+#pragma unroll
+    for (int t = 0; t < K; ++t) {
+      lv0[t] = lv1[t] = -INFINITY;
+      li0[t] = li1[t] = kNoIdx;
+    }
+    float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+    for (int c = 0; c < kWgCols / 8; ++c)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int col = n0 + 8 * c + 2 * q + j;
+        const bool in = col < v;
+        const float b = in ? bias[col] : 0.f;
+        const float v0 = in ? d[4 * c + j] + b : -INFINITY;
+        const float v1 = in ? d[4 * c + 2 + j] + b : -INFINITY;
+        d[4 * c + j] = v0;
+        d[4 * c + 2 + j] = v1;
+        mx0 = fmaxf(mx0, v0);
+        mx1 = fmaxf(mx1, v1);
+        insert_sorted<K>(lv0, li0, v0, col);
+        insert_sorted<K>(lv1, li1, v1, col);
+      }
+#pragma unroll
+    for (int o = 1; o < 4; o <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(kFull, mx0, o));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(kFull, mx1, o));
+    }
+    // column n0 < v lies in lane q = 0, so both maxima are finite
+    float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+    for (int c = 0; c < kWgCols / 8; ++c)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        s0 += __expf(d[4 * c + j] - mx0);   // exp(-inf) = 0 past V
+        s1 += __expf(d[4 * c + 2 + j] - mx1);
+      }
+#pragma unroll
+    for (int o = 1; o < 4; o <<= 1) {
+      s0 += __shfl_xor_sync(kFull, s0, o);
+      s1 += __shfl_xor_sync(kFull, s1, o);
+    }
+    const bool live0 = r0 < rows, live1 = r0 + 8 < rows;
+    const long long slot0 = static_cast<long long>(r0) * nstrips + strip;
+    const long long slot1 = slot0 + 8LL * nstrips;
+    quad_topk<K>(lv0, li0, live0, part_v + slot0 * K, part_i + slot0 * K, q);
+    quad_topk<K>(lv1, li1, live1, part_v + slot1 * K, part_i + slot1 * K, q);
+    if (q == 0) {
+      if (live0) {
+        part_m[slot0] = mx0;
+        part_s[slot0] = s0;
+      }
+      if (live1) {
+        part_m[slot1] = mx1;
+        part_s[slot1] = s1;
+      }
+    }
+  }
+}
+
+template <int K>
+cudaError_t launch_wgmma_k(const CUtensorMap& map_x, const CUtensorMap& map_w,
+                           const float* bias, float* part_m, float* part_s,
+                           float* part_v, int* part_i, int rows, int dw, int v,
+                           int nstrips, cudaStream_t stream) {
+  const cudaError_t e = cudaFuncSetAttribute(
+      tail_wgmma_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(kWgSmem));
+  if (e != cudaSuccess) return e;
+  const int ntiles = (rows + kWgRows - 1) / kWgRows * nstrips;
+  const int sms = num_sms();
+  tail_wgmma_kernel<K><<<ntiles < sms ? ntiles : sms, kWgThreads, kWgSmem,
+                         stream>>>(map_x, map_w, bias, part_m, part_s, part_v,
+                                   part_i, rows, dw, v, nstrips);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_wgmma(const void* x, const void* w, const void* bias,
+                         void* part_m, void* part_s, void* part_v,
+                         void* part_i, void* vals, void* idx, void* lse,
+                         int rows, int dw, int v, int ksel,
+                         cudaStream_t stream) {
+  CUtensorMap map_x, map_w;
+  if (!encode_map(&map_x, x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rows, dw, kWgK,
+                  kWgRows) ||
+      !encode_map(&map_w, w, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, dw, v, 64,
+                  kWgK))
+    return cudaErrorInvalidValue;
+  // one instantiation per k: the per-thread top-k lists stay in registers
+  typedef cudaError_t (*LaunchK)(const CUtensorMap&, const CUtensorMap&,
+                                 const float*, float*, float*, float*, int*,
+                                 int, int, int, int, cudaStream_t);
+  static const LaunchK by_k[kMaxK] = {
+      launch_wgmma_k<1>, launch_wgmma_k<2>, launch_wgmma_k<3>,
+      launch_wgmma_k<4>, launch_wgmma_k<5>, launch_wgmma_k<6>,
+      launch_wgmma_k<7>, launch_wgmma_k<8>};
+  const int ns = (v + kWgCols - 1) / kWgCols;
+  float* pm = static_cast<float*>(part_m);
+  float* ps = static_cast<float*>(part_s);
+  float* pv = static_cast<float*>(part_v);
+  int* pi = static_cast<int*>(part_i);
+  const cudaError_t e =
+      by_k[ksel - 1](map_x, map_w, static_cast<const float*>(bias), pm, ps,
+                     pv, pi, rows, dw, v, ns, stream);
+  if (e != cudaSuccess) return e;
+  tail_merge_kernel<<<(rows + kWarps - 1) / kWarps, kThreads, 0, stream>>>(
+      pm, ps, pv, pi, static_cast<float*>(vals), static_cast<long long*>(idx),
+      static_cast<float*>(lse), rows, ns, ksel);
+  return cudaGetLastError();
+}
+
 template <typename T>
 cudaError_t launch(const void* x, const void* w, const void* bias,
                    void* part_m, void* part_s, void* part_v, void* part_i,
@@ -319,29 +595,46 @@ cudaError_t launch(const void* x, const void* w, const void* bias,
   return cudaGetLastError();
 }
 
+// Route numbers shared with stvd_torch/model/kernel.py:LOGIT_TAIL_ROUTES.
+enum Route { kRouteWgmma = 0, kRouteMma = 1, kRouteF32 = 2 };
+
 }  // namespace
 
-// Number of per-row partials (vocab tiles) the wrapper allocates.
-extern "C" int stvd_logit_tail_ntiles(int v) { return (v + BN - 1) / BN; }
+// Number of per-row partials (vocab tiles or strips) the wrapper allocates
+// for this route.
+extern "C" int stvd_logit_tail_ntiles(int v, int route) {
+  return route == kRouteWgmma ? (v + kWgCols - 1) / kWgCols
+                              : (v + BN - 1) / BN;
+}
 
-// x (rows, dw) and w (dw, v) both bf16 (x_bf16 != 0) or both float32;
-// bias (v,) float32.  Scratch: part_m, part_s (rows, ntiles) float32,
-// part_v (rows, ntiles, ksel) float32, part_i (rows, ntiles, ksel) int32.
+// route kRouteWgmma / kRouteMma: x (rows, dw) and w (dw, v) bf16;
+// kRouteF32: both float32.  bias (v,) float32.  Scratch, ntiles from
+// stvd_logit_tail_ntiles: part_m, part_s (rows, ntiles) float32, part_v
+// (rows, ntiles, ksel) float32, part_i (rows, ntiles, ksel) int32.
 // Outputs: vals (rows, ksel) float32, idx (rows, ksel) int64, lse (rows,)
 // float32.  Returns the cudaError_t of the launches (0 on success).
-extern "C" int stvd_logit_tail(const void* x, const void* w, int x_bf16,
+extern "C" int stvd_logit_tail(const void* x, const void* w, int route,
                                const void* bias, void* part_m, void* part_s,
                                void* part_v, void* part_i, void* vals,
                                void* idx, void* lse, int rows, int dw, int v,
                                int ksel, void* stream) {
   if (rows < 1 || dw < 1 || v < ksel || ksel < 1 || ksel > kMaxK)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (route == kRouteWgmma &&
+      (dw % 8 != 0 || v % 8 != 0 || !aligned16(x) || !aligned16(w)))
+    return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t e =
-      x_bf16 ? launch<__nv_bfloat16>(x, w, bias, part_m, part_s, part_v,
-                                     part_i, vals, idx, lse, rows, dw, v,
-                                     ksel, s)
-             : launch<float>(x, w, bias, part_m, part_s, part_v, part_i, vals,
-                             idx, lse, rows, dw, v, ksel, s);
+  cudaError_t e;
+  if (route == kRouteWgmma)
+    e = launch_wgmma(x, w, bias, part_m, part_s, part_v, part_i, vals, idx,
+                     lse, rows, dw, v, ksel, s);
+  else if (route == kRouteMma)
+    e = launch<__nv_bfloat16>(x, w, bias, part_m, part_s, part_v, part_i,
+                              vals, idx, lse, rows, dw, v, ksel, s);
+  else if (route == kRouteF32)
+    e = launch<float>(x, w, bias, part_m, part_s, part_v, part_i, vals, idx,
+                      lse, rows, dw, v, ksel, s);
+  else
+    e = cudaErrorInvalidValue;
   return static_cast<int>(e);
 }

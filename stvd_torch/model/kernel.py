@@ -14,11 +14,11 @@ its kernel for tensors on a CUDA device, raising on what the kernel does
 not take.  Each keeps a plain-integer ``launches`` count that grows by one
 per kernel call (a call that takes a second reduction pass, as the logit
 tail, the spatial backward step and the dWs_att GEMM do, counts once), so
-a run can show that the main path went through the kernels.  The two
-kernels with more than one route (the spatial backward step: 16-byte or
-element loads; the dWs_att GEMM: wgmma, wmma or float32) pick it from
-shapes, dtype and alignment in a pure function and also count launches
-by route in ``launches_by_route``.
+a run can show that the main path went through the kernels.  The
+kernels with more than one route (the logit tail, the gates+LSTM step
+and the dWs_att GEMM: wgmma, wmma or float32; the spatial backward step:
+16-byte or element loads) pick it from shapes, dtype and alignment in a
+pure function and also count launches by route in ``launches_by_route``.
 """
 
 from __future__ import annotations
@@ -115,7 +115,26 @@ def _logit_tail_plain(x, w, b, k_sel: int):
     return vals, idx, torch.logsumexp(logits, dim=-1)
 
 
-def _logit_tail_cuda(x, w, b, k_sel: int):
+# index = the route's number in csrc/logit_tail.cu
+LOGIT_TAIL_ROUTES = ("wgmma", "wmma", "f32")
+
+
+def logit_tail_route(rows: int, dw: int, v: int, dtype, x_ptr: int,
+                     w_ptr: int) -> str:
+    """The logit tail's route, from shapes, dtype and alignment alone:
+    'f32' for float32 operands; for bf16 'wgmma' (TMA tiles need row
+    strides of whole 16 bytes and 16-byte aligned bases) when dw and V
+    are multiples of 8 and both bases are aligned, else 'wmma'."""
+    if dtype == torch.float32:
+        return "f32"
+    if dw % 8 == 0 and v % 8 == 0 and x_ptr % 16 == 0 and w_ptr % 16 == 0:
+        return "wgmma"
+    return "wmma"
+
+
+def _logit_tail_cuda(x, w, b, k_sel: int, route=None):
+    """The kernel on ``logit_tail_route``'s route, or on ``route`` when
+    given (to time one route against another on the same operands)."""
     rows, dw = x.shape
     v = w.shape[1]
     lib = _build.lib()
@@ -129,7 +148,11 @@ def _logit_tail_cuda(x, w, b, k_sel: int):
     x = x.to(w.dtype).contiguous()
     w = w.contiguous()
     b = b.to(torch.float32).contiguous()
-    nt = lib.stvd_logit_tail_ntiles(v)
+    if route is None:
+        route = logit_tail_route(rows, dw, v, w.dtype, x.data_ptr(),
+                                 w.data_ptr())
+    code = LOGIT_TAIL_ROUTES.index(route)
+    nt = lib.stvd_logit_tail_ntiles(v, code)
     dev = x.device
     f32 = torch.float32
     part_m = torch.empty((rows, nt), dtype=f32, device=dev)
@@ -140,20 +163,21 @@ def _logit_tail_cuda(x, w, b, k_sel: int):
     idx = torch.empty((rows, k_sel), dtype=torch.int64, device=dev)
     lse = torch.empty((rows,), dtype=f32, device=dev)
     err = lib.stvd_logit_tail(
-        x.data_ptr(), w.data_ptr(), int(w.dtype == torch.bfloat16),
-        b.data_ptr(), part_m.data_ptr(), part_s.data_ptr(),
-        part_v.data_ptr(), part_i.data_ptr(), vals.data_ptr(),
-        idx.data_ptr(), lse.data_ptr(), rows, dw, v, k_sel,
+        x.data_ptr(), w.data_ptr(), code, b.data_ptr(), part_m.data_ptr(),
+        part_s.data_ptr(), part_v.data_ptr(), part_i.data_ptr(),
+        vals.data_ptr(), idx.data_ptr(), lse.data_ptr(), rows, dw, v, k_sel,
         _launch_stream())
     _build.check(err, "logit-tail kernel")
     logit_tail.launches += 1
+    logit_tail.launches_by_route[route] += 1
     return vals, idx, lse
 
 
 def logit_tail(x, w, b, k_sel: int):
     """Activation (rows, dw) -> (top-k raw logits, their vocab ids,
     logsumexp per row); top-k log-probs are ``vals - lse[:, None]``.
-    CPU tensors take the plain version; CUDA tensors take the kernel."""
+    CPU tensors take the plain version; CUDA tensors take the kernel on
+    the route ``logit_tail_route`` picks."""
     if k_sel < 1 or k_sel > 8:
         raise ValueError(f"logit_tail: k_sel={k_sel} outside 1..8")
     if x.device.type == "cpu":
@@ -162,6 +186,7 @@ def logit_tail(x, w, b, k_sel: int):
 
 
 logit_tail.launches = 0
+logit_tail.launches_by_route = dict.fromkeys(LOGIT_TAIL_ROUTES, 0)
 
 
 def make_logit_tail(w, b, k_sel: int):
@@ -239,10 +264,32 @@ spatial_core.launches = 0
 # ---------------------------------------------------------------------------
 
 _GATES_MODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+# index = the route's number in csrc/gates_lstm.cu
+GATES_ROUTES = ("wgmma", "wmma", "f32")
 
 
-def _gates_lstm_cuda(x, w, b, c, s_r=None, scale=None
+def gates_route(rows: int, kx: int, dim: int, dtype, x_ptr: int,
+                w_ptr: int) -> str:
+    """The gates+LSTM kernel's route, from shapes, dtype and alignment
+    alone: 'f32' for float32 operands; 'wgmma' when TMA can describe the
+    operands (row strides of whole 16 bytes, 16-byte aligned bases): bf16
+    with Kx a multiple of 8 and dim even, int8 (whose W is read K-major,
+    so only Kx matters) with Kx a multiple of 16; else 'wmma'.  ``w_ptr``
+    is the address the route reads: under int8 wgmma that of the K-major
+    grid."""
+    if dtype == torch.float32:
+        return "f32"
+    if x_ptr % 16 or w_ptr % 16:
+        return "wmma"
+    if dtype == torch.int8:
+        return "wgmma" if kx % 16 == 0 else "wmma"
+    return "wgmma" if kx % 8 == 0 and dim % 2 == 0 else "wmma"
+
+
+def _gates_lstm_cuda(x, w, b, c, s_r=None, scale=None, route=None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel on ``gates_route``'s route, or on ``route`` when given
+    (to time one route against another on the same operands)."""
     f32 = torch.float32
     rows, kx = x.shape
     n4 = w.shape[1]
@@ -262,7 +309,15 @@ def _gates_lstm_cuda(x, w, b, c, s_r=None, scale=None
     _require(x.is_cuda and all(t.device == x.device for t in tensors),
              "gates_lstm: all operands must be on one CUDA device")
     x = x.contiguous()
-    w = w.contiguous()
+    # int8 wgmma reads the K-major grid (step.quantize_weights stores it
+    # so: then this is a view); the other routes the (Kx, 4 dim) stack
+    kmajor = quant and route in (None, "wgmma")
+    w_read = w.t().contiguous() if kmajor else w.contiguous()
+    if route is None:
+        route = gates_route(rows, kx, dim, w.dtype, x.data_ptr(),
+                            w_read.data_ptr())
+        if quant and route != "wgmma":
+            w_read = w.contiguous()
     b = b.to(f32).contiguous()
     c = c.to(f32).contiguous()
     if quant:
@@ -273,11 +328,13 @@ def _gates_lstm_cuda(x, w, b, c, s_r=None, scale=None
     h_t = torch.empty((rows, dim), dtype=f32, device=x.device)
     c_t = torch.empty((rows, dim), dtype=f32, device=x.device)
     err = lib.stvd_gates_lstm(
-        x.data_ptr(), w.data_ptr(), _GATES_MODES[w.dtype], b.data_ptr(),
-        s_r.data_ptr(), scale.data_ptr(), c.data_ptr(), h_t.data_ptr(),
-        c_t.data_ptr(), rows, kx, dim, _launch_stream())
+        x.data_ptr(), w_read.data_ptr(), _GATES_MODES[w.dtype],
+        GATES_ROUTES.index(route), b.data_ptr(), s_r.data_ptr(),
+        scale.data_ptr(), c.data_ptr(), h_t.data_ptr(), c_t.data_ptr(), rows,
+        kx, dim, _launch_stream())
     _build.check(err, "gates+LSTM kernel")
     gates_lstm.launches += 1
+    gates_lstm.launches_by_route[route] += 1
     return h_t, c_t
 
 
@@ -287,13 +344,15 @@ def gates_lstm(x, w, b, c, s_r=None, scale=None
     ``x`` and the gates stack ``w`` (float32, bf16, or int8 with its row
     and column scales), the (rows, 4 dim) preactivation never leaving the
     kernel.  CPU tensors take the plain version; CUDA tensors take the
-    kernel, which masks ragged rows, depths and dims itself."""
+    kernel on the route ``gates_route`` picks, which masks ragged rows,
+    depths and dims itself."""
     if x.device.type == "cpu":
         return step_mod._gates_lstm(x, w, b, c, s_r, scale)
     return _gates_lstm_cuda(x, w, b, c, s_r, scale)
 
 
 gates_lstm.launches = 0
+gates_lstm.launches_by_route = dict.fromkeys(GATES_ROUTES, 0)
 
 
 # ---------------------------------------------------------------------------

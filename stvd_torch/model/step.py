@@ -64,7 +64,7 @@ class StepContext(NamedTuple):
     regions: Optional[torch.Tensor] = None    # (Bc, K, R, Dr) spatial only
     pregion: Optional[torch.Tensor] = None    # (Bc, K, R, s) f32
     w_sf_att: Optional[torch.Tensor] = None   # (Dr, attn_dim) f32 = W_spat_fuse @ Wc_att
-    gates_w_q: Optional[torch.Tensor] = None  # int8 gates stack (decode_quant)
+    gates_w_q: Optional[torch.Tensor] = None  # int8 gates stack (decode_quant), K-major
     gates_scale: Optional[torch.Tensor] = None  # (4 dim,) f32 per-column scale
     h_proj_w: Optional[torch.Tensor] = None  # train: (dim, 4 dim + attn + 1 [+ s]) = [U | h_att_w]
 
@@ -169,13 +169,17 @@ def _gates_weights(params: Params) -> torch.Tensor:
 
 def quantize_weights(w: torch.Tensor
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Per-output-column symmetric int8 grid of a weight stack:
+    """Per-output-column symmetric int8 grid of a (K, N) weight stack:
     (w_q int8, scale (N,) f32) with scale = max(max|w|, 1e-8) / 127 and
-    w_q = clip(round(w / scale), +-127), round half to even as in JAX."""
+    w_q = clip(round(w / scale), +-127), round half to even as in JAX.
+    ``w_q`` is the (K, N) view of a K-major (N, K) tensor: the gates
+    kernel's wgmma takes int8 operands only K-major, and the plain path
+    multiplies the view as it is (on the card cuBLASLt takes it as a
+    transposed operand)."""
     w32 = w.to(torch.float32)
     scale = w32.abs().amax(dim=0).clamp_min(1e-8) / 127.0
     w_q = torch.clamp(torch.round(w32 / scale[None, :]), -127, 127)
-    return w_q.to(torch.int8), scale
+    return w_q.to(torch.int8).t().contiguous().t(), scale
 
 
 def quantize_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -3,10 +3,11 @@
 The library is named by a digest of the sources and flags, so a source
 missing from ``_build.SOURCES`` / ``HEADERS``, or a flag passed outside
 the digest, would let a stale library be reused.  ``build`` is driven
-here with nvcc replaced by a recorder.  The route helpers of kernels 5
-and 7 are pure functions of shapes, dtype and addresses.
+here with nvcc replaced by a recorder.  The route helpers of kernels 2,
+3, 5 and 7 are pure functions of shapes, dtype and addresses.
 """
 
+import re
 import shutil
 import types
 from pathlib import Path
@@ -17,7 +18,7 @@ import torch
 from stvd_torch import _build
 from stvd_torch.model import kernel as tkernel
 
-BF16, F32 = torch.bfloat16, torch.float32
+BF16, F32, I8 = torch.bfloat16, torch.float32, torch.int8
 
 
 def test_every_csrc_file_is_a_source_or_a_header():
@@ -26,6 +27,18 @@ def test_every_csrc_file_is_a_source_or_a_header():
     assert files == listed
     assert all(n.endswith(".cu") for n in _build.SOURCES)
     assert all(n.endswith(".cuh") for n in _build.HEADERS)
+
+
+def test_every_included_header_is_listed():
+    """A header a source includes is hashed into the digest, so an edit
+    to it (the shared Hopper helpers, the gates mainloop) rebuilds."""
+    included = set()
+    for name in _build.SOURCES + _build.HEADERS:
+        text = (_build._CSRC / name).read_text()
+        included |= set(re.findall(r'#include "([^"]+)"', text))
+    assert included == set(_build.HEADERS)
+    for name in ("dws_gemm.cu", "logit_tail.cu", "gates_lstm.cu"):
+        assert '#include "hopper.cuh"' in (_build._CSRC / name).read_text()
 
 
 def recorded_build(monkeypatch, tmp_path):
@@ -117,6 +130,52 @@ def test_dws_route(n, dr, s, dtype, a_ptr, b_ptr, route):
     assert route in tkernel.DWS_ROUTES
 
 
+@pytest.mark.parametrize("rows,dw,v,dtype,x_ptr,w_ptr,route", [
+    (1280, 512, 13056, BF16, 0, 256, "wgmma"),
+    (1024, 512, 13056, BF16, 16, 32, "wgmma"),
+    (1, 8, 8, BF16, 0, 0, "wgmma"),
+    (67, 128, 304, BF16, 0, 0, "wgmma"),
+    (1280, 512, 12995, BF16, 0, 0, "wmma"),
+    (67, 128, 300, BF16, 0, 0, "wmma"),
+    (1, 40, 9, BF16, 0, 0, "wmma"),
+    (64, 36, 64, BF16, 0, 0, "wmma"),
+    (1280, 512, 13056, BF16, 2, 0, "wmma"),
+    (1280, 512, 13056, BF16, 0, 8, "wmma"),
+    (1280, 512, 13056, F32, 0, 0, "f32"),
+    (130, 96, 1001, F32, 4, 4, "f32")])
+def test_logit_tail_route(rows, dw, v, dtype, x_ptr, w_ptr, route):
+    """wgmma only for bf16 with dw and V multiples of 8 (TMA row strides
+    of whole 16 bytes) and 16-byte aligned bases; the wmma route for the
+    ragged vocab and other bf16 operands; float32 its own."""
+    assert tkernel.logit_tail_route(rows, dw, v, dtype, x_ptr,
+                                    w_ptr) == route
+    assert route in tkernel.LOGIT_TAIL_ROUTES
+
+
+@pytest.mark.parametrize("rows,kx,dim,dtype,x_ptr,w_ptr,route", [
+    (1280, 5120, 3584, BF16, 0, 256, "wgmma"),
+    (1280, 5120, 3584, I8, 16, 32, "wgmma"),
+    (1, 16, 8, BF16, 0, 0, "wgmma"),
+    (1, 16, 8, I8, 0, 0, "wgmma"),
+    (37, 272, 128, I8, 0, 0, "wgmma"),
+    (130, 5120, 35, I8, 0, 0, "wgmma"),
+    (130, 5120, 35, BF16, 0, 0, "wmma"),
+    (185, 277, 100, BF16, 0, 0, "wmma"),
+    (185, 277, 100, I8, 0, 0, "wmma"),
+    (37, 264, 128, I8, 0, 0, "wmma"),
+    (1280, 5120, 3584, BF16, 2, 0, "wmma"),
+    (1280, 5120, 3584, I8, 0, 8, "wmma"),
+    (1280, 5120, 3584, F32, 0, 0, "f32"),
+    (185, 277, 100, F32, 4, 4, "f32")])
+def test_gates_route(rows, kx, dim, dtype, x_ptr, w_ptr, route):
+    """wgmma for bf16 with Kx a multiple of 8 and dim even (row strides of
+    whole 16 bytes for x and the (Kx, 4 dim) stack), for int8 with Kx a
+    multiple of 16 (x and the K-major grid), both bases aligned; the wmma
+    route for the other bf16 and int8 shapes; float32 its own."""
+    assert tkernel.gates_route(rows, kx, dim, dtype, x_ptr, w_ptr) == route
+    assert route in tkernel.GATES_ROUTES
+
+
 @pytest.mark.parametrize("s,dr,cdtype,ptrs,route", [
     (1024, 1024, BF16, (0, 16, 32, 48), "vector"),
     (1024, 72, BF16, (0, 0, 0, 0), "vector"),
@@ -136,9 +195,15 @@ def test_spatial_bwd_route(s, dr, cdtype, ptrs, route):
 def test_route_counters_start_at_zero_on_the_cpu():
     """CPU tensors take the plain versions and touch no route counter."""
     a = torch.randn(10, 8)
-    before = dict(tkernel.dws_gemm.launches_by_route)
+    kernels = (tkernel.dws_gemm, tkernel.logit_tail, tkernel.gates_lstm)
+    before = [dict(k.launches_by_route) for k in kernels]
     tkernel.dws_gemm(a, torch.randn(10, 16))
-    assert tkernel.dws_gemm.launches_by_route == before
-    assert set(before) == set(tkernel.DWS_ROUTES)
+    tkernel.logit_tail(a, torch.randn(8, 12), torch.randn(12), 3)
+    tkernel.gates_lstm(a, torch.randn(8, 16), torch.randn(16),
+                       torch.randn(10, 4))
+    assert [dict(k.launches_by_route) for k in kernels] == before
+    assert set(before[0]) == set(tkernel.DWS_ROUTES)
+    assert set(before[1]) == set(tkernel.LOGIT_TAIL_ROUTES)
+    assert set(before[2]) == set(tkernel.GATES_ROUTES)
     assert set(tkernel.spatial_bwd.launches_by_route) == set(
         tkernel.SPATIAL_BWD_ROUTES)

@@ -2,8 +2,10 @@
 
 Skips without a CUDA device.  Ragged shapes here (odd batch, K > 32,
 R > 32, widths not a multiple of 4, vocab not a multiple of the tile,
-rows, depths and dims not a multiple of the row, depth and dim tiles)
-complement chip_smoke.py, which checks the kernels at the main paths' shapes.
+rows, depths and dims not a multiple of the row, depth and dim tiles,
+unaligned bases) complement chip_smoke.py, which checks the kernels at
+the main paths' shapes; the kernels with routes are held to the route
+each shape must take.
 This file imports no jax, so it runs where only torch is installed:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
@@ -68,29 +70,82 @@ def test_attention_core_kernel_matches_plain(cuda, nb, k, ctx_dtype,
     assert float(got[1][2 * nb:3 * nb].abs().max()) == 0.0
 
 
-@pytest.mark.parametrize("rows,dw,v,k,dtype", [
-    (1, 40, 9, 8, torch.bfloat16), (67, 128, 300, 5, torch.bfloat16),
-    (130, 96, 1000, 1, torch.float32), (64, 512, 2053, 5, torch.float32)])
-def test_logit_tail_kernel_matches_plain(cuda, rows, dw, v, k, dtype):
-    x, w, b = exact_tail_inputs(rows, dw, v, dtype, cuda)
+def check_tail(x, w, b, k, route):
+    """One logit-tail call on ``route`` against the plain version: the
+    exact inputs' top-k values and columns must be equal, ties included;
+    the logsumexp sums exp in another order."""
     before = tkernel.logit_tail.launches
+    by_route = dict(tkernel.logit_tail.launches_by_route)
     vals, idx, lse = tkernel.logit_tail(x, w, b, k)
     rv, ri, rl = tkernel._logit_tail_plain(x, w, b, k)
     torch.cuda.synchronize()
     assert tkernel.logit_tail.launches == before + 1
+    assert tkernel.logit_tail.launches_by_route[route] == by_route[route] + 1
     assert torch.equal(idx, ri)
     assert torch.equal(vals, rv)
     torch.testing.assert_close(lse, rl, rtol=1e-5, atol=1e-4)
 
 
-def test_logit_tail_kernel_zero_weights_pick_lowest_columns(cuda):
+@pytest.mark.parametrize("rows,dw,v,k,dtype,route", [
+    (1, 40, 9, 8, torch.bfloat16, "wmma"),
+    (67, 128, 300, 5, torch.bfloat16, "wmma"),
+    (130, 96, 1000, 1, torch.float32, "f32"),
+    (64, 512, 2053, 5, torch.float32, "f32"),
+    (1280, 512, 13056, 5, torch.bfloat16, "wgmma"),
+    (1024, 512, 13056, 1, torch.bfloat16, "wgmma"),
+    (1280, 512, 12995, 5, torch.bfloat16, "wmma"),
+    (67, 128, 304, 5, torch.bfloat16, "wgmma"),
+    (1, 40, 16, 8, torch.bfloat16, "wgmma"),
+    (300, 72, 1000, 3, torch.bfloat16, "wgmma"),
+    (129, 8, 520, 7, torch.bfloat16, "wgmma")])
+def test_logit_tail_kernel_matches_plain(cuda, rows, dw, v, k, dtype, route):
+    """The main shapes (rows 1280 at k 5, 1024 at k 1) and ragged ones:
+    rows off the 128-row tile, vocabs off the 256-column strip, depths
+    off the 64-deep stage; the ragged vocab 12995 and widths that are not
+    whole 16 bytes take the wmma route."""
+    check_tail(*exact_tail_inputs(rows, dw, v, dtype, cuda), k, route)
+
+
+def test_logit_tail_unaligned_base_takes_the_wmma_route(cuda):
+    """A base one element past 16-byte alignment cannot be a TMA tile's
+    origin: the wrapper picks the wmma route from the address."""
+    x, w, b = exact_tail_inputs(65, 64, 520, torch.bfloat16, cuda, seed=3)
+    flat = torch.empty(w.numel() + 1, dtype=w.dtype, device=cuda)
+    flat[1:] = w.flatten()
+    w = flat[1:].view(w.shape)
+    assert w.is_contiguous() and w.data_ptr() % 16 != 0
+    check_tail(x, w, b, 5, "wmma")
+
+
+@pytest.mark.parametrize("v,route", [(700, "wmma"), (704, "wgmma")])
+def test_logit_tail_kernel_zero_weights_pick_lowest_columns(cuda, v, route):
     x = torch.randn(33, 64, device=cuda).bfloat16()
-    w = torch.zeros(64, 700, device=cuda).bfloat16()
-    b = torch.zeros(700, device=cuda)
+    w = torch.zeros(64, v, device=cuda).bfloat16()
+    b = torch.zeros(v, device=cuda)
+    by_route = dict(tkernel.logit_tail.launches_by_route)
     vals, idx, lse = tkernel.logit_tail(x, w, b, 8)
+    assert tkernel.logit_tail.launches_by_route[route] == by_route[route] + 1
     assert torch.equal(idx.cpu(), torch.arange(8).expand(33, 8))
     assert float(vals.abs().max()) == 0.0
-    torch.testing.assert_close(lse.cpu(), torch.full((33,), np.log(700.0)))
+    torch.testing.assert_close(lse.cpu(), torch.full((33,), np.log(v)))
+
+
+@pytest.mark.parametrize("v,k", [(13056, 5), (13056, 1), (12995, 5)])
+def test_logit_tail_kernel_is_deterministic(cuda, v, k):
+    """Two calls on the same gaussian operands agree bit for bit on the
+    wgmma (V 13056) and wmma (12995) routes: every sum has a fixed order."""
+    g = torch.Generator(device=cuda).manual_seed(v + k)
+    x = torch.tanh(torch.randn(1280, 512, generator=g, device=cuda))
+    w = (0.1 * torch.randn(512, v, generator=g, device=cuda)).bfloat16()
+    b = torch.randn(v, generator=g, device=cuda)
+    first = tkernel.logit_tail(x, w, b, k)
+    second = tkernel.logit_tail(x, w, b, k)
+    ref = tkernel._logit_tail_plain(x, w, b, k)
+    torch.cuda.synchronize()
+    for p, q, r in zip(first, second, ref):
+        assert torch.equal(p, q)
+    torch.testing.assert_close(first[0], ref[0], rtol=0, atol=1e-4)
+    torch.testing.assert_close(first[2], ref[2], rtol=0, atol=1e-4)
 
 
 @pytest.mark.parametrize("nb,r,s,dr,reg_dtype", [
@@ -132,22 +187,68 @@ def gates_operands(rows, kx, dim, mode, device, seed=0):
     return x.to(dtype), w.to(dtype), b, c, None, None
 
 
-@pytest.mark.parametrize("mode", ["f32", "bf16", "int8"])
-@pytest.mark.parametrize("rows,kx,dim", [
-    (1, 16, 8), (37, 272, 128), (185, 277, 100), (130, 5120, 35)])
-def test_gates_lstm_kernel_matches_plain(cuda, mode, rows, kx, dim):
-    """Ragged rows, depths and dims in every mode; kx 277 and dim 35/100
-    take the element-load path.  The int8 sums are exact, so int8 is held
-    to 1e-5."""
-    ops = gates_operands(rows, kx, dim, mode, cuda, seed=rows)
+def gates_route_of(mode, kx, dim):
+    """The route the wrapper must pick for contiguous, aligned operands."""
+    if mode == "f32":
+        return "f32"
+    if mode == "int8":
+        return "wgmma" if kx % 16 == 0 else "wmma"
+    return "wgmma" if kx % 8 == 0 and dim % 2 == 0 else "wmma"
+
+
+def check_gates(ops, mode, route):
+    """One gates+LSTM call on ``route`` against the plain version.  The
+    int8 sums are exact, so int8 is held to 1e-5; bf16 and float32 sums
+    in another order to 1e-4."""
     before = tkernel.gates_lstm.launches
+    by_route = dict(tkernel.gates_lstm.launches_by_route)
     got = tkernel.gates_lstm(*ops)
     ref = tstep._gates_lstm(*ops)
     torch.cuda.synchronize()
     assert tkernel.gates_lstm.launches == before + 1
+    assert tkernel.gates_lstm.launches_by_route[route] == by_route[route] + 1
     tol = 1e-5 if mode == "int8" else 1e-4
     for x, y in zip(got, ref):
         torch.testing.assert_close(x, y, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("mode", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("rows,kx,dim", [
+    (1, 16, 8), (37, 272, 128), (185, 277, 100), (130, 5120, 35),
+    (1280, 5120, 3584), (300, 1040, 200), (129, 5120, 96)])
+def test_gates_lstm_kernel_matches_plain(cuda, mode, rows, kx, dim):
+    """The path-B shape (1280, 5120, 3584) and ragged rows, depths and
+    dims in every mode: rows off the 128-row tile, dims off the 64-dim
+    strip, depths off the stage.  kx 277 (and dim 35 under bf16) is off
+    the 16-byte grid TMA needs: the wmma route."""
+    ops = gates_operands(rows, kx, dim, mode, cuda, seed=rows)
+    check_gates(ops, mode, gates_route_of(mode, kx, dim))
+
+
+@pytest.mark.parametrize("mode", ["bf16", "int8"])
+def test_gates_lstm_unaligned_base_takes_the_wmma_route(cuda, mode):
+    """x one element past 16-byte alignment cannot be a TMA tile's
+    origin: the wrapper picks the wmma route from the address."""
+    x, *rest = gates_operands(65, 272, 64, mode, cuda, seed=7)
+    flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=cuda)
+    flat[1:] = x.flatten()
+    x = flat[1:].view(x.shape)
+    assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    check_gates((x, *rest), mode, "wmma")
+
+
+@pytest.mark.parametrize("mode,rows,kx,dim", [
+    ("bf16", 1280, 5120, 3584), ("int8", 1280, 5120, 3584),
+    ("bf16", 185, 277, 100)])
+def test_gates_lstm_kernel_is_deterministic(cuda, mode, rows, kx, dim):
+    """Two calls on the same operands agree bit for bit (wgmma at the
+    path-B shape, wmma at a ragged one): every sum has a fixed order."""
+    ops = gates_operands(rows, kx, dim, mode, cuda, seed=3)
+    first = tkernel.gates_lstm(*ops)
+    second = tkernel.gates_lstm(*ops)
+    torch.cuda.synchronize()
+    for p, q in zip(first, second):
+        assert torch.equal(p, q)
 
 
 def test_kernel_wrappers_reject_what_the_kernels_do_not_take(cuda):
