@@ -8,8 +8,9 @@ packs per-video feature arrays once into dense arrays
     regions    (N, K, R, Dr)  optional (spatial attention)
     motion     (N, K, Dm)     optional (motion stream)
 
-and ``to_device`` puts them on a torch device, from which a training
-batch is an ``index_select`` gather (``batching.gather_batch``).
+and ``to_device`` puts them on a torch device, once per (device, dtype),
+from which a training batch is an ``index_select`` gather
+(``batching.gather_batch``).
 """
 
 from __future__ import annotations
@@ -30,6 +31,10 @@ class FeatureBank:
     frame_mask: np.ndarray
     regions: Optional[np.ndarray] = None
     motion: Optional[np.ndarray] = None
+    # (device, dtype) -> the tensors ``to_device`` made; not part of the
+    # bank's value (compare/repr excluded)
+    _dev_cache: Dict = dataclasses.field(
+        default_factory=dict, repr=False, compare=False)
 
     @property
     def n_videos(self) -> int:
@@ -116,11 +121,25 @@ def synthetic_bank(n_videos: int, k: int = 28, d: int = 1024,
 def to_device(bank: FeatureBank, device: torch.device | str,
               dtype: Optional[torch.dtype] = None) -> Dict[str, torch.Tensor]:
     """Feature streams cast to ``dtype`` (the compute dtype), the frame
-    mask kept float32; streams the bank lacks are omitted."""
+    mask kept float32; streams the bank lacks are omitted.
+
+    Cached per (device, dtype) on the bank, as the JAX package caches
+    its uploads: ``fit`` and every ``evaluate_nll`` round call this, and
+    each would otherwise copy the whole bank to the device again.  The
+    bank is treated as immutable after its first upload, and callers
+    gather from the tensors (``gather_batch``) without writing into
+    them."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    key = (dev, dtype)
+    cache = bank._dev_cache if isinstance(bank, FeatureBank) else {}
+    if key in cache:
+        return cache[key]
 
     def put(x, cast: bool):
         t = torch.from_numpy(x)
-        return t.to(device=device, dtype=dtype if cast else None)
+        return t.to(device=dev, dtype=dtype if cast else None)
 
     out = {"frames": put(bank.frames, True),
            "frame_mask": put(bank.frame_mask, False)}
@@ -128,4 +147,5 @@ def to_device(bank: FeatureBank, device: torch.device | str,
         out["regions"] = put(bank.regions, True)
     if bank.motion is not None:
         out["motion"] = put(bank.motion, True)
+    cache[key] = out
     return out

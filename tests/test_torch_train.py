@@ -424,3 +424,35 @@ def test_fit_rejects_what_is_not_ported(tmp_path, train):
     ds = synthetic_dataset(n_videos=2, k=6, d=32, maxlen=MAXLEN, seed=0)
     with pytest.raises(NotImplementedError):
         tloop.fit(cfg, ds, max_updates=1, device="cpu")
+
+
+def test_to_device_caches_per_device_and_dtype():
+    """The same (device, dtype) gives back the same tensors; another
+    dtype uploads anew (as the JAX bank's per-(dtype, sharding) cache)."""
+    from stvd_torch.data.bank import synthetic_bank
+    bank = synthetic_bank(3, k=6, d=8, n_regions=2, region_dim=4)
+    first = to_device(bank, "cpu", torch.bfloat16)
+    assert to_device(bank, torch.device("cpu"), torch.bfloat16) is first
+    other = to_device(bank, "cpu", torch.float32)
+    assert other is not first and other["frames"].dtype == torch.float32
+    assert to_device(bank, "cpu", torch.float32) is other
+    assert bank == dataclasses.replace(bank)      # the cache is no value
+
+
+def test_fit_uploads_the_bank_once(tmp_path, monkeypatch):
+    """Two validation rounds on the training split: its frames leave
+    numpy once (the parent uploaded them again every round)."""
+    from stvd_torch.data import bank as bank_mod
+    ds = synthetic_dataset(n_videos=6, k=6, d=32, maxlen=MAXLEN, seed=0)
+    seen = []
+    real = torch.from_numpy
+
+    def counting(x):
+        seen.append(x is ds.bank.frames)
+        return real(x)
+
+    monkeypatch.setattr(bank_mod.torch, "from_numpy", counting)
+    out = tloop.fit(tiny_config(tmp_path), ds, ds, max_updates=4,
+                    device="cpu")
+    assert len(out.history) == 2
+    assert sum(seen) == 1
