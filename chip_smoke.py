@@ -522,7 +522,7 @@ def phase_serving(api, kernel, dev, seed, params, vocab, cfg, phase,
     The launches of every kernel are counted from zero over the run:
     those in ``expect`` must equal the decode steps, the others 0, and
     each of ``routes`` (kernel -> route) all on that route."""
-    cap = api.Captioner(params, cfg, vocab, dev)
+    cap = api.Captioner(params, cfg, vocab, device=dev)
     require(cap.step_fn is kernel.step_kernels,
             "Captioner did not pick the kernel step on the GPU")
     steps = [0]
@@ -592,8 +592,8 @@ def phase_kernel_vs_plain(api, kernel, step_mod, dev, seed, params, vocab,
     for name, fn in (("kernels", kernel.step_kernels),
                      ("plain", step_mod.step)):
         t0 = time.perf_counter()
-        out[name] = api.Captioner(params, cfg, vocab, dev,
-                                  step_fn=fn).caption(feats, regs)
+        out[name] = api.Captioner(params, cfg, vocab, fn,
+                                  device=dev).caption(feats, regs)
         out[name + "_seconds"] = time.perf_counter() - t0
     same = float(np.mean([a == b for a, b in zip(out["kernels"],
                                                   out["plain"])]))
@@ -613,7 +613,7 @@ def phase_profile(api, dev, params, vocab, seed, cfg, phase) -> None:
     """Device time by kernel over one worst-case decode of decode_batch
     videos."""
     from torch.profiler import ProfilerActivity, profile
-    cap = api.Captioner(params, cfg, vocab, dev)
+    cap = api.Captioner(params, cfg, vocab, device=dev)
     eos_bias = cap.params["ff_logit_b"][0].clone()
     cap.params["ff_logit_b"][0] = -1e9
     feats = request(np.random.RandomState(seed + 2),

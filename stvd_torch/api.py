@@ -1,6 +1,6 @@
 """Inference API on a torch device (counterpart of stvd/api.py).
 
-    cap = Captioner(params, cfg, vocab, device="cuda")
+    cap = Captioner(params, cfg, vocab)        # device="cuda" by default
     texts = cap.caption(features)          # (N, F, D) numpy -> [str]
     texts = cap.caption(features, regions=regions)   # spatial (preset 2)
 
@@ -55,13 +55,15 @@ def chunked_caption(run: Callable[[Dict], torch.Tensor],
     return out
 
 
-def pack_request(model_cfg, features, device: torch.device | str,
-                 regions=None, motion=None) -> Dict[str, torch.Tensor]:
+def pack_request(model_cfg, features, regions=None, motion=None, *,
+                 device: torch.device | str = "cuda"
+                 ) -> Dict[str, torch.Tensor]:
     """Raw per-video feature arrays -> a device batch (frames and regions
     in the compute dtype, frame_mask float32).  ``features`` is (N, F, D)
     or a list of (F_i, D) arrays, ``regions`` a matching sequence of
     (F_i, R, Dr) arrays; frame counts are subsampled or padded to the
-    model's K by ``pack_bank``."""
+    model's K by ``pack_bank``.  The positional parameters are the JAX
+    package's; ``device`` is keyword-only."""
     if motion is not None:
         raise NotImplementedError("the motion stream is not ported yet")
     if isinstance(features, np.ndarray) and features.ndim == 3:
@@ -81,12 +83,17 @@ class Captioner:
     ``params`` is a dict of numpy arrays or tensors keyed by the JAX
     parameter names (float32 masters; the decode casts them to the compute
     dtype).  ``step_fn=None`` picks the kernel step on a CUDA device and
-    the plain step elsewhere."""
+    the plain step elsewhere.  The positional parameters are the JAX
+    package's; ``device`` is keyword-only and defaults to the card, so
+    without one the Captioner raises instead of running on the CPU."""
 
     def __init__(self, params, cfg: Config, vocab: Vocab,
-                 device: torch.device | str,
-                 step_fn: Optional[StepFn] = None):
+                 step_fn: Optional[StepFn] = None, *,
+                 device: torch.device | str = "cuda"):
         self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("Captioner: no CUDA device; pass "
+                               "device='cpu' to run on the CPU")
         self.params = {
             k: (v if isinstance(v, torch.Tensor)
                 else torch.from_numpy(np.array(v, np.float32))
@@ -121,4 +128,5 @@ class Captioner:
         (F_i, D) arrays, with per-video (F_i, R, Dr) region features for
         the spatial model."""
         return self.caption_batch(
-            pack_request(self.cfg.model, features, self.device, regions))
+            pack_request(self.cfg.model, features, regions,
+                         device=self.device))

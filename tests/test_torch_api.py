@@ -44,7 +44,8 @@ def test_caption_matches_jax_captioner(beam):
     feats = request()
     ref = japi.Captioner({k: jnp.asarray(v) for k, v in p.items()},
                          config(beam), VOCAB).caption(feats)
-    got = tapi.Captioner(p, config(beam), VOCAB, "cpu").caption(feats)
+    got = tapi.Captioner(p, config(beam), VOCAB,
+                           device="cpu").caption(feats)
     assert got == ref
     assert len(got) == len(feats) and any(got)
 
@@ -53,7 +54,7 @@ def test_pack_request_matches_jax():
     cfg = dataclasses.replace(CFG, compute_dtype="bfloat16")
     feats = request()
     ref = japi.pack_request(cfg, feats)
-    got = tapi.pack_request(cfg, feats, "cpu")
+    got = tapi.pack_request(cfg, feats, device="cpu")
     assert got["frames"].dtype == torch.bfloat16
     assert got["frame_mask"].dtype == torch.float32
     for k in ("frames", "frame_mask"):
@@ -63,7 +64,8 @@ def test_pack_request_matches_jax():
 
 def test_pack_request_rejects_unported_streams():
     with pytest.raises(NotImplementedError):
-        tapi.pack_request(CFG, request(), "cpu", motion=request())
+        tapi.pack_request(CFG, request(), motion=request(),
+                          device="cpu")
 
 
 def test_chunked_caption_pads_last_chunk_with_one_valid_frame():
@@ -73,7 +75,7 @@ def test_chunked_caption_pads_last_chunk_with_one_valid_frame():
         seen.append({k: v.clone() for k, v in chunk.items()})
         return torch.zeros((chunk["frames"].shape[0], 4), dtype=torch.int64)
 
-    batch = tapi.pack_request(CFG, request(n=5), "cpu")
+    batch = tapi.pack_request(CFG, request(n=5), device="cpu")
     out = tapi.chunked_caption(run, batch, 3, VOCAB)
     assert out == [""] * 5
     assert [c["frames"].shape[0] for c in seen] == [3, 3]
@@ -101,6 +103,39 @@ def test_bf16_captioner_runs_on_cpu():
     cfg = dataclasses.replace(config(3), model=dataclasses.replace(
         CFG, compute_dtype="bfloat16"))
     got = tapi.Captioner(numpy_params(CFG, seed=22), cfg, VOCAB,
-                         "cpu").caption(request())
+                         device="cpu").caption(request())
     words = {w for cap in got for w in cap.split()}
     assert len(got) == 5 and words <= set(VOCAB.word_to_id)
+
+
+def test_pack_request_takes_regions_in_the_jax_position():
+    """``pack_request(cfg, feats, regions)`` as written for the JAX
+    package: the third positional argument is the regions."""
+    feats = request(n=3)
+    rng = np.random.RandomState(5)
+    regs = [rng.randn(f.shape[0], 3, 4).astype(np.float32) for f in feats]
+    ref = japi.pack_request(CFG, feats, regs)
+    got = tapi.pack_request(CFG, feats, regs, device="cpu")
+    assert tuple(got["regions"].shape) == (3, CFG.n_frames, 3, 4)
+    np.testing.assert_array_equal(got["regions"].numpy(),
+                                  np.asarray(ref["regions"]))
+
+
+def test_captioner_takes_step_fn_in_the_jax_position():
+    def step_fn(*args):
+        raise AssertionError("not called")
+
+    cap = tapi.Captioner(numpy_params(CFG, seed=22), config(3), VOCAB,
+                         step_fn, device="cpu")
+    assert cap.step_fn is step_fn and cap.device == torch.device("cpu")
+
+
+def test_captioner_defaults_to_the_card(monkeypatch):
+    """Without ``device`` the Captioner is for the card: where there is
+    none it raises instead of running on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tapi.Captioner(numpy_params(CFG, seed=22), config(3), VOCAB)
+    with pytest.raises(TypeError):     # device is keyword-only
+        tapi.Captioner(numpy_params(CFG, seed=22), config(3), VOCAB, None,
+                       "cpu")

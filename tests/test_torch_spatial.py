@@ -212,7 +212,8 @@ def test_spatial_caption_matches_jax_captioner(beam):
     feats, regs = request(5, seed=23)
     ref = japi.Captioner({k: jnp.asarray(v) for k, v in p.items()}, cfg,
                          vocab).caption(feats, regions=regs)
-    got = tapi.Captioner(p, cfg, vocab, "cpu").caption(feats, regions=regs)
+    got = tapi.Captioner(p, cfg, vocab, device="cpu").caption(
+        feats, regions=regs)
     assert got == ref
     assert len(got) == 5 and any(got)
 
@@ -221,7 +222,7 @@ def test_pack_request_with_regions_matches_jax():
     cfg = dataclasses.replace(CFG, compute_dtype="bfloat16")
     feats, regs = request(4, seed=24)
     ref = japi.pack_request(cfg, feats, regions=regs)
-    got = tapi.pack_request(cfg, feats, "cpu", regions=regs)
+    got = tapi.pack_request(cfg, feats, regs, device="cpu")
     assert sorted(got) == sorted(ref) == ["frame_mask", "frames", "regions"]
     assert got["regions"].dtype == torch.bfloat16
     for k in got:
