@@ -356,7 +356,9 @@ def fit(cfg, train_ds: Dataset, valid_ds: Optional[Dataset] = None,
     grad norm, seconds since the last record) goes to stdout and
     ``save_dir/metrics.jsonl``; ``save_dir/ckpt.pt`` is written every
     ``save_freq`` updates and at the end, ``ckpt_best.pt`` at each better
-    validation NLL; ``reload_`` resumes from ``ckpt.pt``."""
+    validation NLL; ``reload_`` resumes from ``ckpt.pt``.  An interrupt
+    (``KeyboardInterrupt``) ends the run with an ``interrupt`` record and
+    the same final ``ckpt.pt``, as the JAX package's loop does."""
     tcfg, mcfg = cfg.train, cfg.model
     if tcfg.metric != "nll":
         raise NotImplementedError(
@@ -380,41 +382,46 @@ def fit(cfg, train_ds: Dataset, valid_ds: Optional[Dataset] = None,
     log: List[Dict] = []
     stop = update >= (max_updates if max_updates is not None else math.inf)
     t_last = time.perf_counter()
-    for epoch in range(tcfg.max_epochs):
-        if stop:
-            break
-        for idx, w in it.epoch():
-            batch = gather_batch(dev, train_ds.captions, idx)
-            batch["weight"] = torch.from_numpy(w).to(device)
-            state, m = train_step(state, batch)
-            update += 1
-            if update % tcfg.disp_freq == 0:
-                rec = {"kind": "train", "epoch": epoch, "update": update,
-                       "loss": float(m["loss"]),
-                       "grad_norm": float(m["grad_norm"])}
-                now = time.perf_counter()
-                rec["seconds"] = now - t_last
-                t_last = now
-                log.append(_emit(tcfg.save_dir, rec))
-            if (tcfg.valid_freq > 0 and update % tcfg.valid_freq == 0
-                    and valid_ds is not None):
-                val = evaluate_nll(state["params"], mcfg, valid_ds,
-                                   tcfg.valid_batch_size, device)
-                fs["history"].append({"update": update, "nll": val})
-                _emit(tcfg.save_dir, {"kind": "valid", "update": update,
-                                      "nll": val})
-                if val < best:
-                    best = val
-                    fs.update(best=val, best_step=update, bad_rounds=0)
-                    save_checkpoint(best_ckpt, state, fs)
-                else:
-                    fs["bad_rounds"] += 1
-                    stop = fs["bad_rounds"] >= tcfg.patience
-            if tcfg.save_freq > 0 and update % tcfg.save_freq == 0:
-                save_checkpoint(ckpt, state, fs)
-            if stop or (max_updates is not None and update >= max_updates):
-                stop = True
+    try:
+        for epoch in range(tcfg.max_epochs):
+            if stop:
                 break
+            for idx, w in it.epoch():
+                batch = gather_batch(dev, train_ds.captions, idx)
+                batch["weight"] = torch.from_numpy(w).to(device)
+                state, m = train_step(state, batch)
+                update += 1
+                if update % tcfg.disp_freq == 0:
+                    rec = {"kind": "train", "epoch": epoch,
+                           "update": update, "loss": float(m["loss"]),
+                           "grad_norm": float(m["grad_norm"])}
+                    now = time.perf_counter()
+                    rec["seconds"] = now - t_last
+                    t_last = now
+                    log.append(_emit(tcfg.save_dir, rec))
+                if (tcfg.valid_freq > 0 and update % tcfg.valid_freq == 0
+                        and valid_ds is not None):
+                    val = evaluate_nll(state["params"], mcfg, valid_ds,
+                                       tcfg.valid_batch_size, device)
+                    fs["history"].append({"update": update, "nll": val})
+                    _emit(tcfg.save_dir, {"kind": "valid",
+                                          "update": update, "nll": val})
+                    if val < best:
+                        best = val
+                        fs.update(best=val, best_step=update, bad_rounds=0)
+                        save_checkpoint(best_ckpt, state, fs)
+                    else:
+                        fs["bad_rounds"] += 1
+                        stop = fs["bad_rounds"] >= tcfg.patience
+                if tcfg.save_freq > 0 and update % tcfg.save_freq == 0:
+                    save_checkpoint(ckpt, state, fs)
+                if stop or (max_updates is not None
+                            and update >= max_updates):
+                    stop = True
+                    break
+    except KeyboardInterrupt:
+        # keep the progress: the checkpoint below holds the last update
+        _emit(tcfg.save_dir, {"kind": "interrupt", "update": update})
     save_checkpoint(ckpt, state, fs)
     return FitResult(best_metric=best, best_step=fs["best_step"],
                      history=fs["history"], state=state,

@@ -456,3 +456,39 @@ def test_fit_uploads_the_bank_once(tmp_path, monkeypatch):
                     device="cpu")
     assert len(out.history) == 2
     assert sum(seen) == 1
+
+
+def test_interrupted_fit_keeps_its_progress(tmp_path, monkeypatch):
+    """A ``KeyboardInterrupt`` after 3 updates ends ``fit`` with an
+    ``interrupt`` record and a checkpoint at step 3, from which
+    ``reload_`` resumes (as the JAX package's loop does)."""
+    import json
+    cfg = tiny_config(tmp_path, valid_freq=0)
+    ds = synthetic_dataset(n_videos=6, k=6, d=32, maxlen=MAXLEN, seed=0)
+    real = tloop.make_train_step
+
+    def interrupted(mcfg, tcfg):
+        step = real(mcfg, tcfg)
+
+        def train_step(state, batch):
+            if state["step"] == 3:
+                raise KeyboardInterrupt
+            return step(state, batch)
+        return train_step
+
+    monkeypatch.setattr(tloop, "make_train_step", interrupted)
+    try:
+        out = tloop.fit(cfg, ds, max_updates=10, device="cpu")
+    except KeyboardInterrupt:
+        pytest.fail("fit let the interrupt escape without a checkpoint")
+    assert out.state["step"] == 3
+    blob = torch.load(tmp_path / "ckpt.pt", weights_only=True)
+    assert blob["step"] == 3
+    recs = [json.loads(ln) for ln in
+            (tmp_path / "metrics.jsonl").read_text().splitlines()]
+    assert recs[-1] == {"kind": "interrupt", "update": 3}
+    monkeypatch.setattr(tloop, "make_train_step", real)
+    resumed = tloop.fit(cfg.replace(train=dataclasses.replace(
+        cfg.train, reload_=True)), ds, max_updates=5, device="cpu")
+    assert [r["update"] for r in resumed.log] == [4, 5]
+    assert resumed.state["step"] == 5
