@@ -65,6 +65,8 @@ TRAIN_BF16_TOL = 1e-2  # of the largest entry: one bf16 ulp of tanh may flip
 GRAD_TOL = 1e-4        # per leaf, of its largest entry: kernel vs plain
 KERNELS = ("attention_core", "spatial_core", "gates_lstm", "logit_tail",
            "spatial_bwd", "train_tail", "dws_gemm")
+# the route every launch of a serving path must take
+SERVING_ROUTES = {"attention_core": "cluster", "logit_tail": "wgmma"}
 # NVIDIA H100 SXM data sheet, dense: HBM3 3.35 TB/s; tensor cores 989
 # TFLOP/s bf16, 1979 TOP/s int8; 67 TFLOP/s float32 outside them
 HBM_BYTES_PER_S = 3.35e12
@@ -131,6 +133,32 @@ def time_ms(fn, iters: int = 50) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, iters: int = 20) -> float:
+    """Device time of one call: ``iters`` calls captured in a CUDA graph,
+    replayed and timed by CUDA events, so the wrappers' host work (tens of
+    microseconds a call) does not hide a shorter kernel."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(5):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (5 * iters)
+
+
 def max_err(got, ref) -> float:
     return max(float((g.float() - r.float()).abs().max())
                for g, r in zip(got, ref))
@@ -185,51 +213,118 @@ def phase_build(build) -> None:
           "ptxas": ptxas})
 
 
+def repeats(fn, args) -> bool:
+    """Whether two calls of ``fn(*args)`` agree bit for bit."""
+    first, second = fn(*args), fn(*args)
+    torch.cuda.synchronize()
+    return all(torch.equal(p, q) for p, q in zip(first, second))
+
+
 def phase_attention(kernel, step_mod, dev, g, cfg) -> dict:
     """Kernel 1 at the serving shapes (preset 3: Bc=256, nb=5, K=28,
-    A=Dc=1024), pctx float32, ctx bf16; masked frames and one
-    fully-masked row."""
+    A=Dc=1024) and at the training shape (batch 64, nb 1: the train
+    forward scan with ``train_fwd_kernel='on'``), pctx float32, ctx bf16;
+    masked frames, one fully-masked row and one row whose last cluster
+    CTA holds only masked frames.  Both must take route 'cluster', agree
+    with the plain version and repeat bit for bit; each is timed beside
+    route 'simple' on the same operands (simple_ms), both as device time
+    (``device_ms``); eager_ms is the wrapper called back to back, which its
+    host work bounds at these sizes."""
     m = cfg.model
-    bc, nb, k, a, dc = (cfg.decode.decode_batch, cfg.decode.beam_size,
-                        m.n_frames, m.attn_dim, m.ctx_dim)
-    hp = torch.randn(bc * nb, a + 1, generator=g, device=dev)
-    pctx = 0.5 * torch.randn(bc, k, a, generator=g, device=dev)
-    ctx = torch.randn(bc, k, dc, generator=g, device=dev).bfloat16()
-    mask = (torch.rand(bc, k, generator=g, device=dev) > 0.25).float()
-    mask[:, 0] = 1.0
-    mask[7] = 0.0
-    u = 3.0 * torch.randn(a, generator=g, device=dev) / a ** 0.5
-    c_att = torch.tensor(0.1, device=dev)
-    b_sel = torch.tensor(-0.2, device=dev)
-    errs = {}
-    for selector in (True, False):
-        args = (hp[:, :a], hp[:, a], pctx, ctx, mask, u, c_att, b_sel,
-                selector)
-        got = kernel.attention_core(*args)
-        ref = step_mod._attention_core(*args)
-        torch.cuda.synchronize()
-        errs[f"selector_{selector}"] = max_err(got, ref)
-        require(float(got[1][7 * nb:8 * nb].abs().max()) == 0.0
-                and float(got[0][7 * nb:8 * nb].abs().max()) == 0.0,
-                "attention kernel: fully-masked row is not zero")
-        require(bool(torch.isfinite(got[0]).all()),
-                "attention kernel: non-finite output")
-    err = max(errs.values())
-    require(err <= KERNEL_TOL, f"attention kernel disagrees: {errs}")
-    args = (hp[:, :a], hp[:, a], pctx, ctx, mask, u, c_att, b_sel, True)
-    ms = time_ms(lambda: kernel.attention_core(*args))
-    plain_ms = time_ms(lambda: step_mod._attention_core(*args))
-    bs = bc * nb
-    # in: h_att, beta, pctx, ctx, mask, u; out: ctx_t, alpha.  Per
-    # (row, frame): tanh-score over A, then the context sum over Dc
-    traffic = (4 * bs * (a + 1) + nbytes(pctx, ctx, mask, u)
-               + 4 * bs * (dc + k))
-    out = {"phase": "kernel_attention_core", "shape": [bc, nb, k, a, dc],
-           "max_abs_err": err, "errs": errs, "tol": KERNEL_TOL, "ms": ms,
-           "plain_ms": plain_ms, "library_ms": None,
-           **bound(traffic, bs * k * (4 * a + 2 * dc), "f32")}
+    k, a, dc = m.n_frames, m.attn_dim, m.ctx_dim
+    cases = {}
+    for name, bc, nb in (("serving", cfg.decode.decode_batch,
+                          cfg.decode.beam_size),
+                         ("training", cfg.train.batch_size, 1)):
+        hp = torch.randn(bc * nb, a + 1, generator=g, device=dev)
+        pctx = 0.5 * torch.randn(bc, k, a, generator=g, device=dev)
+        ctx = torch.randn(bc, k, dc, generator=g, device=dev).bfloat16()
+        mask = (torch.rand(bc, k, generator=g, device=dev) > 0.25).float()
+        mask[:, 0] = 1.0
+        splits, kc = kernel.attention_core_split(k, bc)
+        mask[3, (splits - 1) * kc:] = 0.0
+        mask[7] = 0.0
+        u = 3.0 * torch.randn(a, generator=g, device=dev) / a ** 0.5
+        c_att = torch.tensor(0.1, device=dev)
+        b_sel = torch.tensor(-0.2, device=dev)
+        errs = {}
+        for selector in (True, False):
+            args = (hp[:, :a], hp[:, a], pctx, ctx, mask, u, c_att, b_sel,
+                    selector)
+            got, route = route_taken(kernel.attention_core,
+                                     lambda: kernel.attention_core(*args))
+            ref = step_mod._attention_core(*args)
+            torch.cuda.synchronize()
+            errs[f"selector_{selector}"] = max_err(got, ref)
+            require(route == "cluster",
+                    f"attention kernel {name} took the {route} route")
+            require(float(got[1][7 * nb:8 * nb].abs().max()) == 0.0
+                    and float(got[0][7 * nb:8 * nb].abs().max()) == 0.0,
+                    "attention kernel: fully-masked row is not zero")
+            require(bool(torch.isfinite(got[0]).all()),
+                    "attention kernel: non-finite output")
+        err = max(errs.values())
+        require(err <= KERNEL_TOL, f"attention kernel {name} disagrees: "
+                                   f"{errs}")
+        args = (hp[:, :a], hp[:, a], pctx, ctx, mask, u, c_att, b_sel, True)
+        same = repeats(kernel.attention_core, args)
+        require(same, f"attention kernel {name} is not deterministic")
+        bs = bc * nb
+        # in: h_att, beta, pctx, ctx, mask, u; out: ctx_t, alpha.  Per
+        # (row, frame): tanh-score over A, then the context sum over Dc
+        traffic = (4 * bs * (a + 1) + nbytes(pctx, ctx, mask, u)
+                   + 4 * bs * (dc + k))
+        cases[name] = {
+            "shape": [bc, nb, k, a, dc], "max_abs_err": err, "errs": errs,
+            "route": route, "bitwise_repeatable": same,
+            "ms": device_ms(lambda: kernel.attention_core(*args)),
+            "simple_ms": device_ms(lambda: kernel._attention_core_cuda(
+                *args, route="simple")),
+            "eager_ms": time_ms(lambda: kernel.attention_core(*args)),
+            "plain_ms": time_ms(lambda: step_mod._attention_core(*args)),
+            "library_ms": None,
+            **bound(traffic, bs * k * (4 * a + 2 * dc), "f32")}
+        c = cases[name]
+        c["bound_share"] = c["bound_ms"] / c["ms"]
+        c["simple_ratio"] = c["ms"] / c["simple_ms"]
+    out = {"phase": "kernel_attention_core", "tol": KERNEL_TOL,
+           "max_abs_err": max(c["max_abs_err"] for c in cases.values()),
+           "cases": cases, **{key: val for key, val in cases["serving"].items()
+                              if key != "max_abs_err"}}
     emit(out)
     return out
+
+
+def phase_tanh(build, dev) -> dict:
+    """The device tanh of the TMA attention cores against torch.tanh in
+    float64, over a dense float32 grid of [-20, 20] (2^24 + 1 points) and
+    +-0, +-inf, NaN: the score pass's product form of tanh(p + h) (p =
+    0.7 x, h = 0.3 x in float32), its single-exponent form (taken out of
+    the product form's range) and libdevice's tanhf."""
+    special = torch.tensor([0.0, -0.0, float("inf"), -float("inf"),
+                            float("nan")], device=dev)
+    x = torch.cat([torch.linspace(-20, 20, 2 ** 24 + 1, device=dev),
+                   special])
+    split = torch.tanh((x * 0.7).double() + (x * 0.3).double())
+    modes = {}
+    for mode, name in enumerate(("product", "single_exponent", "tanhf")):
+        ref = split if mode == 0 else torch.tanh(x.double())
+        finite = torch.isfinite(ref)
+        y = torch.empty_like(x)
+        build.check(build.lib().stvd_tanh_f32(
+            x.data_ptr(), y.data_ptr(), x.numel(), mode,
+            torch.cuda.current_stream().cuda_stream), "tanh kernel")
+        torch.cuda.synchronize()
+        err = float((y.double() - ref)[finite].abs().max())
+        tail = y[-5:].tolist()
+        modes[name] = {"worst_abs_err": err, "special": tail[:4],
+                       "nan_kept": tail[4] != tail[4]}
+        require(err <= 1e-6 and tail[:4] == [0.0, 0.0, 1.0, -1.0]
+                and tail[4] != tail[4], f"device tanh {name}: {modes[name]}")
+    emit({"phase": "device_tanh", "points": x.numel(), "modes": modes,
+          "worst_abs_err": max(m["worst_abs_err"] for m in modes.values()
+                               if m is not modes["tanhf"])})
+    return modes
 
 
 def exact_tail_inputs(rows, dw, v, dtype, dev, rng):
@@ -323,8 +418,10 @@ def phase_tail(kernel, dev, g, seed, cfg) -> dict:
 def phase_spatial(kernel, step_mod, dev, g, cfg) -> dict:
     """Kernel 4 at the path-A shapes (preset 2: Bc=256, K=28, R=49,
     s=Dr=1024), pregion float32, regions bf16, h_satt a strided column
-    slice of the h-projection, with nb = 5 and nb = 1.  The plain version
-    runs at float32 on the same inputs (its e_s is 7.2 GB at nb=5)."""
+    slice of the h-projection, with nb = 5 and nb = 1: route 'tma', timed
+    beside route 'simple' on the same operands (simple_ms), bit for bit
+    repeatable.  The plain version runs at float32 on the same inputs
+    (its e_s is 7.2 GB at nb=5)."""
     m = cfg.model
     bc, k, r, s, dr = (cfg.decode.decode_batch, m.n_frames, m.n_regions,
                        m.region_dim, m.region_dim)
@@ -346,26 +443,35 @@ def phase_spatial(kernel, step_mod, dev, g, cfg) -> dict:
     for nb in (cfg.decode.beam_size, 1):
         hp = torch.randn(bc * nb, off + s, generator=g, device=dev)
         args = (hp[:, off:], pregion, regions, u, c_s)
-        got = kernel.spatial_core(*args, torch.float32)
+        got, route = route_taken(
+            kernel.spatial_core,
+            lambda: kernel.spatial_core(*args, torch.float32))
         ref = step_mod._spatial_core(*args, torch.float32)
         torch.cuda.synchronize()
         require(all(bool(torch.isfinite(t).all()) for t in got),
                 "spatial kernel: non-finite output")
+        require(route == "tma", f"spatial kernel nb {nb} took {route}")
         errs[f"nb{nb}"] = max_err(got, ref)
-        del ref
+        del ref, got
+        same = repeats(kernel.spatial_core, (*args, torch.float32))
+        require(same, f"spatial kernel nb {nb} is not deterministic")
         times[f"nb{nb}"] = {
+            "route": route, "bitwise_repeatable": same,
             "ms": time_ms(lambda: kernel.spatial_core(*args, torch.float32)),
+            "simple_ms": time_ms(lambda: kernel._spatial_core_cuda(
+                *args, route="simple")),
             "plain_ms": time_ms(
                 lambda: step_mod._spatial_core(*args, torch.float32), 5),
             **traffic(nb)}
+        t = times[f"nb{nb}"]
+        t["bound_share"] = t["bound_ms"] / t["ms"]
+        t["simple_ratio"] = t["ms"] / t["simple_ms"]
     err = max(errs.values())
     require(err <= KERNEL_TOL, f"spatial kernel disagrees: {errs}")
     nb = cfg.decode.beam_size
     out = {"phase": "kernel_spatial_core", "shape": [bc, k, r, s, dr],
            "max_abs_err": err, "errs": errs, "tol": KERNEL_TOL,
-           "ms": times[f"nb{nb}"]["ms"],
-           "plain_ms": times[f"nb{nb}"]["plain_ms"], "times": times,
-           "library_ms": None, **traffic(nb)}
+           "times": times, "library_ms": None, **times[f"nb{nb}"]}
     emit(out)
     torch.cuda.empty_cache()
     return out
@@ -582,11 +688,13 @@ def phase_serving(api, kernel, dev, seed, params, vocab, cfg, phase,
 
 
 def phase_kernel_vs_plain(api, kernel, step_mod, dev, seed, params, vocab,
-                          cfg, phase, n_videos=64) -> None:
-    """The full decode of ``n_videos`` through the kernel step and through
-    the plain step on the same config.  Both sum in different orders, so
-    a near-tie can flip a beam: the bar is a share of videos."""
-    feats = request(np.random.RandomState(seed + 1), n_videos, cfg.model)
+                          cfg, phase) -> None:
+    """The full decode of one decode batch of videos through the kernel
+    step and through the plain step on the same config.  Both sum in
+    different orders, so a near-tie can flip a beam: the bar is a share of
+    videos."""
+    feats = request(np.random.RandomState(seed + 1),
+                    cfg.decode.decode_batch, cfg.model)
     regs = regions_for(feats, cfg.model, seed + 1)
     out = {}
     for name, fn in (("kernels", kernel.step_kernels),
@@ -974,20 +1082,24 @@ def phase_train_profile(dev, seed, cfg) -> None:
     torch.cuda.empty_cache()
 
 
-def serving_only(api, kernel, dev, g, args, cfg, cfg_q) -> int:
-    """Worst-case (EOS suppressed) serving of preset 3 and path B with the
-    tree ``args.root`` (or this one): captions/s of the 256-video request
-    of each, for a parent/change A/B run alternately in one call."""
+def serving_only(api, kernel, dev, g, args, cfg, cfg_q, cfg_sp) -> int:
+    """Worst-case (EOS suppressed) serving of preset 3, path B and path A
+    with the tree ``args.root`` (or this one): captions/s of the
+    256-video request of each, for a parent/change A/B run alternately in
+    one call."""
     from stvd_torch.model.decoder import init_params
     import stvd_torch
     vocab = api.Vocab({f"w{i}": i for i in range(2, cfg.model.n_words)})
     params = init_params(cfg.model, g, dev)
+    params_sp = init_params(cfg_sp.model, g, dev)
     out = {}
-    for name, c, expect in (
-            ("preset3", cfg, ("attention_core", "logit_tail")),
-            ("path_b", cfg_q, ("attention_core", "gates_lstm",
-                               "logit_tail"))):
-        res = phase_serving(api, kernel, dev, args.seed, params, vocab, c,
+    for name, c, p, expect in (
+            ("preset3", cfg, params, ("attention_core", "logit_tail")),
+            ("path_b", cfg_q, params, ("attention_core", "gates_lstm",
+                                       "logit_tail")),
+            ("path_a", cfg_sp, params_sp, ("attention_core", "spatial_core",
+                                           "logit_tail"))):
+        res = phase_serving(api, kernel, dev, args.seed, p, vocab, c,
                             f"serving_{name}", expect,
                             modes=("eos_suppressed",))
         n = cfg.decode.decode_batch
@@ -1008,9 +1120,10 @@ def main() -> int:
                          "on each serving path and one preset-2 train "
                          "update")
     ap.add_argument("--serving-only", action="store_true",
-                    help="only the worst-case serving runs of preset 3 and "
-                         "path B (int8 gates kernel), for an A/B of two "
-                         "trees in one call; prints no ok line")
+                    help="only the worst-case serving runs of preset 3, "
+                         "path B (int8 gates kernel) and path A (preset 2), "
+                         "for an A/B of two trees in one call; prints no ok "
+                         "line")
     ap.add_argument("--root", default=None,
                     help="import stvd_torch from this tree (e.g. an "
                          "unpacked parent commit) instead of the "
@@ -1038,7 +1151,8 @@ def main() -> int:
     cfg_sp = api.preset(SPATIAL)
     cfg_q = with_model(cfg, decode_quant="int8", gates_kernel="on")
     if args.serving_only:
-        return serving_only(api, kernel, dev, g, args, cfg, cfg_q)
+        return serving_only(api, kernel, dev, g, args, cfg, cfg_q, cfg_sp)
+    phase_tanh(_build, dev)
     attn = phase_attention(kernel, step_mod, dev, g, cfg)
     tail = phase_tail(kernel, dev, g, args.seed, cfg)
     spatial = phase_spatial(kernel, step_mod, dev, g, cfg_sp)
@@ -1048,13 +1162,13 @@ def main() -> int:
     params = init_params(cfg.model, g, dev)
     serving = phase_serving(api, kernel, dev, args.seed, params, vocab, cfg,
                             "serving", ("attention_core", "logit_tail"),
-                            routes={"logit_tail": "wgmma"})
+                            routes=SERVING_ROUTES)
     serving_q = phase_serving(api, kernel, dev, args.seed, params, vocab,
                               cfg_q, "serving_int8_gates",
                               ("attention_core", "gates_lstm", "logit_tail"),
                               modes=("eos_suppressed",),
-                              routes={"gates_lstm": "wgmma",
-                                      "logit_tail": "wgmma"})
+                              routes={**SERVING_ROUTES,
+                                      "gates_lstm": "wgmma"})
     phase_kernel_vs_plain(api, kernel, step_mod, dev, args.seed, params,
                           vocab, with_model(cfg, compute_dtype="float32"),
                           "kernel_vs_plain_f32")
@@ -1073,7 +1187,8 @@ def main() -> int:
                                cfg_sp, "serving_spatial",
                                ("attention_core", "spatial_core",
                                 "logit_tail"),
-                               routes={"logit_tail": "wgmma"})
+                               routes={**SERVING_ROUTES,
+                                       "spatial_core": "tma"})
     # float32 at decode batch 64: the plain spatial core's float32 e_s is
     # then 1.8 GB a step instead of 7.2 GB
     cfg_sp32 = with_model(cfg_sp, compute_dtype="float32").replace(

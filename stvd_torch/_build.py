@@ -25,7 +25,7 @@ _CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "stvd_torch"
 SOURCES = ("attn_core.cu", "logit_tail.cu", "spatial_core.cu",
            "gates_lstm.cu", "spatial_bwd.cu", "train_tail.cu", "dws_gemm.cu")
-HEADERS = ("gates_mma.cuh", "hopper.cuh")
+HEADERS = ("attn_score.cuh", "gates_mma.cuh", "hopper.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -36,13 +36,14 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 _SIGNATURES = {
     "stvd_attn_core": [_P, _L, _P, _L, _P, _P, _I, _P, _P, _P, _P, _I, _P, _P,
-                       _I, _I, _I, _I, _I, _P],
+                       _I, _I, _I, _I, _I, _I, _I, _P],
     "stvd_attn_core_max_beams": [],
+    "stvd_tanh_f32": [_P, _P, _L, _I, _P],
     "stvd_logit_tail": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                         _I, _I, _P],
     "stvd_logit_tail_ntiles": [_I, _I],
     "stvd_spatial_core": [_P, _L, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I,
-                          _I, _I, _P],
+                          _I, _I, _I, _I, _P],
     "stvd_spatial_core_max_beams": [],
     "stvd_gates_lstm": [_P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                         _P],

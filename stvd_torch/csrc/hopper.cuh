@@ -1,6 +1,7 @@
-// Hopper (sm_90a) building blocks shared by the port's wgmma kernels: the
-// dWs_att GEMM (dws_gemm.cu), the fused logit tail (logit_tail.cu) and the
-// fused gates+LSTM step (gates_lstm.cu).
+// Hopper (sm_90a) building blocks shared by the port's wgmma kernels (the
+// dWs_att GEMM, dws_gemm.cu; the fused logit tail, logit_tail.cu; the fused
+// gates+LSTM step, gates_lstm.cu) and its TMA attention cores (attn_core.cu,
+// spatial_core.cu).
 //
 // * mbarrier helpers for a ring of shared-memory stages: one producer
 //   thread arms a stage's "full" barrier with the bytes it expects, TMA
@@ -8,7 +9,9 @@
 //   are done with it.  A wait that never completes traps after 2^26 tries,
 //   so a fault in the ring's phases fails the launch instead of hanging
 //   the card.
-// * tma_load: one 2-D box of a tensor map into shared memory.
+// * tma_load: one 2-D box of a tensor map into shared memory; bulk_load:
+//   one contiguous 1-D span (cp.async.bulk), completing on an mbarrier;
+//   prefetch_l2: a contiguous span into L2 without waiting for it.
 // * sw128_desc: the wgmma shared-memory descriptor of a 128-byte-swizzled
 //   operand, K-major or MN-major (the caller passes the strides).
 // * wgmma_bf16_256 / wgmma_s8_256: one m64n256 product of a warpgroup
@@ -91,6 +94,32 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
       : "memory");
+}
+
+// `bytes` (a multiple of 16, below 2^20) from 16-byte aligned global
+// memory to 16-byte aligned shared memory, counted on `bar`'s transaction
+// bytes (the caller arms it with mbar_expect_tx).
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// Ask L2 for `bytes` (a multiple of 16) at 16-byte aligned `src`.
+__device__ __forceinline__ void prefetch_l2(const void* src, uint32_t bytes) {
+  asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;\n" ::"l"(
+                   reinterpret_cast<uint64_t>(src)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Order this thread's earlier shared-memory accesses (made through the
+// generic proxy) before later TMA writes into the same bytes.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // Shared-memory matrix descriptor of a 128-byte-swizzled operand whose

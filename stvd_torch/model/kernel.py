@@ -15,7 +15,8 @@ not take.  Each keeps a plain-integer ``launches`` count that grows by one
 per kernel call (a call that takes a second reduction pass, as the logit
 tail, the spatial backward step and the dWs_att GEMM do, counts once), so
 a run can show that the main path went through the kernels.  The
-kernels with more than one route (the logit tail, the gates+LSTM step
+kernels with more than one route (the attention core: cluster or simple;
+the spatial core: tma or simple; the logit tail, the gates+LSTM step
 and the dWs_att GEMM: wgmma, wmma or float32; the spatial backward step:
 16-byte or element loads) pick it from shapes, dtype and alignment in a
 pure function and also count launches by route in ``launches_by_route``.
@@ -40,13 +41,66 @@ def _require(cond: bool, msg: str) -> None:
         raise ValueError(msg)
 
 
+_SMEM_LIMIT = 232448     # 227 KB: the most shared memory a block may use
+
+
+def score_chunks(width: int) -> int:
+    """The 256-column chunks a score row is cut into for the attention
+    cores' TMA routes, rounded up to a power of two (csrc:
+    score_chunks)."""
+    nq = 1
+    while nq * 256 < width:
+        nq *= 2
+    return nq
+
+
 # ---------------------------------------------------------------------------
 # Kernel 1: temporal-attention core (csrc/attn_core.cu)
 # ---------------------------------------------------------------------------
 
+# index = the route's number in csrc/attn_core.cu
+ATTENTION_CORE_ROUTES = ("cluster", "simple")
+
+
+_CLUSTER_CTAS = 512   # CTAs route 'cluster' aims to launch: one wave
+
+
+def attention_core_split(k: int, rows: int) -> Tuple[int, int]:
+    """Route 'cluster''s plan for K frames of ``rows`` context rows: (CTAs
+    per row, frames per CTA).  As many CTAs a row as keep the launch
+    within ~512 CTAs, which the card holds at once (4-5 an SM at the
+    serving shapes), at most 4, frames as even as whole frames allow and
+    no CTA empty: K 28 over 256 rows -> (2, 14), over 64 rows -> (4, 7);
+    K 29 -> (4, 8), K 5 -> (3, 2), K 1 -> (1, 1) over 64 rows."""
+    want = max(1, min(4, k, _CLUSTER_CTAS // max(rows, 1)))
+    kc = -(-k // want)
+    return -(-k // kc), kc
+
+
+def attention_core_route(rows: int, nb: int, k: int, a: int, dc: int,
+                         ctx_dtype, pctx_ptr: int, ctx_ptr: int) -> str:
+    """The attention core's route, from shapes, dtype and alignment alone:
+    'cluster' when A and Dc are multiples of 8 (16-byte rows, whole TMA
+    spans) and at most 1024 (four warps, one 256-column chunk each; a
+    thread per 8 columns of Dc), pctx and ctx start 16-byte aligned and a
+    CTA's shared memory (its ctx slice, or the partial sums of its nb
+    beams over it) fits; else 'simple'."""
+    if (a % 8 or dc % 8 or a > 1024 or dc > 1024 or pctx_ptr % 16
+            or ctx_ptr % 16):
+        return "simple"
+    kc = attention_core_split(k, rows)[1]
+    el = 2 if ctx_dtype == torch.bfloat16 else 4
+    smem = (16 + max(kc * dc * el, 4 * nb * dc)
+            + 4 * (nb * kc * (score_chunks(a) + 1) + 5 * nb))
+    return "cluster" if smem <= _SMEM_LIMIT else "simple"
+
+
 def _attention_core_cuda(h_att, beta_logit, pctx, ctx, ctx_mask, u_att,
-                         c_att, b_sel, selector: bool
+                         c_att, b_sel, selector: bool, route=None
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel on ``attention_core_route``'s route, or on ``route``
+    when given (to time one route against another on the same
+    operands)."""
     f32 = torch.float32
     bs, a = h_att.shape
     bc, k, a2 = pctx.shape
@@ -72,6 +126,10 @@ def _attention_core_cuda(h_att, beta_logit, pctx, ctx, ctx_mask, u_att,
     u = u_att.to(f32).contiguous()
     c_att = c_att.to(f32).reshape(())
     b_sel = b_sel.to(f32).reshape(())
+    nb = bs // bc
+    if route is None:
+        route = attention_core_route(bc, nb, k, a, dc, ctx.dtype,
+                                     pctx.data_ptr(), ctx.data_ptr())
     ctx_t = torch.empty((bs, dc), dtype=f32, device=h_att.device)
     alpha = torch.empty((bs, k), dtype=f32, device=h_att.device)
     err = lib.stvd_attn_core(
@@ -79,10 +137,12 @@ def _attention_core_cuda(h_att, beta_logit, pctx, ctx, ctx_mask, u_att,
         beta_logit.stride(0), pctx.data_ptr(), ctx.data_ptr(),
         int(ctx.dtype == torch.bfloat16), mask.data_ptr(), u.data_ptr(),
         c_att.data_ptr(), b_sel.data_ptr(), int(bool(selector)),
-        ctx_t.data_ptr(), alpha.data_ptr(), bc, bs // bc, k, a, dc,
+        ctx_t.data_ptr(), alpha.data_ptr(), bc, nb, k, a, dc,
+        ATTENTION_CORE_ROUTES.index(route), attention_core_split(k, bc)[1],
         _launch_stream())
     _build.check(err, "attention-core kernel")
     attention_core.launches += 1
+    attention_core.launches_by_route[route] += 1
     return ctx_t, alpha
 
 
@@ -91,7 +151,8 @@ def attention_core(h_att, beta_logit, pctx, ctx, ctx_mask, u_att, c_att,
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Drop-in for ``step._attention_core`` (same contract, beam
     broadcast over an un-tiled context).  CPU tensors take the plain
-    version; CUDA tensors take the kernel."""
+    version; CUDA tensors take the kernel on the route
+    ``attention_core_route`` picks."""
     if h_att.device.type == "cpu":
         return step_mod._attention_core(h_att, beta_logit, pctx, ctx,
                                         ctx_mask, u_att, c_att, b_sel,
@@ -101,6 +162,7 @@ def attention_core(h_att, beta_logit, pctx, ctx, ctx_mask, u_att, c_att,
 
 
 attention_core.launches = 0
+attention_core.launches_by_route = dict.fromkeys(ATTENTION_CORE_ROUTES, 0)
 
 
 # ---------------------------------------------------------------------------
@@ -205,8 +267,35 @@ def make_logit_tail(w, b, k_sel: int):
 # Kernel 4: spatial-attention core (csrc/spatial_core.cu)
 # ---------------------------------------------------------------------------
 
-def _spatial_core_cuda(h_satt, pregion, regions, u_s, c_s
+# index = the route's number in csrc/spatial_core.cu
+SPATIAL_CORE_ROUTES = ("tma", "simple")
+
+
+def spatial_core_frames(k: int) -> int:
+    """Route 'tma''s frames per block: at most 7, as even as whole frames
+    allow (K 28 -> 7, four blocks a context row)."""
+    return -(-k // -(-k // 7))
+
+
+def spatial_core_route(nb: int, r: int, s: int, dr: int, regions_dtype,
+                       pregion_ptr: int, regions_ptr: int) -> str:
+    """The spatial core's route, from shapes, dtype and alignment alone:
+    'tma' when s and Dr are multiples of 8 (16-byte rows, whole TMA
+    spans), s <= 2048 (eight warps, one 256-column chunk each), pregion
+    and regions start 16-byte aligned and a frame's regions slab with the
+    block's partial scores fits shared memory; else 'simple'."""
+    if (s % 8 or dr % 8 or s > 2048 or pregion_ptr % 16
+            or regions_ptr % 16):
+        return "simple"
+    el = 2 if regions_dtype == torch.bfloat16 else 4
+    smem = 16 + r * dr * el + 4 * nb * r * (score_chunks(s) + 1)
+    return "tma" if smem <= _SMEM_LIMIT else "simple"
+
+
+def _spatial_core_cuda(h_satt, pregion, regions, u_s, c_s, route=None
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel on ``spatial_core_route``'s route, or on ``route`` when
+    given (to time one route against another on the same operands)."""
     f32 = torch.float32
     bs, s = h_satt.shape
     bc, k, r, s2 = pregion.shape
@@ -231,15 +320,20 @@ def _spatial_core_cuda(h_satt, pregion, regions, u_s, c_s
     regions = regions.contiguous()
     u = u_s.to(f32).contiguous()
     c_s = c_s.to(f32).reshape(())
+    if route is None:
+        route = spatial_core_route(nb, r, s, dr, regions.dtype,
+                                   pregion.data_ptr(), regions.data_ptr())
     spat = torch.empty((bc, nb, k, dr), dtype=f32, device=h_satt.device)
     alpha = torch.empty((bc, nb, k, r), dtype=f32, device=h_satt.device)
     err = lib.stvd_spatial_core(
         h_satt.data_ptr(), h_satt.stride(0), pregion.data_ptr(),
         regions.data_ptr(), int(regions.dtype == torch.bfloat16),
         u.data_ptr(), c_s.data_ptr(), spat.data_ptr(), alpha.data_ptr(),
-        bc, nb, k, r, s, dr, _launch_stream())
+        bc, nb, k, r, s, dr, SPATIAL_CORE_ROUTES.index(route),
+        spatial_core_frames(k), _launch_stream())
     _build.check(err, "spatial-core kernel")
     spatial_core.launches += 1
+    spatial_core.launches_by_route[route] += 1
     return spat, alpha
 
 
@@ -247,9 +341,9 @@ def spatial_core(h_satt, pregion, regions, u_s, c_s, cdtype
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Drop-in for ``step._spatial_core`` (same contract, beam broadcast
     over an un-tiled region bank).  CPU tensors take the plain version;
-    CUDA tensors take the kernel, whose sums are float32 whatever
-    ``cdtype`` (bf16 regions are upcast in registers) and whose ``spat``
-    is float32."""
+    CUDA tensors take the kernel on the route ``spatial_core_route``
+    picks, whose sums are float32 whatever ``cdtype`` (bf16 regions are
+    upcast in registers) and whose ``spat`` is float32."""
     if h_satt.device.type == "cpu":
         return step_mod._spatial_core(h_satt, pregion, regions, u_s, c_s,
                                       cdtype)
@@ -257,6 +351,7 @@ def spatial_core(h_satt, pregion, regions, u_s, c_s, cdtype
 
 
 spatial_core.launches = 0
+spatial_core.launches_by_route = dict.fromkeys(SPATIAL_CORE_ROUTES, 0)
 
 
 # ---------------------------------------------------------------------------

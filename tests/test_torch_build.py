@@ -3,8 +3,9 @@
 The library is named by a digest of the sources and flags, so a source
 missing from ``_build.SOURCES`` / ``HEADERS``, or a flag passed outside
 the digest, would let a stale library be reused.  ``build`` is driven
-here with nvcc replaced by a recorder.  The route helpers of kernels 2,
-3, 5 and 7 are pure functions of shapes, dtype and addresses.
+here with nvcc replaced by a recorder.  The route helpers of kernels 1-5
+and 7 are pure functions of shapes, dtype and addresses, and the device
+tanh of kernels 1 and 4 is mirrored in numpy.
 """
 
 import re
@@ -12,6 +13,7 @@ import shutil
 import types
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -37,8 +39,12 @@ def test_every_included_header_is_listed():
         text = (_build._CSRC / name).read_text()
         included |= set(re.findall(r'#include "([^"]+)"', text))
     assert included == set(_build.HEADERS)
-    for name in ("dws_gemm.cu", "logit_tail.cu", "gates_lstm.cu"):
+    for name in ("dws_gemm.cu", "logit_tail.cu", "gates_lstm.cu",
+                 "attn_core.cu", "spatial_core.cu"):
         assert '#include "hopper.cuh"' in (_build._CSRC / name).read_text()
+    for name in ("attn_core.cu", "spatial_core.cu"):
+        text = (_build._CSRC / name).read_text()
+        assert '#include "attn_score.cuh"' in text
 
 
 def recorded_build(monkeypatch, tmp_path):
@@ -192,18 +198,174 @@ def test_spatial_bwd_route(s, dr, cdtype, ptrs, route):
     assert route in tkernel.SPATIAL_BWD_ROUTES
 
 
+@pytest.mark.parametrize("rows,nb,k,a,dc,dtype,pctx_ptr,ctx_ptr,route", [
+    (256, 5, 28, 1024, 1024, BF16, 0, 256, "cluster"),
+    (64, 1, 28, 1024, 1024, BF16, 16, 32, "cluster"),
+    (64, 8, 40, 1024, 1024, F32, 0, 0, "cluster"),
+    (1024, 1, 28, 1024, 1024, F32, 0, 0, "cluster"),
+    (7, 3, 1, 8, 8, BF16, 0, 0, "cluster"),
+    (256, 5, 28, 1024, 1024, BF16, 4, 0, "simple"),
+    (256, 5, 28, 1024, 1024, BF16, 0, 2, "simple"),
+    (256, 5, 28, 100, 304, BF16, 0, 0, "simple"),
+    (256, 5, 28, 1024, 300, F32, 0, 0, "simple"),
+    (256, 5, 28, 2048, 1024, BF16, 0, 0, "simple"),
+    (256, 5, 28, 1024, 2048, BF16, 0, 0, "simple"),
+    (64, 8, 400, 1024, 1024, F32, 0, 0, "simple")])
+def test_attention_core_route(rows, nb, k, a, dc, dtype, pctx_ptr, ctx_ptr,
+                              route):
+    """'cluster' only when A and Dc are whole 16-byte vectors of float32
+    (multiples of 8 also for the bf16 TMA span) of at most 1024 columns,
+    both bases are 16-byte aligned and a CTA's ctx slice (or its partial
+    sums over it) fits shared memory: at 1024 rows one CTA a row takes all
+    28 float32 frames (115 KB); K 400 over 64 rows, 100 float32 frames a
+    CTA, does not fit."""
+    assert tkernel.attention_core_route(rows, nb, k, a, dc, dtype, pctx_ptr,
+                                        ctx_ptr) == route
+    assert route in tkernel.ATTENTION_CORE_ROUTES
+
+
+@pytest.mark.parametrize("k,rows,plan", [
+    (1, 64, (1, 1)), (2, 64, (2, 1)), (5, 64, (3, 2)), (28, 64, (4, 7)),
+    (29, 64, (4, 8)), (40, 64, (4, 10)), (28, 1, (4, 7)),
+    (28, 150, (3, 10)), (28, 256, (2, 14)), (28, 1024, (1, 28))])
+def test_attention_core_split(k, rows, plan):
+    """At most 4 CTAs a row and about 512 CTAs a launch (one wave), frames
+    as even as whole frames allow, and no CTA without a frame: the last
+    CTA holds 1..kc of them."""
+    splits, kc = tkernel.attention_core_split(k, rows)
+    assert (splits, kc) == plan
+    assert 1 <= splits <= 4 and (splits - 1) * kc < k <= splits * kc
+    assert rows * splits <= max(512, rows)
+
+
+@pytest.mark.parametrize("nb,r,s,dr,dtype,pregion_ptr,regions_ptr,route", [
+    (5, 49, 1024, 1024, BF16, 0, 256, "tma"),
+    (1, 49, 1024, 1024, BF16, 16, 32, "tma"),
+    (8, 49, 1024, 1024, F32, 0, 0, "tma"),
+    (3, 49, 136, 72, BF16, 0, 0, "tma"),
+    (8, 37, 13, 301, BF16, 0, 0, "simple"),
+    (3, 49, 130, 64, BF16, 0, 0, "simple"),
+    (5, 49, 1024, 1024, BF16, 8, 0, "simple"),
+    (5, 49, 1024, 1024, BF16, 0, 2, "simple"),
+    (5, 49, 4096, 1024, BF16, 0, 0, "simple"),
+    (5, 64, 1024, 1024, F32, 0, 0, "simple")])
+def test_spatial_core_route(nb, r, s, dr, dtype, pregion_ptr, regions_ptr,
+                            route):
+    """'tma' only when s and Dr are multiples of 8, s fits the eight warps'
+    256-column chunks, both bases are 16-byte aligned and a frame's
+    regions slab fits shared memory beside the partial scores (64 float32
+    regions of 1024 do not)."""
+    assert tkernel.spatial_core_route(nb, r, s, dr, dtype, pregion_ptr,
+                                      regions_ptr) == route
+    assert route in tkernel.SPATIAL_CORE_ROUTES
+
+
+@pytest.mark.parametrize("k,fpb", [(1, 1), (5, 5), (7, 7), (8, 4),
+                                   (28, 7), (29, 6), (40, 7)])
+def test_spatial_core_frames(k, fpb):
+    assert tkernel.spatial_core_frames(k) == fpb
+    blocks = -(-k // fpb)
+    assert fpb <= 7 and (blocks - 1) * fpb < k
+
+
+@pytest.mark.parametrize("width,nq", [(8, 1), (256, 1), (264, 2),
+                                      (768, 4), (1024, 4), (2048, 8)])
+def test_score_chunks_divide_the_warps(width, nq):
+    assert tkernel.score_chunks(width) == nq
+
+
+def mirror_tanh(p, h):
+    """numpy float32 mirror of attn_score.cuh's tanh(p + h): the product
+    form 1 - 2 / (1 + 2^(C p) 2^(C h)) while |C p| and |C h| are at most
+    60, else the single-exponent form 1 - 2 / (1 + 2^(C (p + h))).  ex2
+    is correctly rounded (the card's ex2.approx is within 2 ulp), the
+    reciprocal correctly rounded (rcp.approx is within 1 ulp); an fma is a
+    float64 product and sum rounded once."""
+    f32, f64 = np.float32, np.float64
+    c = f32(2.885390081777927)
+    ap, ah = (p * c).astype(f32), (h * c).astype(f32)
+    with np.errstate(over="ignore"):
+        ep = np.exp2(ap.astype(f64)).astype(f32)
+        eh = np.exp2(ah.astype(f64)).astype(f32)
+        d = (ep.astype(f64) * eh + 1.0).astype(f32)
+        t = np.exp2((c * (p + h).astype(f32)).astype(f64)).astype(f32)
+    inside = (np.abs(ap) <= 60) & (np.abs(ah) <= 60)
+    d = np.where(inside, d, (t.astype(f64) + 1.0).astype(f32))
+    r = (1.0 / d.astype(f64)).astype(f32)
+    return (1.0 - 2.0 * r.astype(f64)).astype(f32)
+
+
+@pytest.mark.parametrize("lo,hi,n", [(-20.0, 20.0, 2_000_001),
+                                     (-4.0, 4.0, 2_000_001),
+                                     (-0.5, 0.5, 1_000_001),
+                                     (-1e-3, 1e-3, 200_001),
+                                     (20.0, 40.0, 200_001),
+                                     (8.0, 90.0, 100_001)])
+def test_device_tanh_algebra(lo, hi, n):
+    """The formula of the TMA cores' tanh(p + h), with p = 0.7 x and h =
+    0.3 x as the card's sweep forms them, against np.tanh in float64 on a
+    dense grid: absolute error below 3e-7 everywhere, through the
+    cancellation near 0 (the result is 1 - 2 r with r near 1/2), the
+    saturation at large |x| (exactly +-1 from |x| = 10) and the switch to
+    the single-exponent form past |x| ~ 29.7 (|C p| > 60)."""
+    x = np.concatenate([np.linspace(lo, hi, n, dtype=np.float32),
+                        -np.linspace(lo, hi, n, dtype=np.float32)])
+    p = (x * np.float32(0.7)).astype(np.float32)
+    h = (x * np.float32(0.3)).astype(np.float32)
+    got = mirror_tanh(p, h)
+    ref = np.tanh(p.astype(np.float64) + h.astype(np.float64))
+    err = np.abs(got.astype(np.float64) - ref)
+    assert err.max() < 3e-7, float(err.max())
+    big = np.abs(x) >= 10
+    assert np.array_equal(got[big], np.sign(x[big]))
+
+
+def test_device_tanh_error_grows_with_the_rounded_exponents():
+    """Over p, h uniform on [-20, 20]: C p and C h are each rounded to
+    float32 (relative 2^-24), which costs up to ~4.3e-8 (|p| + |h|) of
+    absolute error where p + h cancels; the single-exponent form of the
+    sum C p + C h has the same bound.  No element exceeds 3e-7 + 5e-8
+    (|p| + |h|)."""
+    rng = np.random.RandomState(0)
+    p = rng.uniform(-20, 20, 1_000_000).astype(np.float32)
+    h = rng.uniform(-20, 20, 1_000_000).astype(np.float32)
+    got = mirror_tanh(p, h).astype(np.float64)
+    ref = np.tanh(p.astype(np.float64) + h.astype(np.float64))
+    bound = 3e-7 + 5e-8 * (np.abs(p) + np.abs(h))
+    assert np.all(np.abs(got - ref) <= bound)
+
+
+def test_device_tanh_split_range_stays_normal():
+    """|C p|, |C h| <= 60 keeps 1 + 2^(C p) 2^(C h) finite and the
+    product a normal float32 (ex2.approx.ftz would flush a subnormal)."""
+    f32 = np.float32
+    hi, lo = f32(2.0 ** 60), f32(2.0 ** -60)
+    assert np.isfinite(hi * hi + f32(1))
+    assert lo * lo >= np.finfo(np.float32).tiny
+
+
 def test_route_counters_start_at_zero_on_the_cpu():
     """CPU tensors take the plain versions and touch no route counter."""
     a = torch.randn(10, 8)
-    kernels = (tkernel.dws_gemm, tkernel.logit_tail, tkernel.gates_lstm)
+    kernels = (tkernel.dws_gemm, tkernel.logit_tail, tkernel.gates_lstm,
+               tkernel.attention_core, tkernel.spatial_core)
     before = [dict(k.launches_by_route) for k in kernels]
     tkernel.dws_gemm(a, torch.randn(10, 16))
     tkernel.logit_tail(a, torch.randn(8, 12), torch.randn(12), 3)
     tkernel.gates_lstm(a, torch.randn(8, 16), torch.randn(16),
                        torch.randn(10, 4))
+    tkernel.attention_core(torch.randn(4, 8), torch.randn(4),
+                           torch.randn(2, 3, 8), torch.randn(2, 3, 5),
+                           torch.ones(2, 3), torch.randn(8),
+                           torch.tensor(0.1), torch.tensor(0.2), True)
+    tkernel.spatial_core(torch.randn(4, 8), torch.randn(2, 3, 4, 8),
+                         torch.randn(2, 3, 4, 5), torch.randn(8),
+                         torch.tensor(0.1), torch.float32)
     assert [dict(k.launches_by_route) for k in kernels] == before
     assert set(before[0]) == set(tkernel.DWS_ROUTES)
     assert set(before[1]) == set(tkernel.LOGIT_TAIL_ROUTES)
     assert set(before[2]) == set(tkernel.GATES_ROUTES)
+    assert set(before[3]) == set(tkernel.ATTENTION_CORE_ROUTES)
+    assert set(before[4]) == set(tkernel.SPATIAL_CORE_ROUTES)
     assert set(tkernel.spatial_bwd.launches_by_route) == set(
         tkernel.SPATIAL_BWD_ROUTES)

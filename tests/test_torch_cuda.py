@@ -43,31 +43,119 @@ def exact_tail_inputs(rows, dw, v, dtype, device, seed=0):
             torch.from_numpy(b).to(device))
 
 
-@pytest.mark.parametrize("nb,k,ctx_dtype,selector", [
-    (1, 5, torch.float32, True), (3, 40, torch.bfloat16, False),
-    (8, 28, torch.bfloat16, True)])
-def test_attention_core_kernel_matches_plain(cuda, nb, k, ctx_dtype,
-                                             selector):
-    g = torch.Generator(device=cuda).manual_seed(nb)
-    bc, a, dc = 7, 100, 300
-    hp = torch.randn(bc * nb, a + 1, generator=g, device=cuda)
-    pctx = torch.randn(bc, k, a, generator=g, device=cuda)
-    ctx = torch.randn(bc, k, dc, generator=g, device=cuda).to(ctx_dtype)
-    mask = (torch.rand(bc, k, generator=g, device=cuda) > 0.3).float()
+def attention_inputs(bc, nb, k, a, dc, ctx_dtype, device, seed):
+    """Kernel 1's operands: h_att and beta_logit are columns of one wider
+    projection (strided rows, as in the step), about 30 % of the frames
+    masked (frame 0 never), row 2 fully masked, and row 1 with the frames
+    of the last CTA of its cluster split masked."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    hp = torch.randn(bc * nb, a + 1, generator=g, device=device)
+    pctx = torch.randn(bc, k, a, generator=g, device=device)
+    ctx = torch.randn(bc, k, dc, generator=g, device=device).to(ctx_dtype)
+    mask = (torch.rand(bc, k, generator=g, device=device) > 0.3).float()
     mask[:, 0] = 1.0
+    splits, kc = tkernel.attention_core_split(k, bc)
+    mask[1, (splits - 1) * kc:] = 0.0
     mask[2] = 0.0
-    u = torch.randn(a, generator=g, device=cuda) / a ** 0.5
-    c_att = torch.tensor(0.1, device=cuda)
-    b_sel = torch.tensor(-0.3, device=cuda)
-    args = (hp[:, :a], hp[:, a], pctx, ctx, mask, u, c_att, b_sel, selector)
+    u = torch.randn(a, generator=g, device=device) / a ** 0.5
+    c_att = torch.tensor(0.1, device=device)
+    b_sel = torch.tensor(-0.3, device=device)
+    return hp[:, :a], hp[:, a], pctx, ctx, mask, u, c_att, b_sel
+
+
+def check_attention(args, selector, route):
+    """One attention-core call on ``route`` against the plain version;
+    the fully-masked row 2 must give zeros."""
+    nb = args[0].shape[0] // args[2].shape[0]
     before = tkernel.attention_core.launches
-    got = tkernel.attention_core(*args)
-    ref = tstep._attention_core(*args)
+    by_route = dict(tkernel.attention_core.launches_by_route)
+    got = tkernel.attention_core(*args, selector)
+    ref = tstep._attention_core(*args, selector)
     torch.cuda.synchronize()
     assert tkernel.attention_core.launches == before + 1
+    assert (tkernel.attention_core.launches_by_route[route]
+            == by_route[route] + 1)
     for x, y in zip(got, ref):
         torch.testing.assert_close(x, y, rtol=1e-4, atol=1e-5)
     assert float(got[1][2 * nb:3 * nb].abs().max()) == 0.0
+    assert float(got[0][2 * nb:3 * nb].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("bc,nb,k,a,dc,ctx_dtype,selector,route", [
+    (7, 1, 5, 100, 300, torch.float32, True, "simple"),
+    (7, 3, 40, 100, 300, torch.bfloat16, False, "simple"),
+    (7, 8, 28, 100, 300, torch.bfloat16, True, "simple"),
+    (256, 5, 28, 1024, 1024, torch.bfloat16, True, "cluster"),
+    (64, 1, 28, 1024, 1024, torch.bfloat16, True, "cluster"),
+    (64, 1, 28, 1024, 1024, torch.float32, False, "cluster"),
+    (9, 3, 1, 1024, 1024, torch.bfloat16, True, "cluster"),
+    (9, 3, 29, 1024, 1024, torch.bfloat16, True, "cluster"),
+    (9, 3, 40, 1024, 1024, torch.float32, True, "cluster"),
+    (9, 3, 5, 1024, 1024, torch.bfloat16, True, "cluster"),
+    (7, 8, 28, 1024, 1024, torch.bfloat16, True, "cluster"),
+    (5, 2, 13, 136, 72, torch.bfloat16, True, "cluster"),
+    (5, 4, 7, 520, 1000, torch.float32, True, "cluster")])
+def test_attention_core_kernel_matches_plain(cuda, bc, nb, k, a, dc,
+                                             ctx_dtype, selector, route):
+    """The preset-3 shape (256, nb 5, K 28, A = Dc = 1024) and the
+    training shape (64, nb 1) on the cluster route; K 1, 5, 29 and 40
+    (splits of 1, 2, 8 and 10 frames, the last CTA short where 4 does not
+    divide K), nb 8, A off the 256-column chunk (136, 520, and 1000
+    float32 Dc); widths that are not multiples of 8 take the simple
+    route."""
+    check_attention(attention_inputs(bc, nb, k, a, dc, ctx_dtype, cuda,
+                                     seed=k + nb), selector, route)
+
+
+def test_attention_core_unaligned_base_takes_the_simple_route(cuda):
+    """A pctx base one float past 16-byte alignment cannot feed 16-byte
+    loads: the wrapper picks the simple route from the address."""
+    h, beta, pctx, *rest = attention_inputs(6, 2, 28, 256, 256,
+                                            torch.bfloat16, cuda, seed=4)
+    flat = torch.empty(pctx.numel() + 1, device=cuda)
+    flat[1:] = pctx.flatten()
+    pctx = flat[1:].view(pctx.shape)
+    assert pctx.is_contiguous() and pctx.data_ptr() % 16 != 0
+    check_attention((h, beta, pctx, *rest), True, "simple")
+
+
+@pytest.mark.parametrize("bc,nb,k,route", [
+    (256, 5, 28, "cluster"), (64, 1, 28, "cluster"), (9, 3, 29, "cluster"),
+    (256, 5, 28, "simple")])
+def test_attention_core_kernel_is_deterministic(cuda, bc, nb, k, route):
+    """Two calls on the same operands agree bit for bit: the cluster's
+    partial sums are merged in rank order, with no atomics."""
+    args = attention_inputs(bc, nb, k, 1024, 1024, torch.bfloat16, cuda,
+                            seed=11)
+    first = tkernel._attention_core_cuda(*args, True, route=route)
+    second = tkernel._attention_core_cuda(*args, True, route=route)
+    torch.cuda.synchronize()
+    for p, q in zip(first, second):
+        assert torch.equal(p, q)
+
+
+@pytest.mark.parametrize("mode", [0, 1])
+def test_device_tanh_matches_torch(cuda, mode):
+    """The TMA cores' tanh against torch.tanh over a dense float32 grid
+    of [-20, 20] and the special values: the product form of tanh(p + h)
+    (p = 0.7 x, h = 0.3 x; mode 0) and the single-exponent form (mode 1),
+    within 3e-7, exact at +-0 -> 0 and +-inf -> +-1, NaN kept."""
+    special = torch.tensor([0.0, -0.0, float("inf"), -float("inf"),
+                            float("nan"), 1e-30, -1e-30, 88.0, -88.0],
+                           device=cuda)
+    x = torch.cat([torch.linspace(-20, 20, 4_000_001, device=cuda), special])
+    y = torch.empty_like(x)
+    err = tkernel._build.lib().stvd_tanh_f32(
+        x.data_ptr(), y.data_ptr(), x.numel(), mode,
+        torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert err == 0
+    ref = torch.tanh((x * 0.7).double() + (x * 0.3).double() if mode == 0
+                     else x.double())
+    finite = torch.isfinite(ref)
+    assert float((y.double() - ref)[finite].abs().max()) < 3e-7
+    assert torch.equal(y[-9:-5].cpu(), torch.tensor([0.0, 0.0, 1.0, -1.0]))
+    assert bool(torch.isnan(y[-5]))
 
 
 def check_tail(x, w, b, k, route):
@@ -148,27 +236,80 @@ def test_logit_tail_kernel_is_deterministic(cuda, v, k):
     torch.testing.assert_close(first[2], ref[2], rtol=0, atol=1e-4)
 
 
-@pytest.mark.parametrize("nb,r,s,dr,reg_dtype", [
-    (1, 7, 12, 10, torch.float32), (3, 49, 130, 67, torch.bfloat16),
-    (8, 37, 13, 301, torch.bfloat16), (5, 49, 1024, 1024, torch.bfloat16)])
-def test_spatial_core_kernel_matches_plain(cuda, nb, r, s, dr, reg_dtype):
-    """h_satt is a strided column slice of a wider projection, as in the
-    step; the plain version runs at float32 on the same inputs."""
-    g = torch.Generator(device=cuda).manual_seed(r)
-    bc, k = 3, 5
-    hp = torch.randn(bc * nb, s + 9, generator=g, device=cuda)
-    pregion = torch.randn(bc, k, r, s, generator=g, device=cuda)
-    regions = torch.randn(bc, k, r, dr, generator=g, device=cuda).to(reg_dtype)
-    u = 3.0 * torch.randn(s, generator=g, device=cuda) / s ** 0.5
-    c_s = torch.tensor(0.3, device=cuda)
-    args = (hp[:, 9:], pregion, regions, u, c_s)
+def spatial_inputs(bc, nb, k, r, s, dr, reg_dtype, device, seed):
+    """Kernel 4's operands; h_satt is a strided column slice of a wider
+    projection, as in the step."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    hp = torch.randn(bc * nb, s + 9, generator=g, device=device)
+    pregion = torch.randn(bc, k, r, s, generator=g, device=device)
+    regions = torch.randn(bc, k, r, dr, generator=g,
+                          device=device).to(reg_dtype)
+    u = 3.0 * torch.randn(s, generator=g, device=device) / s ** 0.5
+    c_s = torch.tensor(0.3, device=device)
+    return hp[:, 9:], pregion, regions, u, c_s
+
+
+def check_spatial(args, route):
+    """One spatial-core call on ``route`` against the plain version at
+    float32 on the same inputs."""
     before = tkernel.spatial_core.launches
+    by_route = dict(tkernel.spatial_core.launches_by_route)
     got = tkernel.spatial_core(*args, torch.float32)
     ref = tstep._spatial_core(*args, torch.float32)
     torch.cuda.synchronize()
     assert tkernel.spatial_core.launches == before + 1
+    assert tkernel.spatial_core.launches_by_route[route] == by_route[route] + 1
     for x, y in zip(got, ref):
         torch.testing.assert_close(x, y.float(), rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("bc,k,nb,r,s,dr,reg_dtype,route", [
+    (3, 5, 1, 7, 12, 10, torch.float32, "simple"),
+    (3, 5, 3, 49, 130, 67, torch.bfloat16, "simple"),
+    (3, 5, 8, 37, 13, 301, torch.bfloat16, "simple"),
+    (3, 5, 5, 49, 1024, 1024, torch.bfloat16, "tma"),
+    (4, 28, 5, 49, 1024, 1024, torch.bfloat16, "tma"),
+    (4, 28, 1, 49, 1024, 1024, torch.bfloat16, "tma"),
+    (3, 29, 8, 37, 1024, 304, torch.bfloat16, "tma"),
+    (2, 9, 8, 49, 1024, 1024, torch.float32, "tma"),
+    (3, 1, 3, 1, 8, 8, torch.bfloat16, "tma"),
+    (3, 8, 2, 33, 264, 72, torch.float32, "tma"),
+    (2, 6, 4, 49, 1544, 1024, torch.bfloat16, "tma")])
+def test_spatial_core_kernel_matches_plain(cuda, bc, k, nb, r, s, dr,
+                                           reg_dtype, route):
+    """The path-A shape (nb 5 and 1, K 28, R 49, s = Dr = 1024) and ragged
+    ones on the tma route: K 29 (blocks of 6 frames, the last one short),
+    nb 8, R 1, 33 and 37, s off the 256-column chunk (264, 1544: chunks
+    rounded up to a power of two), Dr 72 and 304, float32 regions;
+    widths that are not multiples of 8 take the simple route."""
+    check_spatial(spatial_inputs(bc, nb, k, r, s, dr, reg_dtype, cuda,
+                                 seed=r + k), route)
+
+
+def test_spatial_core_unaligned_base_takes_the_simple_route(cuda):
+    """A regions base one element past 16-byte alignment cannot be a bulk
+    copy's source: the wrapper picks the simple route from the address."""
+    h, pregion, regions, u, c_s = spatial_inputs(
+        2, 6, 3, 49, 256, 128, torch.bfloat16, cuda, seed=6)
+    flat = torch.empty(regions.numel() + 1, dtype=regions.dtype, device=cuda)
+    flat[1:] = regions.flatten()
+    regions = flat[1:].view(regions.shape)
+    assert regions.is_contiguous() and regions.data_ptr() % 16 != 0
+    check_spatial((h, pregion, regions, u, c_s), "simple")
+
+
+@pytest.mark.parametrize("nb,route", [(5, "tma"), (1, "tma"),
+                                      (5, "simple")])
+def test_spatial_core_kernel_is_deterministic(cuda, nb, route):
+    """Two calls on the same operands agree bit for bit: partial scores
+    are summed in a fixed order and every reduction has a fixed shape."""
+    args = spatial_inputs(4, nb, 28, 49, 1024, 1024, torch.bfloat16, cuda,
+                          seed=nb)
+    first = tkernel._spatial_core_cuda(*args, route=route)
+    second = tkernel._spatial_core_cuda(*args, route=route)
+    torch.cuda.synchronize()
+    for p, q in zip(first, second):
+        assert torch.equal(p, q)
 
 
 def gates_operands(rows, kx, dim, mode, device, seed=0):
