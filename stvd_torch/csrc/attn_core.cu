@@ -21,31 +21,34 @@
 // What bounds it on this card.  At preset 3 (Bc=256, nb=5, K=28,
 // A=Dc=1024, ctx bf16) a row reads 28*1024*4 B of pctx + 28*1024*2 B of
 // ctx = 168 KB, 43 MB a step (55 MB with the outputs, ~16 us at 3.35
-// TB/s), against ~37 M tanh.  The first design (route "simple", below:
-// a block per row, tanhf, three phases split by barriers) gave 256 blocks
+// TB/s), against ~37 M tanh.  The first design (route "simple", below: a
+// block per row, tanhf, three phases split by barriers) gave 256 blocks
 // for 132 SMs, each streaming its 168 KB with 4- and 2-byte loads and
 // reading ctx only after its scores: it was held by latency and too
-// little parallelism, not by its bytes.
+// little parallelism, not by its bytes, at 0.15 ms.
 //
 // Route "cluster" (the design for Hopper):
-// * a row's K frames are split over the CTAs of a thread-block cluster
-//   (kc frames each, at most 4 CTAs: 4 x 7 at K 28), so preset 3 launches
-//   1024 CTAs and the training shape (Bc 64, nb 1) 256;
+// * a row's K frames are split over the CTAs of a thread-block cluster,
+//   kc frames each, as many CTAs a row as keep the launch within one wave
+//   (~512 CTAs; stvd_torch/model/kernel.py:attention_core_split): 2 x 14
+//   at preset 3, 4 x 7 at the training shape (Bc 64, nb 1);
 // * each CTA fetches its ctx slice into shared memory with one TMA bulk
 //   copy, issued first, so it lands while the scores run, and asks L2 for
 //   its pctx slice; pctx is read with 16-byte loads, a warp per
-//   256-column chunk, through the score pass of attn_score.cuh;
+//   256-column chunk, through the score pass of attn_score.cuh (the
+//   exponential shared by the nb beams, one rcp.approx an element);
 // * the softmax is split: each CTA takes its masked scores' max; after a
 //   cluster barrier every CTA reads the others' maxima from distributed
 //   shared memory, forms exp(s - max) (0 where masked), its sum and its
-//   partial sum_k p_k ctx_k; after a second barrier each CTA sums the
-//   partials of every CTA in rank order for its quarter of the Dc columns
-//   and divides by the summed denominator.  No atomics, and every sum has
-//   a fixed order, so results repeat bit for bit; a CTA whose frames are
-//   all masked adds zeros, and a fully-masked row still gives zeros.
-// The route needs A and Dc multiples of 8, A <= 1024, 16-byte aligned
-// pctx and ctx and a slice that fits shared memory; other shapes take
-// "simple".
+//   partial sum_k p_k ctx_k, which it writes over its ctx slice once every
+//   thread has read it; after a second barrier each CTA sums the partials
+//   of every CTA in rank order for its share of the Dc columns and
+//   divides by the summed denominator.  No atomics, and every sum has a
+//   fixed order, so results repeat bit for bit; a CTA whose frames are all
+//   masked adds zeros, and a fully-masked row still gives zeros.
+// The route needs A and Dc multiples of 8 and at most 1024, 16-byte
+// aligned pctx and ctx and a slice that fits shared memory; other shapes
+// take "simple".
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -67,21 +70,10 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxBeams = 8;
 constexpr float kNegInf = -1e30f;
-constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(kFull, v, o));
-  return v;
 }
 
 template <typename CtxT>
@@ -128,7 +120,7 @@ attn_core_kernel(const float* __restrict__ h_att, long long ld_h,
 #pragma unroll
     for (int j = 0; j < kMaxBeams; ++j) {
       if (j < nb) {
-        const float s = warp_sum(acc[j]);
+        const float s = lane_sum(acc[j]);
         if (lane == 0) al_s[j * k + kk] = s + c0;
       }
     }
@@ -142,14 +134,14 @@ attn_core_kernel(const float* __restrict__ h_att, long long ld_h,
     float m = -INFINITY;
     for (int kk = lane; kk < k; kk += 32)
       m = fmaxf(m, mrow[kk] > 0.f ? srow[kk] : kNegInf);
-    m = warp_max(m);
+    m = lane_max(m);
     float sum = 0.f;
     for (int kk = lane; kk < k; kk += 32) {
       const float ex = mrow[kk] > 0.f ? expf(srow[kk] - m) : 0.f;
       srow[kk] = ex;
       sum += ex;
     }
-    const float denom = fmaxf(warp_sum(sum), 1e-20f);
+    const float denom = fmaxf(lane_sum(sum), 1e-20f);
     for (int kk = lane; kk < k; kk += 32) {
       const float al = srow[kk] / denom;
       srow[kk] = al;
@@ -214,7 +206,6 @@ cudaError_t launch(const void* h_att, long long ld_h, const void* beta_logit,
 constexpr int kClWarps = 4;    // score chunks per row must divide this
 constexpr int kMaxSplits = 4;  // CTAs of a cluster (one row)
 constexpr int kClThreads = 32 * kClWarps;
-constexpr size_t kSmemLimit = 232448;   // 227 KB, the most a block may use
 
 __device__ __forceinline__ void load8(const float* p, float (&v)[8]) {
   const float4 x = *reinterpret_cast<const float4*>(p);
@@ -232,12 +223,6 @@ __device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&v)[8]) {
     v[2 * i] = f.x;
     v[2 * i + 1] = f.y;
   }
-}
-
-inline int score_chunks(int width) {
-  int nq = 1;
-  while (nq * 256 < width) nq *= 2;
-  return nq;
 }
 
 // Shared memory of route "cluster": the mbarrier in 16 bytes, the ctx

@@ -43,6 +43,16 @@ namespace {
 constexpr float kTwoLog2e = 2.885390081777927f;
 constexpr float kSplitMax = 60.f;
 constexpr unsigned kAllLanes = 0xffffffffu;
+constexpr size_t kSmemLimit = 232448;   // 227 KB, the most a block may use
+
+// 256-column chunks of a score row, rounded up to a power of two so that
+// the chunk count divides the warp count (a warp then keeps one chunk).
+// stvd_torch/model/kernel.py:score_chunks repeats this.
+inline int score_chunks(int width) {
+  int nq = 1;
+  while (nq * 256 < width) nq *= 2;
+  return nq;
+}
 
 __device__ __forceinline__ float ex2_approx(float a) {
   float t;

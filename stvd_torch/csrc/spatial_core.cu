@@ -22,11 +22,14 @@
 // regions, 0.67 ms at 3.35 TB/s; it also evaluates nb*Bc*K*R*s = 1.8e9
 // tanh.  With libdevice's tanhf (~20 instructions, two MUFU operations)
 // that is ~1.1 ms of instruction issue before any byte moves, so the
-// first design (route "simple", below) was held by issue, not by bytes.
+// first design (route "simple", below: a block per (row, frame), tanhf,
+// 256 threads) was held by issue, not by bytes, at 2.0 ms.
 //
 // Route "tma" (the design for Hopper):
-// * the score pass of attn_score.cuh: ~12 issue slots and 1.25 MUFU
-//   operations an element instead of tanhf, the beam states scaled once;
+// * the score pass of attn_score.cuh: tanh(p + h) = 1 - 2 / (1 + 2^(C p)
+//   2^(C h)), with 2^(C h) taken once per block and 2^(C p) once per
+//   pregion element for all nb beams, so an element costs an fma, one
+//   rcp.approx and an fma into the sum (sum(u) rides in the partials);
 // * a block walks `fpb` frames of one context row (7 at K 28), so the
 //   nb x s beam states are read once per 7 frames, and each warp keeps
 //   its columns of them in registers: a warp always scores the same
@@ -41,11 +44,12 @@
 //   memory with 8- or 16-byte loads, a thread per 4 columns;
 // * the per-chunk partial scores are summed in a fixed order and every
 //   reduction has a fixed shape, so results repeat bit for bit.
-// Two blocks fit an SM (~105 KB of shared memory each), so one block's
-// softmax and weighted sum overlap the other's score pass.  The route needs
-// s and Dr multiples of 8, s <= 2048, 16-byte aligned pregion and regions
-// and a slab that fits shared memory; other shapes take "simple", the
-// first design: a block per (row, frame), tanhf, 256 threads.
+// Two blocks fit an SM (~103 KB of shared memory each), so one block's
+// softmax and weighted sum overlap the other's score pass, which still
+// takes most of a frame's time: issue, not bytes, remains the limit.  The
+// route needs s and Dr multiples of 8, s <= 2048, 16-byte aligned pregion
+// and regions and a slab that fits shared memory; other shapes take
+// "simple".
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -63,21 +67,10 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxBeams = 8;
-constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(kFull, v, o));
-  return v;
 }
 
 template <typename RegT>
@@ -147,7 +140,7 @@ spatial_core_kernel(const float* __restrict__ h_satt, long long ld_h,
 #pragma unroll
     for (int j = 0; j < kMaxBeams; ++j) {
       if (j < nb) {
-        const float sum = warp_sum(acc[j]);
+        const float sum = lane_sum(acc[j]);
         if (lane == 0) al_s[j * r + rr] = sum + c0;
       }
     }
@@ -159,14 +152,14 @@ spatial_core_kernel(const float* __restrict__ h_satt, long long ld_h,
     float* srow = al_s + j * r;
     float m = -INFINITY;
     for (int rr = lane; rr < r; rr += 32) m = fmaxf(m, srow[rr]);
-    m = warp_max(m);
+    m = lane_max(m);
     float sum = 0.f;
     for (int rr = lane; rr < r; rr += 32) {
       const float ex = expf(srow[rr] - m);
       srow[rr] = ex;
       sum += ex;
     }
-    const float denom = fmaxf(warp_sum(sum), 1e-20f);
+    const float denom = fmaxf(lane_sum(sum), 1e-20f);
     float* arow = alpha + ((row0 + j) * k + kk) * r;
     for (int rr = lane; rr < r; rr += 32) {
       const float al = srow[rr] / denom;
@@ -225,7 +218,6 @@ cudaError_t launch(const void* h_satt, long long ld_h, const void* pregion,
 
 constexpr int kTmaWarps = 8;   // chunks per region row must divide this
 constexpr int kTmaThreads = 32 * kTmaWarps;
-constexpr size_t kSmemLimit = 232448;   // 227 KB, the most a block may use
 
 __device__ __forceinline__ void load4(const float* p, float (&v)[4]) {
   const float4 x = *reinterpret_cast<const float4*>(p);
@@ -244,14 +236,6 @@ __device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&v)[4]) {
   v[1] = lo.y;
   v[2] = hi.x;
   v[3] = hi.y;
-}
-
-// 256-column chunks of a score row, rounded up to a power of two so that
-// the chunk count divides the warp count (a warp then keeps one chunk).
-inline int score_chunks(int width) {
-  int nq = 1;
-  while (nq * 256 < width) nq *= 2;
-  return nq;
 }
 
 // Shared memory of route "tma": the mbarrier in 16 bytes, the regions

@@ -369,3 +369,40 @@ def test_route_counters_start_at_zero_on_the_cpu():
     assert set(before[4]) == set(tkernel.SPATIAL_CORE_ROUTES)
     assert set(tkernel.spatial_bwd.launches_by_route) == set(
         tkernel.SPATIAL_BWD_ROUTES)
+
+
+SASS = """
+        Function : _Z3fooPf
+        .headerflags    @"EF_CUDA_SM90 EF_CUDA_VIRTUAL_SM(EF_CUDA_SM90)"
+        /*0000*/                   MOV R1, c[0x0][0x28] ;   /* 0x000fc400 */
+                                                            /* 0x000fe200 */
+        /*0010*/                   FFMA R2, R3, R4, R5 ;
+        /*0020*/                   MUFU.EX2 R6, R2 ;
+        /*0030*/              @P0  BRA 0x10 ;
+        /*0040*/                   EXIT ;
+        Function : _Z3barPf
+        /*0000*/                   MOV R1, c[0x0][0x28] ;
+.L_x_0:
+        /*0010*/                   MUFU.RCP R2, R3 ;
+        /*0020*/                   FFMA R2, R3, R4, R5 ;
+        /*0030*/                   FFMA R2, R3, R4, R5 ;
+        /*0040*/              @!P1 BRA `(.L_x_0) ;
+        /*0050*/                   BRA `(.L_x_1) ;
+.L_x_1:
+        /*0060*/                   EXIT ;
+"""
+
+
+@pytest.mark.parametrize("name,n,loop", [
+    ("_Z3fooPf", 5, ("0x10", "0x30", 3, 1)),
+    ("_Z3barPf", 7, ("0x10", "0x40", 4, 1))])
+def test_sass_loops_reads_backward_branches(name, n, loop):
+    """The SASS reader of stvd_torch.sass_loops: address and label branch
+    targets, predicated branches, forward branches ignored, encoding-only
+    lines skipped."""
+    from stvd_torch import sass_loops
+    instrs = sass_loops.functions(SASS)[name]
+    assert len(instrs) == n
+    (found,) = sass_loops.loops(instrs)
+    assert (found["start"], found["end"], found["instructions"],
+            found["mufu"]) == loop

@@ -119,6 +119,22 @@ def test_attention_core_unaligned_base_takes_the_simple_route(cuda):
     check_attention((h, beta, pctx, *rest), True, "simple")
 
 
+@pytest.mark.parametrize("scale_p,scale_h", [(30.0, 1.0), (1.0, 25.0),
+                                             (40.0, 40.0)])
+def test_attention_core_out_of_range_inputs(cuda, scale_p, scale_h):
+    """pctx or beam states past the product form's range (|x| above
+    ~20.8 in every third context row, every second beam state): the warps
+    whose units hold them take the single-exponent form, and the results
+    still agree with the plain version."""
+    h, beta, pctx, *rest = attention_inputs(64, 3, 28, 1024, 1024,
+                                            torch.bfloat16, cuda, seed=21)
+    pctx = pctx.clone()
+    pctx[::3] *= scale_p
+    h = h.clone()
+    h[::2] *= scale_h
+    check_attention((h, beta, pctx, *rest), True, "cluster")
+
+
 @pytest.mark.parametrize("bc,nb,k,route", [
     (256, 5, 28, "cluster"), (64, 1, 28, "cluster"), (9, 3, 29, "cluster"),
     (256, 5, 28, "simple")])
@@ -296,6 +312,21 @@ def test_spatial_core_unaligned_base_takes_the_simple_route(cuda):
     regions = flat[1:].view(regions.shape)
     assert regions.is_contiguous() and regions.data_ptr() % 16 != 0
     check_spatial((h, pregion, regions, u, c_s), "simple")
+
+
+@pytest.mark.parametrize("scale_p,scale_h", [(30.0, 1.0), (1.0, 25.0),
+                                             (40.0, 40.0)])
+def test_spatial_core_out_of_range_inputs(cuda, scale_p, scale_h):
+    """pregion or beam states past the product form's range (every second
+    frame, every second beam state): those units take the single-exponent
+    form, and the results still agree with the plain version."""
+    h, pregion, regions, u, c_s = spatial_inputs(
+        2, 5, 7, 49, 1024, 1024, torch.bfloat16, cuda, seed=22)
+    pregion = pregion.clone()
+    pregion[:, ::2] *= scale_p
+    h = h.clone()
+    h[::2] *= scale_h
+    check_spatial((h, pregion, regions, u, c_s), "tma")
 
 
 @pytest.mark.parametrize("nb,route", [(5, "tma"), (1, "tma"),
