@@ -222,7 +222,10 @@ def test_spatial_bwd_plain_matches_pallas(cd, acc, tol):
         jnp.asarray(x["alpha_prev"]), jnp.asarray(x["dspat"]),
         jnp.asarray(x["u_s"]), jnp.asarray(x["dpe_acc"]).astype(jacc), cd)
     t = {k: torch.from_numpy(v) for k, v in x.items()}
-    dpe = t["dpe_acc"].to(tacc)
+    # a copy: JAX may still be reading x["dpe_acc"] (dispatch is
+    # asynchronous, and on the CPU it may share the numpy buffer) when the
+    # plain version accumulates into dpe in place
+    dpe = t["dpe_acc"].to(tacc, copy=True)
     got = tkernel.spatial_bwd(t["h_satt"], t["pregion"].to(tcd),
                               t["regions"].to(tcd), t["alpha_s"],
                               t["alpha_prev"], t["dspat"], t["u_s"], dpe)
