@@ -3,8 +3,11 @@
 Reads ``cuobjdump -sass`` of the built kernel library and, for every
 kernel whose mangled name matches a pattern, prints one JSON line per
 loop (a backward branch): its address range, its instruction count, its
-MUFU operations and its most frequent opcodes.  Counts are static: a
-branch inside the loop counts both of its sides.
+MUFU operations and its most frequent opcodes.  Those counts are static:
+a branch inside the loop counts both of its sides.  ``path`` and
+``path_mufu`` count one pass of the fall-through path instead, from the
+loop's start to its backward branch, taking every unconditional branch
+and no predicated one (for the score passes: the in-range path).
 
     python -m stvd_torch.sass_loops --mufu-only 'spatial_core_tmaILi5E'
     python -m stvd_torch.sass_loops --lib OTHER.so 'spatial_core_kernel'
@@ -22,12 +25,12 @@ import sys
 from typing import Dict, List, Tuple
 
 _FUNC = re.compile(r"Function : (\S+)")
-_INSTR = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]+\s+)?"
+_INSTR = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P[T0-9]+\s+)?"
                     r"([A-Z][A-Z0-9_.]*)([^;]*);")
 _LABEL = re.compile(r"^\s*(\.L_x_\d+):")
 _TARGET = re.compile(r"(?:0x([0-9a-f]+)|`\((\.L_x_\d+)\))")
 
-Instr = Tuple[int, str, str]      # address, opcode, operands
+Instr = Tuple[int, str, str, bool]   # address, opcode, operands, predicated
 
 
 def functions(sass: str) -> Dict[str, List[Instr]]:
@@ -54,32 +57,53 @@ def functions(sass: str) -> Dict[str, List[Instr]]:
             for label in pending:
                 labels[label] = addr
             pending = []
-            out[name].append((addr, m.group(2), m.group(3)))
+            out[name].append((addr, m.group(3), m.group(4),
+                              m.group(2) is not None))
     for name, instrs in out.items():
         fixed = []
-        for addr, op, args in instrs:
+        for addr, op, args, pred in instrs:
             t = _TARGET.search(args) if op.startswith("BRA") else None
             if t and t.group(2):
                 args = f" 0x{labels.get(t.group(2), -1):x}"
-            fixed.append((addr, op, args))
+            fixed.append((addr, op, args, pred))
         out[name] = fixed
     return out
+
+
+def _target(op: str, args: str):
+    t = _TARGET.search(args) if op.startswith("BRA") else None
+    return int(t.group(1), 16) if t and t.group(1) else None
+
+
+def fall_through(instrs: List[Instr], start: int, end: int) -> List[str]:
+    """Opcodes of one pass from ``start`` to the branch at ``end``:
+    predicated branches fall through, unconditional ones are taken."""
+    at = {a: i for i, (a, *_rest) in enumerate(instrs)}
+    i, ops = at.get(start), []
+    while i is not None and i < len(instrs) and len(ops) <= len(instrs):
+        addr, op, args, pred = instrs[i]
+        ops.append(op)
+        if addr == end:
+            break
+        dest = _target(op, args)
+        i = at.get(dest) if dest is not None and not pred else i + 1
+    return ops
 
 
 def loops(instrs: List[Instr]) -> List[dict]:
     """One record per backward branch, innermost (shortest) first."""
     found = []
-    for addr, op, args in instrs:
-        t = _TARGET.search(args) if op.startswith("BRA") else None
-        if not t or not t.group(1):
+    for addr, op, args, _pred in instrs:
+        start = _target(op, args)
+        if start is None or start > addr:
             continue
-        start = int(t.group(1), 16)
-        if start > addr:
-            continue
-        body = [o for a, o, _ in instrs if start <= a <= addr]
+        body = [o for a, o, *_rest in instrs if start <= a <= addr]
         ops = collections.Counter(o.split(".")[0] for o in body)
+        path = fall_through(instrs, start, addr)
         found.append({"start": hex(start), "end": hex(addr),
                       "instructions": len(body), "mufu": ops.get("MUFU", 0),
+                      "path": len(path),
+                      "path_mufu": sum(o.startswith("MUFU") for o in path),
                       "top": dict(ops.most_common(8))})
     return sorted(found, key=lambda r: r["instructions"])
 

@@ -384,25 +384,31 @@ SASS = """
         /*0000*/                   MOV R1, c[0x0][0x28] ;
 .L_x_0:
         /*0010*/                   MUFU.RCP R2, R3 ;
-        /*0020*/                   FFMA R2, R3, R4, R5 ;
+        /*0020*/              @P2  BRA `(.L_x_2) ;
         /*0030*/                   FFMA R2, R3, R4, R5 ;
-        /*0040*/              @!P1 BRA `(.L_x_0) ;
-        /*0050*/                   BRA `(.L_x_1) ;
+        /*0040*/                   BRA `(.L_x_3) ;
+.L_x_2:
+        /*0050*/                   MUFU.EX2 R2, R3 ;
+        /*0060*/                   MUFU.RCP R2, R3 ;
+.L_x_3:
+        /*0070*/              @!P1 BRA `(.L_x_0) ;
+        /*0080*/                   BRA `(.L_x_1) ;
 .L_x_1:
-        /*0060*/                   EXIT ;
+        /*0090*/                   EXIT ;
 """
 
 
 @pytest.mark.parametrize("name,n,loop", [
-    ("_Z3fooPf", 5, ("0x10", "0x30", 3, 1)),
-    ("_Z3barPf", 7, ("0x10", "0x40", 4, 1))])
+    ("_Z3fooPf", 5, ("0x10", "0x30", 3, 1, 3, 1)),
+    ("_Z3barPf", 10, ("0x10", "0x70", 7, 3, 5, 1))])
 def test_sass_loops_reads_backward_branches(name, n, loop):
     """The SASS reader of stvd_torch.sass_loops: address and label branch
-    targets, predicated branches, forward branches ignored, encoding-only
-    lines skipped."""
+    targets, predicated branches, forward branches ignored as loops,
+    encoding-only lines skipped; the fall-through path skips what an
+    unconditional branch jumps over (bar's MUFU.EX2 and second RCP)."""
     from stvd_torch import sass_loops
     instrs = sass_loops.functions(SASS)[name]
     assert len(instrs) == n
     (found,) = sass_loops.loops(instrs)
     assert (found["start"], found["end"], found["instructions"],
-            found["mufu"]) == loop
+            found["mufu"], found["path"], found["path_mufu"]) == loop
