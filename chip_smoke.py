@@ -221,27 +221,30 @@ def repeats(fn, args) -> bool:
 
 
 def phase_attention(kernel, step_mod, dev, g, cfg) -> dict:
-    """Kernel 1 at the serving shapes (preset 3: Bc=256, nb=5, K=28,
-    A=Dc=1024) and at the training shape (batch 64, nb 1: the train
-    forward scan with ``train_fwd_kernel='on'``), pctx float32, ctx bf16;
+    """Kernel 1 at the serving shape (preset 3: Bc=256, nb=5, K=28,
+    A=Dc=1024, ctx bf16), at the training shape (batch 64, nb 1: the
+    train forward scan with ``train_fwd_kernel='on'``) and at path A's
+    (its float32 per-beam context: 1280 rows of 1 beam), pctx float32;
     masked frames, one fully-masked row and one row whose last cluster
-    CTA holds only masked frames.  Both must take route 'cluster', agree
+    CTA holds only masked frames.  Each must take route 'cluster', agree
     with the plain version and repeat bit for bit; each is timed beside
-    route 'simple' on the same operands (simple_ms), both as device time
-    (``device_ms``); eager_ms is the wrapper called back to back, which its
-    host work bounds at these sizes."""
+    route 'simple' on the same operands (simple_ms) and with 1-4 CTAs a
+    row (split_ms), all as device time (``device_ms``); eager_ms is the
+    wrapper called back to back, which its host work bounds here."""
     m = cfg.model
     k, a, dc = m.n_frames, m.attn_dim, m.ctx_dim
+    rows = cfg.decode.decode_batch
     cases = {}
-    for name, bc, nb in (("serving", cfg.decode.decode_batch,
-                          cfg.decode.beam_size),
-                         ("training", cfg.train.batch_size, 1)):
+    for name, bc, nb, cdt in (
+            ("serving", rows, cfg.decode.beam_size, torch.bfloat16),
+            ("training", cfg.train.batch_size, 1, torch.bfloat16),
+            ("path_a", rows * cfg.decode.beam_size, 1, torch.float32)):
         hp = torch.randn(bc * nb, a + 1, generator=g, device=dev)
         pctx = 0.5 * torch.randn(bc, k, a, generator=g, device=dev)
-        ctx = torch.randn(bc, k, dc, generator=g, device=dev).bfloat16()
+        ctx = torch.randn(bc, k, dc, generator=g, device=dev).to(cdt)
         mask = (torch.rand(bc, k, generator=g, device=dev) > 0.25).float()
         mask[:, 0] = 1.0
-        splits, kc = kernel.attention_core_split(k, bc)
+        splits, kc = kernel.attention_core_split(k, bc, nb)
         mask[3, (splits - 1) * kc:] = 0.0
         mask[7] = 0.0
         u = 3.0 * torch.randn(a, generator=g, device=dev) / a ** 0.5
@@ -275,11 +278,14 @@ def phase_attention(kernel, step_mod, dev, g, cfg) -> dict:
         traffic = (4 * bs * (a + 1) + nbytes(pctx, ctx, mask, u)
                    + 4 * bs * (dc + k))
         cases[name] = {
-            "shape": [bc, nb, k, a, dc], "max_abs_err": err, "errs": errs,
-            "route": route, "bitwise_repeatable": same,
+            "shape": [bc, nb, k, a, dc], "ctx": str(cdt).split(".")[-1],
+            "max_abs_err": err, "errs": errs, "route": route,
+            "splits": splits, "bitwise_repeatable": same,
             "ms": device_ms(lambda: kernel.attention_core(*args)),
             "simple_ms": device_ms(lambda: kernel._attention_core_cuda(
                 *args, route="simple")),
+            "split_ms": {n: device_ms(lambda: kernel._attention_core_cuda(
+                *args, route="cluster", splits=n)) for n in (1, 2, 3, 4)},
             "eager_ms": time_ms(lambda: kernel.attention_core(*args)),
             "plain_ms": time_ms(lambda: step_mod._attention_core(*args)),
             "library_ms": None,

@@ -29,9 +29,10 @@
 //
 // Route "cluster" (the design for Hopper):
 // * a row's K frames are split over the CTAs of a thread-block cluster,
-//   kc frames each, as many CTAs a row as keep the launch within one wave
-//   (~512 CTAs; stvd_torch/model/kernel.py:attention_core_split): 2 x 14
-//   at preset 3, 4 x 7 at the training shape (Bc 64, nb 1);
+//   kc frames each, up to 4 CTAs a row; from 3 beams up only as many as
+//   keep the launch within one wave (~512 CTAs;
+//   stvd_torch/model/kernel.py:attention_core_split): 2 x 14 at preset 3,
+//   4 x 7 at 1 beam (training, and path A's per-beam rows);
 // * each CTA fetches its ctx slice into shared memory with one TMA bulk
 //   copy, issued first, so it lands while the scores run, and asks L2 for
 //   its pctx slice; pctx is read with 16-byte loads, a warp per

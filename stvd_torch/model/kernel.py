@@ -62,17 +62,21 @@ def score_chunks(width: int) -> int:
 ATTENTION_CORE_ROUTES = ("cluster", "simple")
 
 
-_CLUSTER_CTAS = 512   # CTAs route 'cluster' aims to launch: one wave
+_CLUSTER_CTAS = 512   # CTAs the card holds at once at 3+ beams: one wave
 
 
-def attention_core_split(k: int, rows: int) -> Tuple[int, int]:
-    """Route 'cluster''s plan for K frames of ``rows`` context rows: (CTAs
-    per row, frames per CTA).  As many CTAs a row as keep the launch
-    within ~512 CTAs, which the card holds at once (4-5 an SM at the
-    serving shapes), at most 4, frames as even as whole frames allow and
-    no CTA empty: K 28 over 256 rows -> (2, 14), over 64 rows -> (4, 7);
-    K 29 -> (4, 8), K 5 -> (3, 2), K 1 -> (1, 1) over 64 rows."""
-    want = max(1, min(4, k, _CLUSTER_CTAS // max(rows, 1)))
+def attention_core_split(k: int, rows: int, nb: int) -> Tuple[int, int]:
+    """Route 'cluster''s plan for K frames of ``rows`` context rows of
+    ``nb`` beams: (CTAs per row, frames per CTA).  Up to 4 CTAs a row,
+    frames as even as whole frames allow and no CTA empty.  From 3 beams
+    up a CTA holds 2^(C h) of every beam in registers (~96 a thread,
+    about 5 CTAs an SM), so only as many CTAs a row as keep the launch
+    within ~512 CTAs, one wave: K 28 over 256 rows of 5 beams -> (2, 14);
+    over 64 rows of 1 beam -> (4, 7).  chip_smoke.py times every split at
+    the serving paths' shapes (split_ms)."""
+    want = min(4, k)
+    if nb >= 3:
+        want = max(1, min(want, _CLUSTER_CTAS // max(rows, 1)))
     kc = -(-k // want)
     return -(-k // kc), kc
 
@@ -88,7 +92,7 @@ def attention_core_route(rows: int, nb: int, k: int, a: int, dc: int,
     if (a % 8 or dc % 8 or a > 1024 or dc > 1024 or pctx_ptr % 16
             or ctx_ptr % 16):
         return "simple"
-    kc = attention_core_split(k, rows)[1]
+    kc = attention_core_split(k, rows, nb)[1]
     el = 2 if ctx_dtype == torch.bfloat16 else 4
     smem = (16 + max(kc * dc * el, 4 * nb * dc)
             + 4 * (nb * kc * (score_chunks(a) + 1) + 5 * nb))
@@ -96,11 +100,12 @@ def attention_core_route(rows: int, nb: int, k: int, a: int, dc: int,
 
 
 def _attention_core_cuda(h_att, beta_logit, pctx, ctx, ctx_mask, u_att,
-                         c_att, b_sel, selector: bool, route=None
-                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+                         c_att, b_sel, selector: bool, route=None,
+                         splits=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """The kernel on ``attention_core_route``'s route, or on ``route``
-    when given (to time one route against another on the same
-    operands)."""
+    when given, and route 'cluster' with ``attention_core_split``'s CTAs
+    a row or ``splits`` of them (to time one plan against another on the
+    same operands)."""
     f32 = torch.float32
     bs, a = h_att.shape
     bc, k, a2 = pctx.shape
@@ -138,7 +143,9 @@ def _attention_core_cuda(h_att, beta_logit, pctx, ctx, ctx_mask, u_att,
         int(ctx.dtype == torch.bfloat16), mask.data_ptr(), u.data_ptr(),
         c_att.data_ptr(), b_sel.data_ptr(), int(bool(selector)),
         ctx_t.data_ptr(), alpha.data_ptr(), bc, nb, k, a, dc,
-        ATTENTION_CORE_ROUTES.index(route), attention_core_split(k, bc)[1],
+        ATTENTION_CORE_ROUTES.index(route),
+        attention_core_split(k, bc, nb)[1] if splits is None
+        else -(-k // splits),
         _launch_stream())
     _build.check(err, "attention-core kernel")
     attention_core.launches += 1

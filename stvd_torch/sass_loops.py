@@ -5,9 +5,10 @@ kernel whose mangled name matches a pattern, prints one JSON line per
 loop (a backward branch): its address range, its instruction count, its
 MUFU operations and its most frequent opcodes.  Those counts are static:
 a branch inside the loop counts both of its sides.  ``path`` and
-``path_mufu`` count one pass of the fall-through path instead, from the
-loop's start to its backward branch, taking every unconditional branch
-and no predicated one (for the score passes: the in-range path).
+``path_mufu`` count one pass of the loop's lightest path instead: from
+its start to its backward branch, each predicated branch taken or not,
+the path with the fewest MUFU operations, then the fewest instructions
+(for the attention cores' score passes: the in-range path).
 
     python -m stvd_torch.sass_loops --mufu-only 'spatial_core_tmaILi5E'
     python -m stvd_torch.sass_loops --lib OTHER.so 'spatial_core_kernel'
@@ -75,19 +76,34 @@ def _target(op: str, args: str):
     return int(t.group(1), 16) if t and t.group(1) else None
 
 
-def fall_through(instrs: List[Instr], start: int, end: int) -> List[str]:
-    """Opcodes of one pass from ``start`` to the branch at ``end``:
-    predicated branches fall through, unconditional ones are taken."""
-    at = {a: i for i, (a, *_rest) in enumerate(instrs)}
-    i, ops = at.get(start), []
-    while i is not None and i < len(instrs) and len(ops) <= len(instrs):
+def lightest_path(instrs: List[Instr], start: int,
+                  end: int) -> Tuple[int, int]:
+    """(instructions, MUFU operations) of the lightest pass from ``start``
+    to the branch at ``end``: a predicated forward branch may go either
+    way, an unconditional one is taken, and any other backward branch
+    falls through (an inner loop counts once)."""
+    idx = [i for i, (a, *_rest) in enumerate(instrs) if start <= a <= end]
+    at = {instrs[i][0]: i for i in idx}
+    inside = set(idx)
+    best = {idx[0]: (0, 0)}
+    for i in idx:
+        if i not in best:
+            continue
         addr, op, args, pred = instrs[i]
-        ops.append(op)
+        cost = (best[i][0] + op.startswith("MUFU"), best[i][1] + 1)
         if addr == end:
-            break
+            return cost[1], cost[0]
         dest = _target(op, args)
-        i = at.get(dest) if dest is not None and not pred else i + 1
-    return ops
+        nxt = []
+        if dest is not None and start < dest <= end and dest > addr:
+            nxt.append(at[dest])
+        if dest is None or pred or dest <= addr:
+            if not op.startswith("EXIT"):
+                nxt.append(i + 1)
+        for j in nxt:
+            if j in inside and (j not in best or cost < best[j]):
+                best[j] = cost
+    return 0, 0
 
 
 def loops(instrs: List[Instr]) -> List[dict]:
@@ -99,11 +115,10 @@ def loops(instrs: List[Instr]) -> List[dict]:
             continue
         body = [o for a, o, *_rest in instrs if start <= a <= addr]
         ops = collections.Counter(o.split(".")[0] for o in body)
-        path = fall_through(instrs, start, addr)
+        path, path_mufu = lightest_path(instrs, start, addr)
         found.append({"start": hex(start), "end": hex(addr),
                       "instructions": len(body), "mufu": ops.get("MUFU", 0),
-                      "path": len(path),
-                      "path_mufu": sum(o.startswith("MUFU") for o in path),
+                      "path": path, "path_mufu": path_mufu,
                       "top": dict(ops.most_common(8))})
     return sorted(found, key=lambda r: r["instructions"])
 

@@ -224,18 +224,21 @@ def test_attention_core_route(rows, nb, k, a, dc, dtype, pctx_ptr, ctx_ptr,
     assert route in tkernel.ATTENTION_CORE_ROUTES
 
 
-@pytest.mark.parametrize("k,rows,plan", [
-    (1, 64, (1, 1)), (2, 64, (2, 1)), (5, 64, (3, 2)), (28, 64, (4, 7)),
-    (29, 64, (4, 8)), (40, 64, (4, 10)), (28, 1, (4, 7)),
-    (28, 150, (3, 10)), (28, 256, (2, 14)), (28, 1024, (1, 28))])
-def test_attention_core_split(k, rows, plan):
-    """At most 4 CTAs a row and about 512 CTAs a launch (one wave), frames
-    as even as whole frames allow, and no CTA without a frame: the last
-    CTA holds 1..kc of them."""
-    splits, kc = tkernel.attention_core_split(k, rows)
+@pytest.mark.parametrize("k,rows,nb,plan", [
+    (1, 64, 1, (1, 1)), (2, 64, 1, (2, 1)), (5, 64, 1, (3, 2)),
+    (28, 64, 1, (4, 7)), (29, 64, 1, (4, 8)), (40, 64, 1, (4, 10)),
+    (28, 1280, 1, (4, 7)), (28, 1, 5, (4, 7)), (28, 150, 5, (3, 10)),
+    (28, 256, 5, (2, 14)), (28, 256, 3, (2, 14)), (28, 256, 2, (4, 7)),
+    (28, 1024, 8, (1, 28))])
+def test_attention_core_split(k, rows, nb, plan):
+    """At most 4 CTAs a row, frames as even as whole frames allow, no CTA
+    without a frame (the last CTA holds 1..kc of them); from 3 beams up,
+    about 512 CTAs a launch at most (one wave)."""
+    splits, kc = tkernel.attention_core_split(k, rows, nb)
     assert (splits, kc) == plan
     assert 1 <= splits <= 4 and (splits - 1) * kc < k <= splits * kc
-    assert rows * splits <= max(512, rows)
+    if nb >= 3:
+        assert rows * splits <= max(512, rows)
 
 
 @pytest.mark.parametrize("nb,r,s,dr,dtype,pregion_ptr,regions_ptr,route", [
@@ -385,11 +388,11 @@ SASS = """
 .L_x_0:
         /*0010*/                   MUFU.RCP R2, R3 ;
         /*0020*/              @P2  BRA `(.L_x_2) ;
-        /*0030*/                   FFMA R2, R3, R4, R5 ;
-        /*0040*/                   BRA `(.L_x_3) ;
+        /*0030*/                   MUFU.EX2 R2, R3 ;
+        /*0040*/                   MUFU.RCP R2, R3 ;
+        /*0050*/                   BRA `(.L_x_3) ;
 .L_x_2:
-        /*0050*/                   MUFU.EX2 R2, R3 ;
-        /*0060*/                   MUFU.RCP R2, R3 ;
+        /*0060*/                   FFMA R2, R3, R4, R5 ;
 .L_x_3:
         /*0070*/              @!P1 BRA `(.L_x_0) ;
         /*0080*/                   BRA `(.L_x_1) ;
@@ -400,12 +403,12 @@ SASS = """
 
 @pytest.mark.parametrize("name,n,loop", [
     ("_Z3fooPf", 5, ("0x10", "0x30", 3, 1, 3, 1)),
-    ("_Z3barPf", 10, ("0x10", "0x70", 7, 3, 5, 1))])
+    ("_Z3barPf", 10, ("0x10", "0x70", 7, 3, 4, 1))])
 def test_sass_loops_reads_backward_branches(name, n, loop):
     """The SASS reader of stvd_torch.sass_loops: address and label branch
     targets, predicated branches, forward branches ignored as loops,
-    encoding-only lines skipped; the fall-through path skips what an
-    unconditional branch jumps over (bar's MUFU.EX2 and second RCP)."""
+    encoding-only lines skipped; the lightest path takes bar's predicated
+    branch over its MUFU.EX2 and second RCP."""
     from stvd_torch import sass_loops
     instrs = sass_loops.functions(SASS)[name]
     assert len(instrs) == n
