@@ -3,12 +3,8 @@
 Reads ``cuobjdump -sass`` of the built kernel library and, for every
 kernel whose mangled name matches a pattern, prints one JSON line per
 loop (a backward branch): its address range, its instruction count, its
-MUFU operations and its most frequent opcodes.  Those counts are static:
-a branch inside the loop counts both of its sides.  ``path`` and
-``path_mufu`` count one pass of the loop's lightest path instead: from
-its start to its backward branch, each predicated branch taken or not,
-the path with the fewest MUFU operations, then the fewest instructions
-(for the attention cores' score passes: the in-range path).
+MUFU operations and its opcodes by count.  Counts are static: a branch
+inside the loop counts both of its sides.
 
     python -m stvd_torch.sass_loops --mufu-only 'spatial_core_tmaILi5E'
     python -m stvd_torch.sass_loops --lib OTHER.so 'spatial_core_kernel'
@@ -26,12 +22,12 @@ import sys
 from typing import Dict, List, Tuple
 
 _FUNC = re.compile(r"Function : (\S+)")
-_INSTR = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P[T0-9]+\s+)?"
+_INSTR = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]+\s+)?"
                     r"([A-Z][A-Z0-9_.]*)([^;]*);")
 _LABEL = re.compile(r"^\s*(\.L_x_\d+):")
 _TARGET = re.compile(r"(?:0x([0-9a-f]+)|`\((\.L_x_\d+)\))")
 
-Instr = Tuple[int, str, str, bool]   # address, opcode, operands, predicated
+Instr = Tuple[int, str, str]      # address, opcode, operands
 
 
 def functions(sass: str) -> Dict[str, List[Instr]]:
@@ -58,15 +54,14 @@ def functions(sass: str) -> Dict[str, List[Instr]]:
             for label in pending:
                 labels[label] = addr
             pending = []
-            out[name].append((addr, m.group(3), m.group(4),
-                              m.group(2) is not None))
+            out[name].append((addr, m.group(2), m.group(3)))
     for name, instrs in out.items():
         fixed = []
-        for addr, op, args, pred in instrs:
+        for addr, op, args in instrs:
             t = _TARGET.search(args) if op.startswith("BRA") else None
             if t and t.group(2):
                 args = f" 0x{labels.get(t.group(2), -1):x}"
-            fixed.append((addr, op, args, pred))
+            fixed.append((addr, op, args))
         out[name] = fixed
     return out
 
@@ -76,50 +71,18 @@ def _target(op: str, args: str):
     return int(t.group(1), 16) if t and t.group(1) else None
 
 
-def lightest_path(instrs: List[Instr], start: int,
-                  end: int) -> Tuple[int, int]:
-    """(instructions, MUFU operations) of the lightest pass from ``start``
-    to the branch at ``end``: a predicated forward branch may go either
-    way, an unconditional one is taken, and any other backward branch
-    falls through (an inner loop counts once)."""
-    idx = [i for i, (a, *_rest) in enumerate(instrs) if start <= a <= end]
-    at = {instrs[i][0]: i for i in idx}
-    inside = set(idx)
-    best = {idx[0]: (0, 0)}
-    for i in idx:
-        if i not in best:
-            continue
-        addr, op, args, pred = instrs[i]
-        cost = (best[i][0] + op.startswith("MUFU"), best[i][1] + 1)
-        if addr == end:
-            return cost[1], cost[0]
-        dest = _target(op, args)
-        nxt = []
-        if dest is not None and start < dest <= end and dest > addr:
-            nxt.append(at[dest])
-        if dest is None or pred or dest <= addr:
-            if not op.startswith("EXIT"):
-                nxt.append(i + 1)
-        for j in nxt:
-            if j in inside and (j not in best or cost < best[j]):
-                best[j] = cost
-    return 0, 0
-
-
 def loops(instrs: List[Instr]) -> List[dict]:
     """One record per backward branch, innermost (shortest) first."""
     found = []
-    for addr, op, args, _pred in instrs:
+    for addr, op, args in instrs:
         start = _target(op, args)
         if start is None or start > addr:
             continue
-        body = [o for a, o, *_rest in instrs if start <= a <= addr]
+        body = [o for a, o, _ in instrs if start <= a <= addr]
         ops = collections.Counter(o.split(".")[0] for o in body)
-        path, path_mufu = lightest_path(instrs, start, addr)
         found.append({"start": hex(start), "end": hex(addr),
                       "instructions": len(body), "mufu": ops.get("MUFU", 0),
-                      "path": path, "path_mufu": path_mufu,
-                      "top": dict(ops.most_common(8))})
+                      "ops": dict(ops.most_common())})
     return sorted(found, key=lambda r: r["instructions"])
 
 

@@ -402,16 +402,18 @@ SASS = """
 
 
 @pytest.mark.parametrize("name,n,loop", [
-    ("_Z3fooPf", 5, ("0x10", "0x30", 3, 1, 3, 1)),
-    ("_Z3barPf", 10, ("0x10", "0x70", 7, 3, 4, 1))])
+    ("_Z3fooPf", 5, ("0x10", "0x30", 3, 1, {"FFMA": 1, "MUFU": 1,
+                                             "BRA": 1})),
+    ("_Z3barPf", 10, ("0x10", "0x70", 7, 3, {"MUFU": 3, "BRA": 3,
+                                              "FFMA": 1}))])
 def test_sass_loops_reads_backward_branches(name, n, loop):
     """The SASS reader of stvd_torch.sass_loops: address and label branch
     targets, predicated branches, forward branches ignored as loops,
-    encoding-only lines skipped; the lightest path takes bar's predicated
-    branch over its MUFU.EX2 and second RCP."""
+    encoding-only lines skipped, opcodes counted without their
+    modifiers."""
     from stvd_torch import sass_loops
     instrs = sass_loops.functions(SASS)[name]
     assert len(instrs) == n
     (found,) = sass_loops.loops(instrs)
     assert (found["start"], found["end"], found["instructions"],
-            found["mufu"], found["path"], found["path_mufu"]) == loop
+            found["mufu"], found["ops"]) == loop
