@@ -444,7 +444,7 @@ def test_to_device_caches_per_device_and_dtype():
 
 def test_fit_uploads_the_bank_once(tmp_path, monkeypatch):
     """Two validation rounds on the training split: its frames leave
-    numpy once (the parent uploaded them again every round)."""
+    numpy once (an uncached to_device uploads them every round)."""
     from stvd_torch.data import bank as bank_mod
     ds = synthetic_dataset(n_videos=6, k=6, d=32, maxlen=MAXLEN, seed=0)
     seen = []
