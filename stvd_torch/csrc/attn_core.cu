@@ -317,11 +317,7 @@ attn_core_cluster(const float* __restrict__ h_att, long long ld_h,
 #pragma unroll
     for (int j = 0; j < NB; ++j) acc[j] = lanes.usum;
     lanes.score(pa, pb, acc, h_att, ld_h, row0, q, lane, a);
-#pragma unroll
-    for (int j = 0; j < NB; ++j) {
-      const float v = lane_sum(acc[j]);
-      if (lane == 0) part[(j * kc + f) * nq + q] = v;
-    }
+    store_beam_sums<NB>(acc, lane, part + f * nq + q, kc * nq);
     pa = na;
     pb = nb4;
   }

@@ -99,6 +99,45 @@ __device__ __forceinline__ float lane_max(float v) {
   return v;
 }
 
+// dst[j * stride] = the warp's sum of v[j] for j < NB.  From 4 beams up
+// the sums are reduce-scattered: exchanges across lanes 16, 8 and 4 apart
+// halve the values each lane holds (slot j ends in lanes 4j..4j+3, 8 slots
+// at most), two butterfly steps finish them, and lane 4j writes slot j:
+// 9 shuffles for up to 8 sums instead of 5 a sum.  The order is fixed, so
+// results repeat bit for bit.
+template <int NB>
+__device__ __forceinline__ void store_beam_sums(const float (&v)[NB],
+                                                int lane, float* dst,
+                                                int stride) {
+  if (NB < 4) {
+#pragma unroll
+    for (int j = 0; j < NB; ++j) {
+      const float t = lane_sum(v[j]);
+      if (lane == 0) dst[j * stride] = t;
+    }
+    return;
+  }
+  const bool up16 = lane & 16, up8 = lane & 8, up4 = lane & 4;
+  float a[4], b[2];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float lo = i < NB ? v[i] : 0.f;
+    const float hi = i + 4 < NB ? v[i + 4] : 0.f;
+    a[i] = (up16 ? hi : lo) +
+           __shfl_xor_sync(kAllLanes, up16 ? lo : hi, 16);
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+    b[i] = (up8 ? a[i + 2] : a[i]) +
+           __shfl_xor_sync(kAllLanes, up8 ? a[i] : a[i + 2], 8);
+  float c = (up4 ? b[1] : b[0]) +
+            __shfl_xor_sync(kAllLanes, up4 ? b[0] : b[1], 4);
+  c += __shfl_xor_sync(kAllLanes, c, 2);
+  c += __shfl_xor_sync(kAllLanes, c, 1);
+  const int j = lane >> 2;
+  if ((lane & 3) == 0 && j < NB) dst[j * stride] = c;
+}
+
 // Columns of score chunk q held by a lane: 8 of the chunk's 256, as two
 // float4s 128 columns apart, so each of a warp's two loads reads 512
 // contiguous bytes.

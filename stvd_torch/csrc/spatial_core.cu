@@ -314,11 +314,7 @@ spatial_core_tma(const float* __restrict__ h_satt, long long ld_h,
 #pragma unroll
       for (int j = 0; j < NB; ++j) acc[j] = lanes.usum;
       lanes.score(pa, pb, acc, h_satt, ld_h, row0, q, lane, s);
-#pragma unroll
-      for (int j = 0; j < NB; ++j) {
-        const float v = lane_sum(acc[j]);
-        if (lane == 0) part[(j * r + rr) * nq + q] = v;
-      }
+      store_beam_sums<NB>(acc, lane, part + rr * nq + q, r * nq);
       pa = na;
       pb = nb4;
     }
