@@ -450,9 +450,8 @@ cudaError_t launch_cluster_nb(const void* h_att, long long ld_h,
   const int splits = (k + kc - 1) / kc;
   const size_t smem = cluster_smem(NB, kc, dc, nq, sizeof(CtxT));
   auto kern = attn_core_cluster<NB, CtxT>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+  static std::atomic<int> allowed[kMaxDevices];
+  cudaError_t e = allow_smem(kern, smem, allowed);
   if (e != cudaSuccess) return e;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(static_cast<unsigned>(bc * splits));
@@ -511,41 +510,43 @@ cudaError_t launch_cluster(const void* h_att, long long ld_h,
 // ---------------------------------------------------------------------------
 
 template <int kMode>
-__global__ void tanh_kernel(const float* __restrict__ x, float* __restrict__ y,
+__global__ void tanh_kernel(const float* __restrict__ p,
+                            const float* __restrict__ h, float* __restrict__ y,
                             long long n) {
   const long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
                       threadIdx.x;
   if (i >= n) return;
-  const float v = x[i];
-  const float p = __fmul_rn(v, 0.7f);
-  const float h = __fmul_rn(v, 0.3f);
-  y[i] = kMode == 0   ? split_tanh(p, h)
-         : kMode == 1 ? fmaf(-2.f, inv_one_plus_ex2(kTwoLog2e * v), 1.f)
-                      : tanhf(v);
+  const float pv = p[i];
+  const float hv = h[i];
+  y[i] = kMode == 0 ? split_tanh(pv, hv)
+         : kMode == 1
+             ? fmaf(-2.f, inv_one_plus_ex2(kTwoLog2e * (pv + hv)), 1.f)
+             : tanhf(pv + hv);
 }
 
 }  // namespace
 
 extern "C" int stvd_attn_core_max_beams() { return kMaxBeams; }
 
-// For n floats x: mode 0 y = tanh(p + h) with p = fl(0.7 x), h = fl(0.3
-// x) as the score pass forms it (the product form); y = tanh(x) in mode 1
-// by the single-exponent form (the score pass out of range), in mode 2 by
-// libdevice's tanhf.  Returns the launch's cudaError_t.
-extern "C" int stvd_tanh_f32(const void* x, void* y, long long n, int mode,
-                             void* stream) {
+// For n floats p and h: y = tanh(p + h) by the score pass's product form
+// (mode 0, which takes the single-exponent form out of its range), by the
+// single-exponent form alone (mode 1), or by libdevice's tanhf of fl(p +
+// h) (mode 2).  Returns the launch's cudaError_t.
+extern "C" int stvd_tanh_f32(const void* p, const void* h, void* y,
+                             long long n, int mode, void* stream) {
   if (n < 1 || mode < 0 || mode > 2)
     return static_cast<int>(cudaErrorInvalidValue);
   const unsigned blocks = static_cast<unsigned>((n + 255) / 256);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* xf = static_cast<const float*>(x);
+  const float* pf = static_cast<const float*>(p);
+  const float* hf = static_cast<const float*>(h);
   float* yf = static_cast<float*>(y);
   if (mode == 0)
-    tanh_kernel<0><<<blocks, 256, 0, st>>>(xf, yf, n);
+    tanh_kernel<0><<<blocks, 256, 0, st>>>(pf, hf, yf, n);
   else if (mode == 1)
-    tanh_kernel<1><<<blocks, 256, 0, st>>>(xf, yf, n);
+    tanh_kernel<1><<<blocks, 256, 0, st>>>(pf, hf, yf, n);
   else
-    tanh_kernel<2><<<blocks, 256, 0, st>>>(xf, yf, n);
+    tanh_kernel<2><<<blocks, 256, 0, st>>>(pf, hf, yf, n);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -38,12 +38,41 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+#include <mutex>
+
 namespace {
 
 constexpr float kTwoLog2e = 2.885390081777927f;
 constexpr float kSplitMax = 60.f;
 constexpr unsigned kAllLanes = 0xffffffffu;
 constexpr size_t kSmemLimit = 232448;   // 227 KB, the most a block may use
+constexpr int kMaxDevices = 64;
+
+// Raises kernel `kern`'s dynamic shared memory limit to at least `smem` on
+// the current device.  `allowed` (one array per kernel, zero at load)
+// keeps the limit set so far on each device, so a launch calls
+// cudaFuncSetAttribute only the first time it needs more there, not on
+// every launch of a kernel that runs for tens of microseconds.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kern, size_t smem,
+                       std::atomic<int> (&allowed)[kMaxDevices]) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const int want = static_cast<int>(smem);
+  if (dev >= kMaxDevices)
+    return cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, want);
+  if (allowed[dev].load(std::memory_order_acquire) >= want) return cudaSuccess;
+  static std::mutex mu;
+  std::lock_guard<std::mutex> lock(mu);
+  if (allowed[dev].load(std::memory_order_relaxed) >= want) return cudaSuccess;
+  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           want);
+  if (e == cudaSuccess) allowed[dev].store(want, std::memory_order_release);
+  return e;
+}
 
 // 256-column chunks of a score row, rounded up to a power of two so that
 // the chunk count divides the warp count (a warp then keeps one chunk).

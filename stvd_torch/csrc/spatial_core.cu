@@ -390,9 +390,8 @@ cudaError_t launch_tma_nb(const void* h_satt, long long ld_h,
                           int fpb, cudaStream_t stream) {
   const int nq = score_chunks(s);
   const size_t smem = tma_smem(NB, r, dr, nq, sizeof(RegT));
-  const cudaError_t e = cudaFuncSetAttribute(
-      spatial_core_tma<NB, RegT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+  static std::atomic<int> allowed[kMaxDevices];
+  const cudaError_t e = allow_smem(spatial_core_tma<NB, RegT>, smem, allowed);
   if (e != cudaSuccess) return e;
   const long long blocks = static_cast<long long>(bc) * ((k + fpb - 1) / fpb);
   spatial_core_tma<NB, RegT><<<static_cast<unsigned>(blocks), kTmaThreads,

@@ -24,7 +24,7 @@ pure function and also count launches by route in ``launches_by_route``.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -72,8 +72,8 @@ def attention_core_split(k: int, rows: int, nb: int) -> Tuple[int, int]:
     up a CTA holds 2^(C h) of every beam in registers (~96 a thread,
     about 5 CTAs an SM), so only as many CTAs a row as keep the launch
     within ~512 CTAs, one wave: K 28 over 256 rows of 5 beams -> (2, 14);
-    over 64 rows of 1 beam -> (4, 7).  chip_smoke.py times every split at
-    the serving paths' shapes (split_ms)."""
+    over 64 rows of 1 beam -> (4, 7).  ``chip_smoke.py --profile`` times
+    every split at the serving paths' shapes (split_ms)."""
     want = min(4, k)
     if nb >= 3:
         want = max(1, min(want, _CLUSTER_CTAS // max(rows, 1)))
@@ -82,17 +82,20 @@ def attention_core_split(k: int, rows: int, nb: int) -> Tuple[int, int]:
 
 
 def attention_core_route(rows: int, nb: int, k: int, a: int, dc: int,
-                         ctx_dtype, pctx_ptr: int, ctx_ptr: int) -> str:
+                         ctx_dtype, pctx_ptr: int, ctx_ptr: int,
+                         kc: Optional[int] = None) -> str:
     """The attention core's route, from shapes, dtype and alignment alone:
     'cluster' when A and Dc are multiples of 8 (16-byte rows, whole TMA
     spans) and at most 1024 (four warps, one 256-column chunk each; a
     thread per 8 columns of Dc), pctx and ctx start 16-byte aligned and a
-    CTA's shared memory (its ctx slice, or the partial sums of its nb
-    beams over it) fits; else 'simple'."""
+    CTA's shared memory (its ctx slice of ``kc`` frames, by default
+    ``attention_core_split``'s, or the partial sums of its nb beams over
+    it) fits; else 'simple'."""
     if (a % 8 or dc % 8 or a > 1024 or dc > 1024 or pctx_ptr % 16
             or ctx_ptr % 16):
         return "simple"
-    kc = attention_core_split(k, rows, nb)[1]
+    if kc is None:
+        kc = attention_core_split(k, rows, nb)[1]
     el = 2 if ctx_dtype == torch.bfloat16 else 4
     smem = (16 + max(kc * dc * el, 4 * nb * dc)
             + 4 * (nb * kc * (score_chunks(a) + 1) + 5 * nb))
@@ -132,9 +135,11 @@ def _attention_core_cuda(h_att, beta_logit, pctx, ctx, ctx_mask, u_att,
     c_att = c_att.to(f32).reshape(())
     b_sel = b_sel.to(f32).reshape(())
     nb = bs // bc
+    kc = (attention_core_split(k, bc, nb)[1] if splits is None
+          else -(-k // splits))
     if route is None:
         route = attention_core_route(bc, nb, k, a, dc, ctx.dtype,
-                                     pctx.data_ptr(), ctx.data_ptr())
+                                     pctx.data_ptr(), ctx.data_ptr(), kc)
     ctx_t = torch.empty((bs, dc), dtype=f32, device=h_att.device)
     alpha = torch.empty((bs, k), dtype=f32, device=h_att.device)
     err = lib.stvd_attn_core(
@@ -143,10 +148,7 @@ def _attention_core_cuda(h_att, beta_logit, pctx, ctx, ctx_mask, u_att,
         int(ctx.dtype == torch.bfloat16), mask.data_ptr(), u.data_ptr(),
         c_att.data_ptr(), b_sel.data_ptr(), int(bool(selector)),
         ctx_t.data_ptr(), alpha.data_ptr(), bc, nb, k, a, dc,
-        ATTENTION_CORE_ROUTES.index(route),
-        attention_core_split(k, bc, nb)[1] if splits is None
-        else -(-k // splits),
-        _launch_stream())
+        ATTENTION_CORE_ROUTES.index(route), kc, _launch_stream())
     _build.check(err, "attention-core kernel")
     attention_core.launches += 1
     attention_core.launches_by_route[route] += 1

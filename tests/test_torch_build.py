@@ -224,6 +224,21 @@ def test_attention_core_route(rows, nb, k, a, dc, dtype, pctx_ptr, ctx_ptr,
     assert route in tkernel.ATTENTION_CORE_ROUTES
 
 
+@pytest.mark.parametrize("rows,nb,k,dtype,kc,route", [
+    (1024, 1, 28, F32, 28, "cluster"),
+    (1024, 1, 60, F32, 60, "simple"),
+    (256, 5, 28, BF16, 28, "cluster"),
+    (64, 8, 400, BF16, 100, "cluster"),
+    (64, 8, 400, BF16, 112, "simple")])
+def test_attention_core_route_of_a_given_plan(rows, nb, k, dtype, kc, route):
+    """With the frames per CTA given (a forced plan), the route checks
+    that plan's slice against shared memory, not the default split's:
+    28 float32 frames of 1024 (115 KB) fit, 60 (246 KB) do not; 100 bf16
+    frames of 8 beams fit, 112 do not."""
+    assert tkernel.attention_core_route(rows, nb, k, 1024, 1024, dtype, 0,
+                                        0, kc) == route
+
+
 @pytest.mark.parametrize("k,rows,nb,plan", [
     (1, 64, 1, (1, 1)), (2, 64, 1, (2, 1)), (5, 64, 1, (3, 2)),
     (28, 64, 1, (4, 7)), (29, 64, 1, (4, 8)), (40, 64, 1, (4, 10)),
@@ -372,48 +387,3 @@ def test_route_counters_start_at_zero_on_the_cpu():
     assert set(before[4]) == set(tkernel.SPATIAL_CORE_ROUTES)
     assert set(tkernel.spatial_bwd.launches_by_route) == set(
         tkernel.SPATIAL_BWD_ROUTES)
-
-
-SASS = """
-        Function : _Z3fooPf
-        .headerflags    @"EF_CUDA_SM90 EF_CUDA_VIRTUAL_SM(EF_CUDA_SM90)"
-        /*0000*/                   MOV R1, c[0x0][0x28] ;   /* 0x000fc400 */
-                                                            /* 0x000fe200 */
-        /*0010*/                   FFMA R2, R3, R4, R5 ;
-        /*0020*/                   MUFU.EX2 R6, R2 ;
-        /*0030*/              @P0  BRA 0x10 ;
-        /*0040*/                   EXIT ;
-        Function : _Z3barPf
-        /*0000*/                   MOV R1, c[0x0][0x28] ;
-.L_x_0:
-        /*0010*/                   MUFU.RCP R2, R3 ;
-        /*0020*/              @P2  BRA `(.L_x_2) ;
-        /*0030*/                   MUFU.EX2 R2, R3 ;
-        /*0040*/                   MUFU.RCP R2, R3 ;
-        /*0050*/                   BRA `(.L_x_3) ;
-.L_x_2:
-        /*0060*/                   FFMA R2, R3, R4, R5 ;
-.L_x_3:
-        /*0070*/              @!P1 BRA `(.L_x_0) ;
-        /*0080*/                   BRA `(.L_x_1) ;
-.L_x_1:
-        /*0090*/                   EXIT ;
-"""
-
-
-@pytest.mark.parametrize("name,n,loop", [
-    ("_Z3fooPf", 5, ("0x10", "0x30", 3, 1, {"FFMA": 1, "MUFU": 1,
-                                             "BRA": 1})),
-    ("_Z3barPf", 10, ("0x10", "0x70", 7, 3, {"MUFU": 3, "BRA": 3,
-                                              "FFMA": 1}))])
-def test_sass_loops_reads_backward_branches(name, n, loop):
-    """The SASS reader of stvd_torch.sass_loops: address and label branch
-    targets, predicated branches, forward branches ignored as loops,
-    encoding-only lines skipped, opcodes counted without their
-    modifiers."""
-    from stvd_torch import sass_loops
-    instrs = sass_loops.functions(SASS)[name]
-    assert len(instrs) == n
-    (found,) = sass_loops.loops(instrs)
-    assert (found["start"], found["end"], found["instructions"],
-            found["mufu"], found["ops"]) == loop

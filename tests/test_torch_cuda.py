@@ -160,18 +160,38 @@ def test_device_tanh_matches_torch(cuda, mode):
                             float("nan"), 1e-30, -1e-30, 88.0, -88.0],
                            device=cuda)
     x = torch.cat([torch.linspace(-20, 20, 4_000_001, device=cuda), special])
-    y = torch.empty_like(x)
-    err = tkernel._build.lib().stvd_tanh_f32(
-        x.data_ptr(), y.data_ptr(), x.numel(), mode,
-        torch.cuda.current_stream().cuda_stream)
-    torch.cuda.synchronize()
-    assert err == 0
-    ref = torch.tanh((x * 0.7).double() + (x * 0.3).double() if mode == 0
-                     else x.double())
+    p, h = (x * 0.7, x * 0.3) if mode == 0 else (x, torch.zeros_like(x))
+    y = device_tanh(p, h, mode)
+    ref = torch.tanh(p.double() + h.double())
     finite = torch.isfinite(ref)
     assert float((y.double() - ref)[finite].abs().max()) < 3e-7
     assert torch.equal(y[-9:-5].cpu(), torch.tensor([0.0, 0.0, 1.0, -1.0]))
     assert bool(torch.isnan(y[-5]))
+
+
+def device_tanh(p, h, mode):
+    y = torch.empty_like(p)
+    err = tkernel._build.lib().stvd_tanh_f32(
+        p.data_ptr(), h.data_ptr(), y.data_ptr(), p.numel(), mode,
+        torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert err == 0
+    return y
+
+
+@pytest.mark.parametrize("t_max", [1.0, 20.0, 40.0])
+def test_device_tanh_where_p_and_h_cancel(cuda, t_max):
+    """p = fl(x + t), h = -t with t uniform on [-t_max, t_max] and x on a
+    dense grid of [-20, 20]: p + h cancels, and each point's error stays
+    within 3e-7 + 5e-8 (|p| + |h|) (C p and C h are each rounded); past
+    |p| or |h| ~ 20.8 the single-exponent form takes over."""
+    g = torch.Generator(device=cuda).manual_seed(int(t_max))
+    x = torch.linspace(-20, 20, 4_000_001, device=cuda)
+    t = t_max * (2 * torch.rand(x.shape, generator=g, device=cuda) - 1)
+    p, h = x + t, -t
+    err = (device_tanh(p, h, 0).double()
+           - torch.tanh(p.double() + h.double())).abs()
+    assert bool((err <= 3e-7 + 5e-8 * (p.abs() + h.abs()).double()).all())
 
 
 def check_tail(x, w, b, k, route):
