@@ -354,7 +354,7 @@ extern "C" int stvd_gates_lstm(const void* x, const void* w, int mode,
       (dim + kBD - 1) / kBD > 65535 || (route == kRouteF32) != (mode == 0))
     return static_cast<int>(cudaErrorInvalidValue);
   if (route == kRouteWgmma &&
-      (kx % (mode == 2 ? 16 : 8) != 0 || (mode == 1 && dim % 2 != 0) ||
+      (kx % (mode == 2 ? 16 : 8) != 0 || (mode == 1 && dim % 8 != 0) ||
        !aligned16(x) || !aligned16(w)))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);

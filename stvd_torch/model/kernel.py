@@ -376,9 +376,11 @@ def gates_route(rows: int, kx: int, dim: int, dtype, x_ptr: int,
                 w_ptr: int) -> str:
     """The gates+LSTM kernel's route, from shapes, dtype and alignment
     alone: 'f32' for float32 operands; 'wgmma' when TMA can describe the
-    operands (row strides of whole 16 bytes, 16-byte aligned bases): bf16
-    with Kx a multiple of 8 and dim even, int8 (whose W is read K-major,
-    so only Kx matters) with Kx a multiple of 16; else 'wmma'.  ``w_ptr``
+    operands (row strides of whole 16 bytes, 16-byte aligned bases, and
+    under bf16 boxes whose first column g dim + d0 starts on a 16-byte
+    boundary of the (Kx, 4 dim) stack): bf16 with Kx and dim multiples of
+    8, int8 (whose W is read K-major, so a gate's block starts at a row
+    and only Kx matters) with Kx a multiple of 16; else 'wmma'.  ``w_ptr``
     is the address the route reads: under int8 wgmma that of the K-major
     grid."""
     if dtype == torch.float32:
@@ -387,7 +389,7 @@ def gates_route(rows: int, kx: int, dim: int, dtype, x_ptr: int,
         return "wmma"
     if dtype == torch.int8:
         return "wgmma" if kx % 16 == 0 else "wmma"
-    return "wgmma" if kx % 8 == 0 and dim % 2 == 0 else "wmma"
+    return "wgmma" if kx % 8 == 0 and dim % 8 == 0 else "wmma"
 
 
 def _gates_lstm_cuda(x, w, b, c, s_r=None, scale=None, route=None

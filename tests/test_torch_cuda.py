@@ -385,7 +385,7 @@ def gates_route_of(mode, kx, dim):
         return "f32"
     if mode == "int8":
         return "wgmma" if kx % 16 == 0 else "wmma"
-    return "wgmma" if kx % 8 == 0 and dim % 2 == 0 else "wmma"
+    return "wgmma" if kx % 8 == 0 and dim % 8 == 0 else "wmma"
 
 
 def check_gates(ops, mode, route):
@@ -407,12 +407,13 @@ def check_gates(ops, mode, route):
 @pytest.mark.parametrize("mode", ["f32", "bf16", "int8"])
 @pytest.mark.parametrize("rows,kx,dim", [
     (1, 16, 8), (37, 272, 128), (185, 277, 100), (130, 5120, 35),
-    (1280, 5120, 3584), (300, 1040, 200), (129, 5120, 96)])
+    (1280, 5120, 3584), (300, 1040, 200), (129, 5120, 96), (37, 272, 100)])
 def test_gates_lstm_kernel_matches_plain(cuda, mode, rows, kx, dim):
     """The path-B shape (1280, 5120, 3584) and ragged rows, depths and
     dims in every mode: rows off the 128-row tile, dims off the 64-dim
-    strip, depths off the stage.  kx 277 (and dim 35 under bf16) is off
-    the 16-byte grid TMA needs: the wmma route."""
+    strip, depths off the stage.  kx 277 (and under bf16 dims 35 and
+    100, whose gate blocks start off 16-byte boundaries) is off the
+    16-byte grid TMA needs: the wmma route."""
     ops = gates_operands(rows, kx, dim, mode, cuda, seed=rows)
     check_gates(ops, mode, gates_route_of(mode, kx, dim))
 
