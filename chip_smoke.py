@@ -24,11 +24,12 @@ Each path's kernel launches are counted from zero over its run: those of
 the path must equal its decode steps (serving; the logit tail and the
 int8 gates+LSTM step all on their wgmma routes) or 30 per update (the
 dWs_att GEMM once, all on its wgmma route; the spatial backward step all
-on its 16-byte-load route), the others 0.  The four kernels with routes
-(logit tail, gates+LSTM step, spatial backward step, dWs_att GEMM) also
-report the route each case took, their share of the bound, and that two
-calls agree bit for bit; the logit tail and the gates step are timed
-beside their wmma route and the library product (``torch.mm``,
+on its 16-byte-load route; the train-scan tail all on its wgmma route),
+the others 0.  The kernels with routes (logit tail, gates+LSTM step,
+spatial backward step, train-scan tail, dWs_att GEMM) also report the
+route each case took, their share of the bound, and that two calls agree
+bit for bit; the logit tail, the gates step and the train-scan tail are
+timed beside their wmma route and the library product (``torch.mm``,
 ``torch._int_mm``), the bf16 gates step beside ``torch.lstm_cell``.  The
 kernel path is then compared with the plain path: decoded captions on
 the serving paths, the loss and every gradient of one preset-2 train
@@ -42,6 +43,7 @@ There is no CPU path: without a CUDA device the script exits 1.
 
     python3 chip_smoke.py [--seed N] [--profile]
     python3 chip_smoke.py --serving-only [--root TREE]   # serving A/B
+    python3 chip_smoke.py --kernels-only [--root TREE]   # kernels 6, 3 A/B
 """
 
 from __future__ import annotations
@@ -163,6 +165,18 @@ def device_ms(fn, iters: int = 20) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / (5 * iters)
+
+
+def cold_device_ms(fn, iters: int = 20) -> float:
+    """Device time of one call that finds the L2 cold, as in the train
+    scan, where other products run between two calls: in the graph each
+    call follows a 128 MB write (more than the 50 MB L2), whose own
+    device time, captured alone, is taken off."""
+    buf = torch.empty(32 * 2 ** 20, dtype=torch.float32, device="cuda")
+    both = device_ms(lambda: (buf.zero_(), fn()), iters)
+    alone = device_ms(buf.zero_, iters)
+    del buf
+    return both - alone
 
 
 def max_err(got, ref) -> float:
@@ -908,11 +922,34 @@ def phase_spatial_bwd(kernel, dev, g, cfg, batch) -> dict:
     return out
 
 
+def host_us(fn, calls: int = 200) -> float:
+    """The host's microseconds a call of ``fn`` called back to back (its
+    clock read before the card has finished)."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    out = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return out
+
+
 def phase_train_tail(kernel, dev, g, cfg, batch) -> dict:
     """Kernel 6 at the training shapes (rows 64, dc 1024, 4 dim 14336)
     and a ragged 37 rows, bf16 and float32 Wc; x_pre is one step of the
     time-major view and h_gates a column view of the h-projection, as
-    in the scan."""
+    in the scan.  Each case reports its route (bf16 must take wgmma) and
+    agrees with the plain version within KERNEL_TOL; the wgmma route
+    repeats bit for bit.  At rows 64: ms by CUDA events, device_ms by
+    CUDA graph (L2 warm: Wc stays in L2 between calls) and
+    cold_device_ms (L2 flushed before each call), the same for the wmma
+    route on the same operands (wmma_*), the wrapper's host microseconds
+    a call,
+    and, since no one PyTorch call computes the whole function, the
+    product alone, ``torch.mm(ctx_t, Wc, out_dtype=float32)``
+    (product_ms)."""
     m = cfg.model
     dc, dim = m.ctx_dim, m.dim
     f32, bf16 = torch.float32, torch.bfloat16
@@ -926,30 +963,56 @@ def phase_train_tail(kernel, dev, g, cfg, batch) -> dict:
             hp = rnd(rows, 4 * dim + m.attn_dim + 1)
             ctx_t, c = rnd(rows, dc), rnd(rows, dim)
             args = (ctx_t, x_pre, hp[:, :4 * dim], c, wc, cd)
-            got = kernel.train_tail(*args)
+            got, route = route_taken(kernel.train_tail,
+                                     lambda: kernel.train_tail(*args))
             ref = kernel._train_tail_plain(*args)
             torch.cuda.synchronize()
             name = f"{str(cd)[6:]}_rows{rows}"
             cases[name] = {"max_abs_err": max_err(got, ref),
-                           "rel_err": rel_err(got, ref)}
+                           "rel_err": rel_err(got, ref), "route": route}
             require(all(bool(torch.isfinite(t).all()) for t in got),
                     f"train tail kernel {name}: non-finite output")
             require(cases[name]["max_abs_err"] <= KERNEL_TOL,
                     f"train tail kernel {name} disagrees: {cases[name]}")
-            if rows == batch:
-                times[str(cd)[6:]] = {
-                    "ms": time_ms(lambda: kernel.train_tail(*args)),
-                    "plain_ms": time_ms(
-                        lambda: kernel._train_tail_plain(*args)),
-                    # in: ctx_t, Wc, x_pre, h_gates, c; out: h, c, preact
-                    **bound(nbytes(ctx_t.to(cd), wc)
-                            + 4 * rows * (3 * 4 * dim + 3 * dim),
-                            2 * rows * dc * 4 * dim,
-                            "bf16" if cd == bf16 else "f32")}
+            want = "wgmma" if cd == bf16 else "f32"
+            require(route == want, f"train tail kernel {name} took {route}")
+            if cd == bf16:
+                same = repeats(kernel.train_tail, args)
+                require(same, f"train tail kernel {name} is not "
+                              f"deterministic")
+                cases[name]["bitwise_repeatable"] = same
+            if rows != batch:
+                continue
+            call = lambda: kernel.train_tail(*args)
+            t = {"ms": time_ms(call), "device_ms": device_ms(call),
+                 "cold_device_ms": cold_device_ms(call),
+                 "host_us": host_us(call),
+                 "plain_ms": time_ms(
+                     lambda: kernel._train_tail_plain(*args)),
+                 "library_ms": None,
+                 # in: ctx_t, Wc, x_pre, h_gates, c; out: h, c, preact
+                 **bound(nbytes(ctx_t.to(cd), wc)
+                         + 4 * rows * (3 * 4 * dim + 3 * dim),
+                         2 * rows * dc * 4 * dim,
+                         "bf16" if cd == bf16 else "f32")}
+            if cd == bf16:
+                old = lambda: kernel._train_tail_cuda(*args, route="wmma")
+                xb = ctx_t.to(bf16)
+                prod = lambda: torch.mm(xb, wc, out_dtype=f32)
+                t.update(wmma_ms=time_ms(old), wmma_device_ms=device_ms(old),
+                         wmma_cold_device_ms=cold_device_ms(old),
+                         wmma_host_us=host_us(old), product_ms=time_ms(prod),
+                         product_device_ms=device_ms(prod),
+                         product_cold_device_ms=cold_device_ms(prod))
+                t["wmma_ratio"] = t["device_ms"] / t["wmma_device_ms"]
+                t["product_ratio"] = t["device_ms"] / t["product_device_ms"]
+            t["bound_share"] = t["bound_ms"] / t["ms"]
+            t["bound_share_device"] = t["bound_ms"] / t["device_ms"]
+            times[str(cd)[6:]] = t
     out = {"phase": "kernel_train_tail", "shape": [batch, dc, 4 * dim],
            "max_abs_err": cases[f"bfloat16_rows{batch}"]["max_abs_err"],
-           "cases": cases, "tol": KERNEL_TOL, "times": times,
-           "library_ms": None, **times["bfloat16"]}
+           "cases": cases, "route": cases[f"bfloat16_rows{batch}"]["route"],
+           "tol": KERNEL_TOL, "times": times, **times["bfloat16"]}
     emit(out)
     return out
 
@@ -1140,8 +1203,8 @@ def phase_train_kernel_vs_plain(kernel, dev, seed, cfg, batch=16) -> None:
     torch.cuda.empty_cache()
 
 
-def phase_train_profile(dev, seed, cfg) -> None:
-    """Device time by kernel over one preset-2 train step."""
+def phase_train_profile(dev, seed, cfg, phase) -> None:
+    """Device time by kernel over one train step."""
     from torch.profiler import ProfilerActivity, profile
     from stvd_torch.train.loop import make_train_step
     state, batch = train_setup(cfg, dev, seed, cfg.train.batch_size)
@@ -1160,7 +1223,7 @@ def phase_train_profile(dev, seed, cfg) -> None:
                    and not ev.key.startswith("Activity Buffer")),
                   reverse=True)
     total = sum(r[0] for r in rows)
-    emit({"phase": "profile_train_spatial", "wall_s": wall,
+    emit({"phase": phase, "wall_s": wall,
           "device_s": total / 1e6,
           "idle_share": 1.0 - total / 1e6 / wall if wall else None,
           "top": [{"name": k[:80], "ms": us / 1e3, "count": c}
@@ -1184,14 +1247,9 @@ def wrapper_cost(kernel, dev, g, cfg) -> dict:
             torch.randn(a, generator=g, device=dev) / a ** 0.5,
             torch.tensor(0.1, device=dev), torch.tensor(-0.2, device=dev),
             True)
-    calls = 200
-    ms = time_ms(lambda: kernel.attention_core(*args), calls)
-    t0 = time.perf_counter()
-    for _ in range(calls):
-        kernel.attention_core(*args)
-    host_us = (time.perf_counter() - t0) / calls * 1e6
-    torch.cuda.synchronize()
-    return {"attention_core_ms": ms, "attention_core_host_us": host_us}
+    call = lambda: kernel.attention_core(*args)
+    return {"attention_core_ms": time_ms(call, 200),
+            "attention_core_host_us": host_us(call, 200)}
 
 
 def serving_only(api, kernel, step_mod, dev, g, args, cfg, cfg_q,
@@ -1228,6 +1286,51 @@ def serving_only(api, kernel, step_mod, dev, g, args, cfg, cfg_q,
         n = cfg.decode.decode_batch
         out[name] = res["runs"][f"eos_suppressed_{n}"]["captions_per_s"]
     emit({"serving_ab": out, "tree": os.path.dirname(stvd_torch.__file__)})
+    return 0
+
+
+def kernels_only(kernel, step_mod, dev, args, cfg, cfg_q) -> int:
+    """Kernel 6 (on the route the tree picks) and kernel 3 with the tree
+    ``args.root`` (or this one), for a parent/change A/B in one call:
+    kernel 6 at the training shape (rows 64, 37 and 128): device_ms (L2
+    warm and cold), ms by events and the wrapper's host microseconds a
+    call; kernel 3 bf16 and int8 at path B's shape (rows 1280) and a
+    ragged 185: ms, device_ms and a digest of its outputs (h_t, c_t), to
+    show them bit for bit equal between trees."""
+    import hashlib
+    import stvd_torch
+    m = cfg.model
+    dc, dim = m.ctx_dim, m.dim
+    g = torch.Generator(device=dev).manual_seed(args.seed)
+    rnd = lambda *shape: torch.randn(*shape, generator=g, device=dev)
+    wc = (rnd(dc, 4 * dim) / dc ** 0.5).bfloat16()
+    out = {"tree": os.path.dirname(stvd_torch.__file__)}
+    for rows in (cfg.train.batch_size, 37, 128):
+        x_pre = rnd(rows, 3, 4 * dim).transpose(0, 1)[1]
+        hp = rnd(rows, 4 * dim + m.attn_dim + 1)
+        a = (rnd(rows, dc), x_pre, hp[:, :4 * dim], rnd(rows, dim), wc,
+             torch.bfloat16)
+        call = lambda: kernel.train_tail(*a)
+        out[f"train_tail_rows{rows}"] = {
+            "device_ms": device_ms(call), "cold_device_ms": cold_device_ms(call),
+            "ms": time_ms(call, 200), "host_us": host_us(call, 200)}
+    m_q = cfg_q.model
+    kx = m_q.dim_word + m_q.dim + m_q.ctx_dim
+    g.manual_seed(args.seed + 7)
+    for mode in ("bf16", "int8"):
+        for n in (cfg_q.decode.decode_batch * cfg_q.decode.beam_size, 185):
+            ops = gates_operands(step_mod, n, kx, dim, mode, dev, g)
+            h_t, c_t = kernel.gates_lstm(*ops)
+            digest = hashlib.sha256(h_t.cpu().numpy().tobytes()
+                                    + c_t.cpu().numpy().tobytes())
+            res = {"sha256": digest.hexdigest()[:16]}
+            if n != 185:
+                call = lambda: kernel.gates_lstm(*ops)
+                res.update(ms=time_ms(call, 20), device_ms=device_ms(call))
+            out[f"gates_{mode}_rows{n}"] = res
+            del ops, h_t, c_t
+    out["routes"] = read_routes(kernel)
+    emit({"kernels_ab": out})
     return 0
 
 
@@ -1290,13 +1393,17 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
                     help="also print device time by kernel for one decode "
-                         "on each serving path and one preset-2 train "
-                         "update")
+                         "on each serving path, one preset-2 train update "
+                         "and one preset-3 update with the tail kernel")
     ap.add_argument("--serving-only", action="store_true",
                     help="only the worst-case serving runs of preset 3, "
                          "path B (int8 gates kernel) and path A (preset 2), "
                          "for an A/B of two trees in one call; prints no ok "
                          "line")
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="only kernel 6 and kernel 3 timed, and kernel 3's "
+                         "outputs digested, for an A/B of two trees in one "
+                         "call; prints no ok line")
     ap.add_argument("--root", default=None,
                     help="import stvd_torch from this tree (e.g. an "
                          "unpacked parent commit) instead of the "
@@ -1323,6 +1430,8 @@ def main() -> int:
     cfg = api.preset(NAME)
     cfg_sp = api.preset(SPATIAL)
     cfg_q = with_model(cfg, decode_quant="int8", gates_kernel="on")
+    if args.kernels_only:
+        return kernels_only(kernel, step_mod, dev, args, cfg, cfg_q)
     if args.serving_only:
         return serving_only(api, kernel, step_mod, dev, g, args, cfg, cfg_q,
                             cfg_sp)
@@ -1396,10 +1505,14 @@ def main() -> int:
                                 "spatial_bwd": "vector"})
     train_t = phase_train(kernel, dev, args.seed,
                           with_model(cfg, train_tail_kernel="on"),
-                          "train_temporal_tail", ("train_tail",))
+                          "train_temporal_tail", ("train_tail",),
+                          routes={"train_tail": "wgmma"})
     phase_train_kernel_vs_plain(kernel, dev, args.seed, cfg_sp)
     if args.profile:
-        phase_train_profile(dev, args.seed, cfg_sp)
+        phase_train_profile(dev, args.seed, cfg_sp, "profile_train_spatial")
+        phase_train_profile(dev, args.seed,
+                            with_model(cfg, train_tail_kernel="on"),
+                            "profile_train_temporal_tail")
     require("jax" not in sys.modules, "the port imported jax")
     require(not any(m == "stvd" or m.startswith("stvd.")
                     for m in sys.modules),
@@ -1410,8 +1523,8 @@ def main() -> int:
             "library_ms")
 
     def row(name, source, replaces, launches, measured):
-        # kernel 1 also gives its device time: its wrapper's host work
-        # bounds ms, the event time of back-to-back calls
+        # kernels 1 and 6 also give their device time: their wrappers'
+        # host work bounds ms, the event time of back-to-back calls
         extra = ("device_ms",) if "device_ms" in measured else ()
         return {"name": name, "route": "cuda", "source": src + source,
                 "replaces": replaces, "launches": launches,

@@ -25,7 +25,8 @@ _CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "stvd_torch"
 SOURCES = ("attn_core.cu", "logit_tail.cu", "spatial_core.cu",
            "gates_lstm.cu", "spatial_bwd.cu", "train_tail.cu", "dws_gemm.cu")
-HEADERS = ("attn_score.cuh", "gates_mma.cuh", "hopper.cuh")
+HEADERS = ("attn_score.cuh", "gates_mma.cuh", "gates_wgmma.cuh",
+           "hopper.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")

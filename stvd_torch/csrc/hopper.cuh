@@ -12,14 +12,19 @@
 // * tma_load: one 2-D box of a tensor map into shared memory; bulk_load:
 //   one contiguous 1-D span (cp.async.bulk), completing on an mbarrier;
 //   prefetch_l2: a contiguous span into L2 without waiting for it.
-// * sw128_desc: the wgmma shared-memory descriptor of a 128-byte-swizzled
-//   operand, K-major or MN-major (the caller passes the strides).
-// * wgmma_bf16_256 / wgmma_s8_256: one m64n256 product of a warpgroup
-//   (bf16 k16 with float32 sums, transpose bits as template arguments;
-//   s8 k32 with int32 sums, both operands K-major as the PTX requires).
-// * encode_map: a 2-D tensor map with 128-byte swizzle and zero fill past
-//   the edges, encoded through cuTensorMapEncodeTiled fetched from the
-//   CUDA runtime's entry-point query, so the library does not link libcuda.
+// * sw128_desc / sw64_desc: the wgmma shared-memory descriptor of a
+//   128- or 64-byte-swizzled operand, K-major or MN-major (the caller
+//   passes the strides).
+// * wgmma_bf16_256 / wgmma_bf16_128 / wgmma_s8_256: one m64n256 or
+//   m64n128 product of a warpgroup (bf16 k16 with float32 sums, transpose
+//   bits as template arguments; s8 k32 with int32 sums, both operands
+//   K-major as the PTX requires).
+// * encode_map: a 2-D tensor map with a 128-byte (or 64-byte) swizzle and
+//   zero fill past the edges, encoded through cuTensorMapEncodeTiled
+//   fetched from the CUDA runtime's entry-point query, so the library does
+//   not link libcuda.
+// * allow_smem: a kernel's dynamic shared-memory limit, raised once per
+//   device rather than on every launch.
 //
 // Everything is in an anonymous namespace: each source that includes this
 // header gets its own copy.
@@ -29,6 +34,9 @@
 #include <cuda.h>   // CUtensorMap and its enums
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <atomic>
+#include <mutex>
 
 namespace {
 
@@ -136,6 +144,17 @@ __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
          static_cast<uint64_t>(sbo >> 4) << 32 | 1ull << 62;
 }
 
+// The same for a 64-byte swizzle (layout type 2), whose atoms are 8 rows
+// of 64 bytes starting 512-byte aligned.  MN-major: lbo = bytes between
+// 32-element MN atoms (one TMA box), sbo = bytes between groups of 8 K
+// rows (512), and a k16 step advances the address by 16 rows (1024 bytes).
+__device__ __forceinline__ uint64_t sw64_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>(lbo >> 4) << 16 |
+         static_cast<uint64_t>(sbo >> 4) << 32 | 2ull << 62;
+}
+
 #define STVD_WG_REGS                                                        \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
   "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
@@ -147,6 +166,12 @@ __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
   "%100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, "      \
   "%111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, "      \
   "%122, %123, %124, %125, %126, %127}"
+#define STVD_WG_REGS64                                                      \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
+  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "  \
+  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "  \
+  "%58, %59, %60, %61, %62, %63}"
 #define STVD_WG_8(C, d, i)                                                \
   C(d[i]), C(d[i + 1]), C(d[i + 2]), C(d[i + 3]), C(d[i + 4]), C(d[i + 5]), \
       C(d[i + 6]), C(d[i + 7])
@@ -157,6 +182,10 @@ __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
       STVD_WG_8(C, d, 72), STVD_WG_8(C, d, 80), STVD_WG_8(C, d, 88),       \
       STVD_WG_8(C, d, 96), STVD_WG_8(C, d, 104), STVD_WG_8(C, d, 112),     \
       STVD_WG_8(C, d, 120)
+#define STVD_WG_64(C, d)                                                   \
+  STVD_WG_8(C, d, 0), STVD_WG_8(C, d, 8), STVD_WG_8(C, d, 16),             \
+      STVD_WG_8(C, d, 24), STVD_WG_8(C, d, 32), STVD_WG_8(C, d, 40),       \
+      STVD_WG_8(C, d, 48), STVD_WG_8(C, d, 56)
 #define STVD_WG_F(x) "+f"(x)
 #define STVD_WG_S(x) "+r"(x)
 
@@ -175,6 +204,19 @@ __device__ __forceinline__ void wgmma_bf16_256(float* d, uint64_t desc_a,
       : "l"(desc_a), "l"(desc_b), "r"(1), "n"(kTA), "n"(kTB));
 }
 
+// d (64 x 128, this warpgroup's fragment) += A (64 x 16) B (16 x 128),
+// bf16 operands in shared memory, with the fragment layout above (c < 16).
+template <int kTA, int kTB>
+__device__ __forceinline__ void wgmma_bf16_128(float* d, uint64_t desc_a,
+                                              uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " STVD_WG_REGS64
+      ", %64, %65, p, 1, 1, %67, %68;\n}\n"
+      : STVD_WG_64(STVD_WG_F, d)
+      : "l"(desc_a), "l"(desc_b), "r"(1), "n"(kTA), "n"(kTB));
+}
+
 // d (64 x 256 int32) += A (64 x 32) B (32 x 256), s8 operands, both
 // K-major in shared memory (wgmma has no transpose for 8-bit types).
 __device__ __forceinline__ void wgmma_s8_256(int* d, uint64_t desc_a,
@@ -188,21 +230,25 @@ __device__ __forceinline__ void wgmma_s8_256(int* d, uint64_t desc_a,
 }
 
 #undef STVD_WG_REGS
+#undef STVD_WG_REGS64
 #undef STVD_WG_8
+#undef STVD_WG_64
 #undef STVD_WG_128
 #undef STVD_WG_F
 #undef STVD_WG_S
 
-// Keep the compiler from moving accumulator reads or writes across the
-// asynchronous products.
+// Keep the compiler from moving the N accumulators' reads or writes
+// across the asynchronous products.
+template <int N = 128>
 __device__ __forceinline__ void fence_acc(float* d) {
 #pragma unroll
-  for (int i = 0; i < 128; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
+template <int N = 128>
 __device__ __forceinline__ void fence_acc(int* d) {
 #pragma unroll
-  for (int i = 0; i < 128; ++i) asm volatile("" : "+r"(d[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -226,6 +272,34 @@ __device__ __forceinline__ void producer_regs() {
 
 __device__ __forceinline__ void consumer_regs() {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+}
+
+constexpr size_t kSmemLimit = 232448;   // 227 KB, the most a block may use
+constexpr int kMaxDevices = 64;
+
+// Raises kernel `kern`'s dynamic shared memory limit to at least `smem` on
+// the current device.  `allowed` (one array per kernel, zero at load)
+// keeps the limit set so far on each device, so a launch calls
+// cudaFuncSetAttribute only the first time it needs more there, not on
+// every launch of a kernel that runs for tens of microseconds.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kern, size_t smem,
+                       std::atomic<int> (&allowed)[kMaxDevices]) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const int want = static_cast<int>(smem);
+  if (dev >= kMaxDevices)
+    return cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, want);
+  if (allowed[dev].load(std::memory_order_acquire) >= want) return cudaSuccess;
+  static std::mutex mu;
+  std::lock_guard<std::mutex> lock(mu);
+  if (allowed[dev].load(std::memory_order_relaxed) >= want) return cudaSuccess;
+  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           want);
+  if (e == cudaSuccess) allowed[dev].store(want, std::memory_order_release);
+  return e;
 }
 
 inline bool aligned16(const void* p) {
@@ -269,12 +343,14 @@ inline EncodeTiled encoder() {
 
 // A row-major (rows, width) tensor read in boxes of box_rows rows x
 // box_width elements with 128-byte swizzle (box_width elements must be
-// 128 bytes); reads past its edges fill zeros.  type is bf16 or uint8
-// (int8 bits); the row stride, width * element bytes, must be a multiple
-// of 16 and the base 16-byte aligned.
-inline bool encode_map(CUtensorMap* map, const void* ptr,
-                       CUtensorMapDataType type, long long rows,
-                       long long width, int box_width, int box_rows) {
+// 128 bytes; with CU_TENSOR_MAP_SWIZZLE_64B, 64 bytes); reads past its
+// edges fill zeros.  type is bf16 or uint8 (int8 bits); the row stride,
+// width * element bytes, must be a multiple of 16 and the base 16-byte
+// aligned.
+inline bool encode_map(
+    CUtensorMap* map, const void* ptr, CUtensorMapDataType type,
+    long long rows, long long width, int box_width, int box_rows,
+    CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   const EncodeTiled fn = encoder();
   if (fn == nullptr) return false;
   const int elem = type == CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 ? 2 : 1;
@@ -285,7 +361,7 @@ inline bool encode_map(CUtensorMap* map, const void* ptr,
                              static_cast<cuuint32_t>(box_rows)};
   const cuuint32_t step[2] = {1, 1};
   return fn(map, type, 2, const_cast<void*>(ptr), dims, strides, box, step,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

@@ -16,9 +16,9 @@ per kernel call (a call that takes a second reduction pass, as the logit
 tail, the spatial backward step and the dWs_att GEMM do, counts once), so
 a run can show that the main path went through the kernels.  The
 kernels with more than one route (the attention core: cluster or simple;
-the spatial core: tma or simple; the logit tail, the gates+LSTM step
-and the dWs_att GEMM: wgmma, wmma or float32; the spatial backward step:
-16-byte or element loads) pick it from shapes, dtype and alignment in a
+the spatial core: tma or simple; the logit tail, the gates+LSTM step,
+the train-scan tail and the dWs_att GEMM: wgmma, wmma or float32; the
+spatial backward step: 16-byte or element loads) pick it from shapes, dtype and alignment in a
 pure function and also count launches by route in ``launches_by_route``.
 """
 
@@ -479,37 +479,67 @@ def _train_tail_plain(ctx_t, x_pre_t, h_gates, c, wc, cdtype
     return o * torch.tanh(c_t), c_t, preact
 
 
-def _train_tail_cuda(ctx_t, x_pre_t, h_gates, c, wc, cdtype):
+# index = the route's number in csrc/train_tail.cu
+TRAIN_TAIL_ROUTES = ("wgmma", "wmma", "f32")
+
+
+def train_tail_route(rows: int, dc: int, dim: int, dtype, x_ptr: int,
+                     w_ptr: int) -> str:
+    """The train-scan tail kernel's route, from shapes, dtype and
+    alignment alone: 'f32' for float32 operands; 'wgmma' for bf16 when
+    TMA can describe ctx_t and Wc: dc and dim multiples of 8 (rows of
+    whole 16 bytes, and each gate's column block g dim + d0 of Wc
+    starting on a 16-byte boundary), 16-byte aligned bases ``x_ptr`` and
+    ``w_ptr``; else 'wmma'."""
+    if dtype == torch.float32:
+        return "f32"
+    if x_ptr % 16 or w_ptr % 16 or dc % 8 or dim % 8:
+        return "wmma"
+    return "wgmma"
+
+
+def _train_tail_cuda(ctx_t, x_pre_t, h_gates, c, wc, cdtype, route=None):
+    """The kernel on ``train_tail_route``'s route, or on ``route`` when
+    given (to time one route against another on the same operands)."""
     f32 = torch.float32
     rows, dc = ctx_t.shape
     n4 = wc.shape[1]
     dim = n4 // 4
+    dev = ctx_t.device
     _require(wc.shape[0] == dc and n4 == 4 * dim and dim > 0
-             and tuple(x_pre_t.shape) == (rows, n4)
-             and tuple(h_gates.shape) == (rows, n4)
-             and tuple(c.shape) == (rows, dim),
+             and x_pre_t.shape == (rows, n4) and h_gates.shape == (rows, n4)
+             and c.shape == (rows, dim),
              "train_tail: inconsistent shapes")
     _require(cdtype in (f32, torch.bfloat16),
              "train_tail: compute dtype must be float32 or bf16")
     _require(x_pre_t.dtype == f32 and h_gates.dtype == f32
              and x_pre_t.stride(1) == 1 and h_gates.stride(1) == 1,
              "train_tail: x_pre and h_gates must be float32 rows")
-    tensors = (ctx_t, x_pre_t, h_gates, c, wc)
-    _require(ctx_t.is_cuda and all(t.device == ctx_t.device for t in tensors),
+    _require(dev.type == "cuda" and x_pre_t.device == dev
+             and h_gates.device == dev and c.device == dev
+             and wc.device == dev,
              "train_tail: all operands must be on one CUDA device")
     x = ctx_t.to(cdtype).contiguous()
     w = wc.to(cdtype).contiguous()
     c = c.to(f32).contiguous()
-    h_t = torch.empty((rows, dim), dtype=f32, device=x.device)
-    c_t = torch.empty((rows, dim), dtype=f32, device=x.device)
-    pre = torch.empty((rows, n4), dtype=f32, device=x.device)
+    if route is None:
+        route = train_tail_route(rows, dc, dim, cdtype, x.data_ptr(),
+                                 w.data_ptr())
+    _require((route == "f32") == (cdtype == f32),
+             f"train_tail: route {route} does not take {cdtype}")
+    # one allocation for the three outputs: pre (rows, 4 dim), h_t, c_t
+    out = torch.empty(rows * 6 * dim, dtype=f32, device=dev)
+    pre = out[:rows * n4].view(rows, n4)
+    h_t = out[rows * n4:rows * 5 * dim].view(rows, dim)
+    c_t = out[rows * 5 * dim:].view(rows, dim)
     err = _build.lib().stvd_train_tail(
-        x.data_ptr(), w.data_ptr(), int(cdtype == torch.bfloat16),
+        x.data_ptr(), w.data_ptr(), TRAIN_TAIL_ROUTES.index(route),
         x_pre_t.data_ptr(), x_pre_t.stride(0), h_gates.data_ptr(),
         h_gates.stride(0), c.data_ptr(), h_t.data_ptr(), c_t.data_ptr(),
         pre.data_ptr(), rows, dc, dim, _launch_stream())
     _build.check(err, "train-tail kernel")
     train_tail.launches += 1
+    train_tail.launches_by_route[route] += 1
     return h_t, c_t, pre
 
 
@@ -517,13 +547,15 @@ def train_tail(ctx_t, x_pre_t, h_gates, c, wc, cdtype
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(h_t, c_t, preact) of one train-scan step, the preactivation kept
     for the hand-derived backward.  CPU tensors take the plain version;
-    CUDA tensors take the kernel, which masks ragged rows and widths."""
+    CUDA tensors take the kernel on the route ``train_tail_route`` picks,
+    which masks ragged rows and widths itself."""
     if ctx_t.device.type == "cpu":
         return _train_tail_plain(ctx_t, x_pre_t, h_gates, c, wc, cdtype)
     return _train_tail_cuda(ctx_t, x_pre_t, h_gates, c, wc, cdtype)
 
 
 train_tail.launches = 0
+train_tail.launches_by_route = dict.fromkeys(TRAIN_TAIL_ROUTES, 0)
 
 
 # ---------------------------------------------------------------------------

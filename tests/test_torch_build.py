@@ -3,8 +3,8 @@
 The library is named by a digest of the sources and flags, so a source
 missing from ``_build.SOURCES`` / ``HEADERS``, or a flag passed outside
 the digest, would let a stale library be reused.  ``build`` is driven
-here with nvcc replaced by a recorder.  The route helpers of kernels 1-5
-and 7 are pure functions of shapes, dtype and addresses, and the device
+here with nvcc replaced by a recorder.  The route helpers of kernels 1-7
+are pure functions of shapes, dtype and addresses, and the device
 tanh of kernels 1 and 4 is mirrored in numpy.
 """
 
@@ -40,8 +40,11 @@ def test_every_included_header_is_listed():
         included |= set(re.findall(r'#include "([^"]+)"', text))
     assert included == set(_build.HEADERS)
     for name in ("dws_gemm.cu", "logit_tail.cu", "gates_lstm.cu",
-                 "attn_core.cu", "spatial_core.cu"):
+                 "attn_core.cu", "spatial_core.cu", "train_tail.cu"):
         assert '#include "hopper.cuh"' in (_build._CSRC / name).read_text()
+    for name in ("gates_lstm.cu", "train_tail.cu"):
+        text = (_build._CSRC / name).read_text()
+        assert '#include "gates_wgmma.cuh"' in text
     for name in ("attn_core.cu", "spatial_core.cu"):
         text = (_build._CSRC / name).read_text()
         assert '#include "attn_score.cuh"' in text
@@ -186,6 +189,30 @@ def test_gates_route(rows, kx, dim, dtype, x_ptr, w_ptr, route):
     int8 shapes; float32 its own."""
     assert tkernel.gates_route(rows, kx, dim, dtype, x_ptr, w_ptr) == route
     assert route in tkernel.GATES_ROUTES
+
+
+@pytest.mark.parametrize("rows,dc,dim,dtype,x_ptr,w_ptr,route", [
+    (64, 1024, 3584, BF16, 0, 256, "wgmma"),
+    (128, 1024, 3584, BF16, 16, 32, "wgmma"),
+    (37, 272, 104, BF16, 0, 0, "wgmma"),
+    (1, 16, 8, BF16, 0, 0, "wgmma"),
+    (37, 272, 100, BF16, 0, 0, "wmma"),
+    (130, 277, 35, BF16, 0, 0, "wmma"),
+    (64, 1020, 3584, BF16, 0, 0, "wmma"),
+    (64, 1024, 35, BF16, 0, 0, "wmma"),
+    (64, 1024, 3584, BF16, 2, 0, "wmma"),
+    (64, 1024, 3584, BF16, 0, 8, "wmma"),
+    (64, 1024, 3584, F32, 0, 0, "f32"),
+    (130, 277, 35, F32, 4, 4, "f32")])
+def test_train_tail_route(rows, dc, dim, dtype, x_ptr, w_ptr, route):
+    """wgmma for bf16 when TMA can describe ctx_t (rows of dc elements)
+    and Wc (rows of 4 dim, gate blocks from column g dim): dc and dim
+    multiples of 8, both bases 16-byte aligned; the wmma route for the
+    other bf16 shapes (dim 100: gate blocks off 16-byte boundaries);
+    float32 its own."""
+    assert tkernel.train_tail_route(rows, dc, dim, dtype, x_ptr,
+                                    w_ptr) == route
+    assert route in tkernel.TRAIN_TAIL_ROUTES
 
 
 @pytest.mark.parametrize("s,dr,cdtype,ptrs,route", [
@@ -372,7 +399,8 @@ def test_route_counters_start_at_zero_on_the_cpu():
     """CPU tensors take the plain versions and touch no route counter."""
     a = torch.randn(10, 8)
     kernels = (tkernel.dws_gemm, tkernel.logit_tail, tkernel.gates_lstm,
-               tkernel.attention_core, tkernel.spatial_core)
+               tkernel.attention_core, tkernel.spatial_core,
+               tkernel.train_tail)
     before = [dict(k.launches_by_route) for k in kernels]
     tkernel.dws_gemm(a, torch.randn(10, 16))
     tkernel.logit_tail(a, torch.randn(8, 12), torch.randn(12), 3)
@@ -385,11 +413,15 @@ def test_route_counters_start_at_zero_on_the_cpu():
     tkernel.spatial_core(torch.randn(4, 8), torch.randn(2, 3, 4, 8),
                          torch.randn(2, 3, 4, 5), torch.randn(8),
                          torch.tensor(0.1), torch.float32)
+    tkernel.train_tail(torch.randn(3, 8), torch.randn(3, 16),
+                       torch.randn(3, 16), torch.randn(3, 4),
+                       torch.randn(8, 16), torch.bfloat16)
     assert [dict(k.launches_by_route) for k in kernels] == before
     assert set(before[0]) == set(tkernel.DWS_ROUTES)
     assert set(before[1]) == set(tkernel.LOGIT_TAIL_ROUTES)
     assert set(before[2]) == set(tkernel.GATES_ROUTES)
     assert set(before[3]) == set(tkernel.ATTENTION_CORE_ROUTES)
     assert set(before[4]) == set(tkernel.SPATIAL_CORE_ROUTES)
+    assert set(before[5]) == set(tkernel.TRAIN_TAIL_ROUTES)
     assert set(tkernel.spatial_bwd.launches_by_route) == set(
         tkernel.SPATIAL_BWD_ROUTES)

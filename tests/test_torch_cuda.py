@@ -557,27 +557,80 @@ def test_spatial_bwd_kernel_is_deterministic(cuda, cd, acc):
         assert torch.equal(x, y)
 
 
-@pytest.mark.parametrize("rows,dc,dim,cd", [
-    (1, 16, 8, BF16), (64, 1024, 3584, BF16), (37, 272, 100, BF16),
-    (130, 277, 35, F32), (64, 1024, 128, F32)])
-def test_train_tail_kernel_matches_plain(cuda, rows, dc, dim, cd):
+def train_tail_inputs(rows, dc, dim, cd, device):
     """x_pre is one step of a time-major view of a batch-major array and
-    h_gates a column view of the h-projection, as in the scan; ragged
-    rows, depths (element loads) and dims."""
-    g = torch.Generator(device=cuda).manual_seed(rows + dim)
-    rnd = lambda *shape: torch.randn(*shape, generator=g, device=cuda)
+    h_gates a column view of the h-projection, as in the scan."""
+    g = torch.Generator(device=device).manual_seed(rows + dim)
+    rnd = lambda *shape: torch.randn(*shape, generator=g, device=device)
     x_pre = rnd(rows, 3, 4 * dim).transpose(0, 1)[1]
     hp = rnd(rows, 4 * dim + 9)
     ctx_t, c = rnd(rows, dc), rnd(rows, dim)
     wc = (rnd(dc, 4 * dim) / dc ** 0.5).to(cd)
-    args = (ctx_t, x_pre, hp[:, :4 * dim], c, wc, cd)
+    return ctx_t, x_pre, hp[:, :4 * dim], c, wc, cd
+
+
+@pytest.mark.parametrize("rows,dc,dim,cd,route", [
+    (64, 1024, 3584, BF16, "wgmma"), (128, 1024, 3584, BF16, "wgmma"),
+    (37, 272, 104, BF16, "wgmma"), (1, 16, 8, BF16, "wgmma"),
+    (64, 1024, 3584, BF16, "wmma"), (128, 1024, 3584, BF16, "wmma"),
+    (37, 272, 100, BF16, "wmma"), (1, 16, 8, BF16, "wmma"),
+    (130, 277, 35, BF16, "wmma"), (130, 277, 35, F32, "f32"),
+    (64, 1024, 128, F32, "f32")])
+def test_train_tail_kernel_matches_plain(cuda, rows, dc, dim, cd, route):
+    """Each route against the plain version: the training shape, two row
+    tiles (128 rows), ragged rows, depths and dims (a partial 32-dim
+    strip at dim 104 and 8; element loads on wmma at dc 277).  At dim
+    100 Wc's gate blocks start off 16-byte boundaries, which TMA cannot
+    load: that shape is wmma's (test_train_tail_takes_its_route)."""
+    args = train_tail_inputs(rows, dc, dim, cd, cuda)
     before = tkernel.train_tail.launches
-    got = tkernel.train_tail(*args)
+    by_route = dict(tkernel.train_tail.launches_by_route)
+    got = tkernel._train_tail_cuda(*args, route=route)
     ref = tkernel._train_tail_plain(*args)
     torch.cuda.synchronize()
     assert tkernel.train_tail.launches == before + 1
+    assert (tkernel.train_tail.launches_by_route[route]
+            == by_route[route] + 1)
+    for x, y in zip(got, ref):
+        assert x.dtype == F32 and x.shape == y.shape
+        torch.testing.assert_close(x, y, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("rows,dc,dim,cd,offset,route", [
+    (64, 1024, 3584, BF16, 0, "wgmma"), (37, 272, 104, BF16, 0, "wgmma"),
+    (64, 1024, 3584, BF16, 1, "wmma"), (37, 272, 100, BF16, 0, "wmma"),
+    (130, 277, 35, BF16, 0, "wmma"),
+    (64, 1024, 128, F32, 0, "f32")])
+def test_train_tail_takes_its_route(cuda, rows, dc, dim, cd, offset, route):
+    """``train_tail`` launches on ``train_tail_route``'s route: a bf16
+    ctx_t whose base is 2 bytes past a 16-byte boundary (``offset`` 1)
+    takes 'wmma', as TMA cannot describe it, and still agrees."""
+    ctx_t, *rest = train_tail_inputs(rows, dc, dim, cd, cuda)
+    buf = torch.empty(rows * dc + offset, dtype=cd, device=cuda)
+    ctx_c = buf[offset:].view(rows, dc)
+    ctx_c.copy_(ctx_t)
+    assert (tkernel.train_tail_route(rows, dc, dim, cd, ctx_c.data_ptr(),
+                                     rest[-2].data_ptr()) == route)
+    by_route = dict(tkernel.train_tail.launches_by_route)
+    got = tkernel.train_tail(ctx_c, *rest)
+    ref = tkernel._train_tail_plain(ctx_c, *rest)
+    torch.cuda.synchronize()
+    assert (tkernel.train_tail.launches_by_route[route]
+            == by_route[route] + 1)
     for x, y in zip(got, ref):
         torch.testing.assert_close(x, y, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("rows", [64, 128, 37])
+def test_train_tail_wgmma_is_deterministic(cuda, rows):
+    """Two calls on the same operands agree bit for bit: every sum has a
+    fixed order (one block a tile, the depth in ring order)."""
+    args = train_tail_inputs(rows, 1024, 3584, BF16, cuda)
+    first = tkernel._train_tail_cuda(*args, route="wgmma")
+    second = tkernel._train_tail_cuda(*args, route="wgmma")
+    torch.cuda.synchronize()
+    for x, y in zip(first, second):
+        assert torch.equal(x, y)
 
 
 def check_dws(a, b, route):

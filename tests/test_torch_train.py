@@ -25,6 +25,8 @@ import torch
 from stvd.data.batching import gather_batch as jgather_batch
 from stvd.data.batching import synthetic_dataset as jsynthetic_dataset
 from stvd.model import kernel as jkernel
+from stvd.model import seqgrad as jseqgrad
+from stvd.model import step as jstep
 from stvd.model.decoder import forward_train as jforward_train
 from stvd.train import loop as jloop
 from stvd.train.loss import loss_fn as jloss_fn
@@ -238,18 +240,26 @@ def test_spatial_bwd_plain_matches_pallas(cd, acc, tol):
         assert err <= tol * float(np.abs(r).max()), (name, err)
 
 
-@pytest.mark.parametrize("cd", ["float32", "bfloat16"])
-def test_train_tail_plain_matches_pallas(cd):
-    """Kernel 6's plain version against ``train_tail_pallas`` in
-    interpret mode (it takes dims that are multiples of 128 only); the
-    h_gates operand is a column view of a wider projection, as in the
-    scan.  Both take the product with float32 sums over the same bf16
-    operands."""
-    rng = np.random.RandomState(0)
-    rows, dc, dim = 5, 128, 128
+def train_tail_operands(rows, dc, dim, seed=0):
+    """ctx_t, x_pre, the h-projection (h_gates is its first 4 dim
+    columns, a column view as in the scan), c and Wc, from a seed."""
+    rng = np.random.RandomState(seed)
     f = lambda *s: np.asarray(rng.randn(*s), np.float32)
-    ctx_t, x_pre, hp = f(rows, dc), f(rows, 4 * dim), f(rows, 4 * dim + 9)
-    c, wc = f(rows, dim), f(dc, 4 * dim) / np.sqrt(dc)
+    return (f(rows, dc), f(rows, 4 * dim), f(rows, 4 * dim + 9),
+            f(rows, dim), f(dc, 4 * dim) / np.sqrt(dc))
+
+
+@pytest.mark.parametrize("rows,dc,dim", [(1, 128, 128), (37, 256, 128),
+                                         (64, 128, 256), (130, 128, 128)])
+@pytest.mark.parametrize("cd", ["float32", "bfloat16"])
+def test_train_tail_plain_matches_pallas(cd, rows, dc, dim):
+    """Kernel 6's plain version against ``train_tail_pallas`` in
+    interpret mode (it takes dims that are multiples of 128 only and
+    pads rows to a multiple of 8: 1, 37 and 130 rows are padded, 64 is
+    the training batch); the h_gates operand is a column view of a wider
+    projection, as in the scan.  Both take the product with float32 sums
+    over the same bf16 operands."""
+    ctx_t, x_pre, hp, c, wc = train_tail_operands(rows, dc, dim)
     ref = jkernel.train_tail_pallas(
         jnp.asarray(ctx_t), jnp.asarray(x_pre), jnp.asarray(hp)[:, :4 * dim],
         jnp.asarray(c), jnp.asarray(wc), cd)
@@ -259,6 +269,34 @@ def test_train_tail_plain_matches_pallas(cd):
         torch.from_numpy(wc), getattr(torch, cd))
     for name, g, r in zip(("h", "c", "preact"), got, ref):
         np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=1e-5,
+                                   atol=1e-5, err_msg=name)
+
+
+@pytest.mark.parametrize("rows,dc,dim", [(1, 16, 8), (37, 272, 100),
+                                         (130, 277, 35)])
+@pytest.mark.parametrize("cd", ["float32", "bfloat16"])
+def test_train_tail_plain_matches_scan_body_tail(cd, rows, dc, dim):
+    """Kernel 6's plain version against the JAX scan body's inline tail
+    (``stvd/model/seqgrad.py``: ``x_pre + h_gates + _dot(ctx_t, wc)``,
+    then ``_gates`` and the LSTM), at ragged shapes where
+    ``train_tail_pallas`` declines and the scan takes that tail."""
+    ctx_t, x_pre, hp, c, wc = train_tail_operands(rows, dc, dim, seed=1)
+    h_gates = jnp.asarray(hp)[:, :4 * dim]
+    assert jkernel.train_tail_pallas(jnp.asarray(ctx_t), jnp.asarray(x_pre),
+                                     h_gates, jnp.asarray(c),
+                                     jnp.asarray(wc), cd) is None
+    preact = (jnp.asarray(x_pre) + h_gates
+              + jstep._dot(jnp.asarray(ctx_t), jnp.asarray(wc),
+                           jnp.dtype(cd)))
+    i, f, o, g = jseqgrad._gates(preact, dim)
+    c_ref = f * jnp.asarray(c) + i * g
+    ref = (o * jnp.tanh(c_ref), c_ref, preact)
+    got = tkernel.train_tail(
+        torch.from_numpy(ctx_t), torch.from_numpy(x_pre),
+        torch.from_numpy(hp)[:, :4 * dim], torch.from_numpy(c),
+        torch.from_numpy(wc), getattr(torch, cd))
+    for name, g_, r in zip(("h", "c", "preact"), got, ref):
+        np.testing.assert_allclose(g_.numpy(), np.asarray(r), rtol=1e-5,
                                    atol=1e-5, err_msg=name)
 
 
