@@ -1312,7 +1312,8 @@ def kernels_only(kernel, step_mod, dev, args, cfg, cfg_q) -> int:
              torch.bfloat16)
         call = lambda: kernel.train_tail(*a)
         out[f"train_tail_rows{rows}"] = {
-            "device_ms": device_ms(call), "cold_device_ms": cold_device_ms(call),
+            "device_ms": device_ms(call),
+            "cold_device_ms": cold_device_ms(call),
             "ms": time_ms(call, 200), "host_us": host_us(call, 200)}
     m_q = cfg_q.model
     kx = m_q.dim_word + m_q.dim + m_q.ctx_dim

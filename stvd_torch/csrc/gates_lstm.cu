@@ -30,8 +30,10 @@
 // by the caller from mode, widths and alignment
 // (stvd_torch/model/kernel.py:gates_route):
 //
-// * wgmma (bf16 and int8; TMA needs row strides of whole 16 bytes and
-//   16-byte aligned bases): a persistent, warp-specialised kernel on
+// * wgmma (bf16 and int8; TMA needs row strides of whole 16 bytes,
+//   16-byte aligned bases and, under bf16, gate blocks g*dim + d0 that
+//   start on a 16-byte boundary: dim % 8 == 0): a persistent,
+//   warp-specialised kernel on
 //   gates_wgmma.cuh's mainloop (shared with the train-scan tail).  A tile
 //   is 128 rows x a strip of 64 dims, all four gates: 256 columns of w
 //   read as four 64-wide TMA boxes at columns g*dim + d0.  One producer

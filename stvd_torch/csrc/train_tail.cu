@@ -100,8 +100,12 @@ struct TailWgEpi {
   float* __restrict__ h_out;
   float* __restrict__ c_out;
   float* __restrict__ pre_out;
-  int vec2;   // dim even and c_prev 8-byte aligned: float pairs
-  int vec4;   // x_pre rows of whole 16 bytes, dim % 4 == 0, aligned base
+  // The route takes dim % 8 == 0, so a thread's dim pair is whole and a
+  // gate block of x_pre is whole 16-byte chunks.  vec2: c_prev and the
+  // outputs 8-byte aligned (float pairs); vec4: x_pre's base 16-byte
+  // aligned and its row stride whole 16 bytes (16-byte copies).
+  int vec2;
+  int vec4;
 
   struct Pre {
     float cp[2][4][2];
@@ -164,7 +168,7 @@ struct TailWgEpi {
             p.cp[i][c0][1] = v.y;
           } else {
             p.cp[i][c0][0] = c_prev[o];
-            if (dd + 1 < dim) p.cp[i][c0][1] = c_prev[o + 1];
+            p.cp[i][c0][1] = c_prev[o + 1];
           }
         }
       }
@@ -189,7 +193,6 @@ struct TailWgEpi {
         const int col = 8 * c0 + 2 * t.q;
         const int dd = t.d0 + col;
         if (dd >= dim) continue;
-        const bool pair = dd + 1 < dim;
         float pre[2][4];
 #pragma unroll
         for (int g = 0; g < 4; ++g) {
@@ -205,7 +208,7 @@ struct TailWgEpi {
             *reinterpret_cast<float2*>(po) = make_float2(pre[0][g], pre[1][g]);
           } else {
             po[0] = pre[0][g];
-            if (pair) po[1] = pre[1][g];
+            po[1] = pre[1][g];
           }
         }
         const long long o = static_cast<long long>(row) * dim + dd;
@@ -220,10 +223,8 @@ struct TailWgEpi {
         } else {
           h_out[o] = h[0];
           c_out[o] = c[0];
-          if (pair) {
-            h_out[o + 1] = h[1];
-            c_out[o + 1] = c[1];
-          }
+          h_out[o + 1] = h[1];
+          c_out[o + 1] = c[1];
         }
       }
     }
@@ -257,8 +258,8 @@ inline bool aligned(const void* p, unsigned long long bytes) {
 }  // namespace
 
 // route: kRouteWgmma (bf16, dc and dim multiples of 8, ctx_t and Wc
-// 16-byte aligned), kRouteMma (bf16), kRouteF32 (float32 operands).  Returns the
-// launch's cudaError_t (0 on success).
+// 16-byte aligned), kRouteMma (bf16), kRouteF32 (float32 operands).
+// Returns the launch's cudaError_t (0 on success).
 extern "C" int stvd_train_tail(const void* x, const void* w, int route,
                                const void* x_pre, long long ld_xp,
                                const void* h_gates, long long ld_hg,
@@ -277,12 +278,9 @@ extern "C" int stvd_train_tail(const void* x, const void* w, int route,
   float* pre = static_cast<float*>(pre_out);
   cudaError_t e;
   if (route == kRouteWgmma) {
-    // h_t, c_t and pre are written as float pairs: the wrapper allocates
-    // them, so only c_prev's alignment is the caller's
-    const int vec2 = dim % 2 == 0 && aligned(c_prev, 8) &&
-                     aligned(h_out, 8) && aligned(c_out, 8) &&
-                     aligned(pre_out, 8);
-    const int vec4 = dim % 4 == 0 && ld_xp % 4 == 0 && aligned(x_pre, 16);
+    const int vec2 = aligned(c_prev, 8) && aligned(h_out, 8) &&
+                     aligned(c_out, 8) && aligned(pre_out, 8);
+    const int vec4 = ld_xp % 4 == 0 && aligned(x_pre, 16);
     const TailWgEpi epi{xp, ld_xp, hg, ld_hg,
                         static_cast<const float*>(c_prev),
                         static_cast<float*>(h_out), static_cast<float*>(c_out),

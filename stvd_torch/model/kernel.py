@@ -18,8 +18,9 @@ a run can show that the main path went through the kernels.  The
 kernels with more than one route (the attention core: cluster or simple;
 the spatial core: tma or simple; the logit tail, the gates+LSTM step,
 the train-scan tail and the dWs_att GEMM: wgmma, wmma or float32; the
-spatial backward step: 16-byte or element loads) pick it from shapes, dtype and alignment in a
-pure function and also count launches by route in ``launches_by_route``.
+spatial backward step: 16-byte or element loads) pick it from shapes,
+dtype and alignment in a pure function and also count launches by route
+in ``launches_by_route``.
 """
 
 from __future__ import annotations
