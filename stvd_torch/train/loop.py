@@ -349,10 +349,12 @@ def _emit(save_dir: str, record: Dict) -> Dict:
 
 
 def fit(cfg, train_ds: Dataset, valid_ds: Optional[Dataset] = None,
-        max_updates: Optional[int] = None,
+        step_fn=None, *, max_updates: Optional[int] = None,
         device: torch.device | str = "cuda") -> FitResult:
     """Train until ``max_epochs``, ``max_updates`` or early stopping on
-    the validation NLL.  Every ``disp_freq`` updates a train record (loss,
+    the validation NLL.  The positional parameters are the JAX
+    package's (``step_fn`` is the decode step; ``None`` picks it by
+    device).  Every ``disp_freq`` updates a train record (loss,
     grad norm, seconds since the last record) goes to stdout and
     ``save_dir/metrics.jsonl``; ``save_dir/ckpt.pt`` is written every
     ``save_freq`` updates and at the end, ``ckpt_best.pt`` at each better

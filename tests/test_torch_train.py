@@ -533,3 +533,22 @@ def test_interrupted_fit_keeps_its_progress(tmp_path, monkeypatch):
         cfg.train, reload_=True)), ds, max_updates=5, device="cpu")
     assert [r["update"] for r in resumed.log] == [4, 5]
     assert resumed.state["step"] == 5
+
+
+def test_fit_takes_the_jax_positional_order(tmp_path):
+    """``fit(cfg, train_ds, valid_ds, step_fn)`` binds as in the JAX
+    package: the 4th positional parameter is the decode step, and the
+    run options are keyword-only, so a caller written for the reference
+    cannot pass a step function as ``max_updates``."""
+    import inspect
+    jpos = list(inspect.signature(jloop.fit).parameters)[:4]
+    params = inspect.signature(tloop.fit).parameters
+    tpos = [n for n, p in params.items()
+            if p.kind == p.POSITIONAL_OR_KEYWORD]
+    assert tpos == jpos == ["cfg", "train_ds", "valid_ds", "step_fn"]
+    for name in ("max_updates", "device"):
+        assert params[name].kind == inspect.Parameter.KEYWORD_ONLY
+    ds = synthetic_dataset(n_videos=4, k=6, d=32, maxlen=MAXLEN, seed=0)
+    out = tloop.fit(tiny_config(tmp_path), ds, ds, tstep.step,
+                    max_updates=2, device="cpu")
+    assert out.state["step"] == 2
