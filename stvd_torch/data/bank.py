@@ -16,6 +16,7 @@ from which a training batch is an ``index_select`` gather
 from __future__ import annotations
 
 import dataclasses
+import pickle
 from typing import Dict, Optional, Sequence
 
 import numpy as np
@@ -46,6 +47,29 @@ class FeatureBank:
 
     def index(self) -> Dict[str, int]:
         return {v: i for i, v in enumerate(self.ids)}
+
+    def save(self, path: str) -> None:
+        """A compressed ``.npz`` with the JAX package's keys (``frames``,
+        ``frame_mask``, ``ids``, and ``regions``/``motion`` when
+        present), so either package loads the other's file."""
+        arrs = dict(frames=self.frames, frame_mask=self.frame_mask,
+                    ids=np.asarray(list(self.ids)))
+        if self.regions is not None:
+            arrs["regions"] = self.regions
+        if self.motion is not None:
+            arrs["motion"] = self.motion
+        np.savez_compressed(path, **arrs)
+
+    @staticmethod
+    def load(path: str) -> "FeatureBank":
+        z = np.load(path, allow_pickle=False)
+        return FeatureBank(
+            ids=[str(s) for s in z["ids"]],
+            frames=z["frames"],
+            frame_mask=z["frame_mask"],
+            regions=z["regions"] if "regions" in z.files else None,
+            motion=z["motion"] if "motion" in z.files else None,
+        )
 
 
 def subsample_frames(feat: np.ndarray, k: int) -> np.ndarray:
@@ -88,6 +112,14 @@ def pack_bank(feats: Dict[str, np.ndarray], k: int,
             mot_arr[i, : m.shape[0]] = m
     return FeatureBank(ids=vids, frames=frames, frame_mask=mask,
                        regions=reg_arr, motion=mot_arr)
+
+
+def load_legacy_pickle(path: str) -> Dict[str, np.ndarray]:
+    """A reference-era feature pickle (video id -> array); a Python 2
+    pickle's numpy payloads decode with latin-1."""
+    with open(path, "rb") as f:
+        d = pickle.load(f, encoding="latin1")
+    return {str(k): np.asarray(v) for k, v in d.items()}
 
 
 def synthetic_bank(n_videos: int, k: int = 28, d: int = 1024,

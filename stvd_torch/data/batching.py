@@ -91,6 +91,54 @@ class BatchIterator:
             yield chunk.astype(np.int32), w
 
 
+class BucketedBatchIterator:
+    """Length-bucketed minibatches (the JAX package's, draw for draw): a
+    caption of length L goes to the smallest bucket >= L, so a batch of
+    short captions runs a short scan; the columns a bucket drops are
+    all-pad, so the loss is unchanged.  Yields ``(indices (B,), weight
+    (B,), t_bucket)``; batches are shuffled across buckets each epoch,
+    and a bucket's ragged tail wraps within the bucket with weight 0."""
+
+    def __init__(self, lengths: Sequence[int], batch_size: int,
+                 buckets: Sequence[int], seed: int = 0,
+                 shuffle: bool = True):
+        lengths = np.asarray(lengths, dtype=np.int64)
+        self.buckets = tuple(sorted(set(int(b) for b in buckets)))
+        if lengths.size and int(lengths.max()) > self.buckets[-1]:
+            raise ValueError(
+                f"max caption length {int(lengths.max())} exceeds the "
+                f"largest bucket {self.buckets[-1]}")
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self._rng = np.random.RandomState(seed)
+        edges = np.asarray(self.buckets)
+        assign = edges[np.searchsorted(edges, lengths)]
+        self._groups = [(int(t), np.flatnonzero(assign == t))
+                        for t in self.buckets
+                        if np.any(assign == t)]
+        self.n = int(lengths.size)
+
+    def epoch(self) -> Iterator[Tuple[np.ndarray, np.ndarray, int]]:
+        b = self.batch_size
+        batches = []
+        for t_b, idxs in self._groups:
+            order = idxs.copy()
+            if self.shuffle:
+                self._rng.shuffle(order)
+            for s in range(0, len(order), b):
+                chunk = order[s: s + b]
+                n_real = len(chunk)
+                w = np.ones(b, dtype=np.float32)
+                if n_real < b:
+                    chunk = np.concatenate(
+                        [chunk, np.resize(order, b - n_real)])
+                    w[n_real:] = 0.0
+                batches.append((chunk.astype(np.int32), w, t_b))
+        if self.shuffle:
+            self._rng.shuffle(batches)
+        return iter(batches)
+
+
 def gather_batch(dev_bank: Dict[str, torch.Tensor], caps: CaptionSet,
                  idx: np.ndarray, seq_len: int = 0
                  ) -> Dict[str, torch.Tensor]:

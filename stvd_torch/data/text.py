@@ -6,6 +6,7 @@ Captions encode to fixed ``(maxlen,)`` int32 rows with a float32 mask.
 
 from __future__ import annotations
 
+import pickle
 import re
 from collections import Counter
 from typing import Dict, Iterable, List, Sequence, Tuple
@@ -52,6 +53,18 @@ class Vocab:
         for i, (w, _) in enumerate(counts.most_common(max_words - 2)):
             w2i[w] = i + 2
         return Vocab(w2i)
+
+    @staticmethod
+    def load_pickle(path: str) -> "Vocab":
+        """A worddict pickle (``{word: id}``); a Python 2 one decodes
+        with latin-1."""
+        with open(path, "rb") as f:
+            d = pickle.load(f, encoding="latin1")
+        return Vocab({str(k): int(v) for k, v in d.items()})
+
+    def save_pickle(self, path: str) -> None:
+        with open(path, "wb") as f:
+            pickle.dump(self.word_to_id, f, protocol=2)
 
     def encode(self, tokens: Sequence[str], n_words: int) -> List[int]:
         """tokens -> ids; ids at or above ``n_words`` become UNK."""

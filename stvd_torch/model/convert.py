@@ -24,6 +24,8 @@ def params_from_numpy(arrays: Dict[str, np.ndarray],
 
 
 def params_to_numpy(params: Params) -> Dict[str, np.ndarray]:
-    """float32 numpy copies (bf16 widens to float32 without loss)."""
-    return {k: v.detach().to("cpu", torch.float32).numpy()
+    """float32 numpy copies (bf16 widens to float32 without loss); a
+    float32 CPU tensor is copied too, so later in-place updates of the
+    parameters do not show through."""
+    return {k: v.detach().to("cpu", torch.float32).numpy().copy()
             for k, v in params.items()}

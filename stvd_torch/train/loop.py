@@ -1,6 +1,6 @@
 """The training loop (counterpart of stvd/train/loop.py): optimizers, the
-train step, NLL validation, checkpointing and early stopping, on one
-device.
+train step, validation by NLL and caption metrics, model selection,
+checkpointing and early stopping, on one device.
 
 The optimizers follow the JAX package's ``make_optimizer``, which uses
 optax: each is a pair of functions ``init(params) -> state`` and
@@ -9,9 +9,6 @@ optax's operation order, and ``apply_updates`` adds the updates to the
 float32 master parameters in place.  Global-norm clipping is optax's
 ``clip_by_global_norm`` (scale by ``clip / norm`` once the norm reaches
 ``clip``, no epsilon), not ``torch.nn.utils.clip_grad_norm_``.
-
-Validation by caption metrics (METEOR, BLEU, CIDEr, ROUGE) is not ported
-yet: ``fit`` takes ``metric='nll'`` only.
 """
 
 from __future__ import annotations
@@ -23,12 +20,18 @@ import os
 import time
 from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
+from ..config import parse_buckets
 from ..data.bank import to_device
-from ..data.batching import BatchIterator, Dataset, gather_batch
+from ..data.batching import (BatchIterator, BucketedBatchIterator, Dataset,
+                             gather_batch)
+from ..decode.greedy import greedy_decode
 from ..model.decoder import init_params
+from ..model.kernel import get_step_fn
 from ..model.step import Params, compute_dtype
+from .evaluate import evaluate_split
 from .loss import loss_from_terms, loss_terms
 
 TrainState = Dict[str, Any]  # {"params", "opt_state", "step", "generator"}
@@ -348,38 +351,116 @@ def _emit(save_dir: str, record: Dict) -> Dict:
     return record
 
 
+def _metric_key(name: str) -> str:
+    # 'blue' is the reference's (misspelled) early-stop metric option
+    return {"meteor": "METEOR", "bleu4": "Bleu_4", "blue": "Bleu_4",
+            "cider": "CIDEr", "rouge": "ROUGE_L", "nll": "nll"}[name]
+
+
+def perplexity(nll_per_token: float) -> float:
+    """Token-level perplexity (the reference prints it next to NLL)."""
+    return math.exp(min(nll_per_token, 50.0))
+
+
+def _validate(params: Params, cfg, ds: Dataset, step_fn, update: int,
+              split: str, device) -> Dict[str, float]:
+    """NLL and the caption metrics of a split, as one record of kind
+    ``split``; the samples files go to ``save_dir``."""
+    nll = evaluate_nll(params, cfg.model, ds, cfg.train.valid_batch_size,
+                       device)
+    scores = evaluate_split(params, cfg, ds, split=split,
+                            save_dir=cfg.train.save_dir, step_fn=step_fn,
+                            device=device)
+    scores["nll"] = nll
+    _emit(cfg.train.save_dir, {"kind": split, "update": update, **scores})
+    return scores
+
+
+def _print_samples(params: Params, cfg, ds: Dataset, dev_bank, step_fn,
+                   update: int, n: int = 2) -> None:
+    """Greedy captions of the split's first ``n`` videos beside their
+    first reference, one ``sample`` record each."""
+    rows = torch.arange(min(n, ds.bank.n_videos),
+                        device=dev_bank["frames"].device)
+    batch = {k: dev_bank[k].index_select(0, rows)
+             for k in ("frames", "frame_mask", "regions", "motion")
+             if k in dev_bank}
+    with torch.no_grad():
+        toks = greedy_decode(params, cfg.model, batch,
+                             maxlen=cfg.decode.maxlen,
+                             step_fn=step_fn).tokens.cpu().numpy()
+    for i in range(len(rows)):
+        refs = ds.references[i]
+        _emit(cfg.train.save_dir, {
+            "kind": "sample", "update": update, "video": ds.bank.ids[i],
+            "pred": " ".join(ds.vocab.decode(toks[i])),
+            "gold": " ".join(refs[0]) if refs else ""})
+
+
 def fit(cfg, train_ds: Dataset, valid_ds: Optional[Dataset] = None,
         step_fn=None, *, max_updates: Optional[int] = None,
+        test_ds: Optional[Dataset] = None,
         device: torch.device | str = "cuda") -> FitResult:
     """Train until ``max_epochs``, ``max_updates`` or early stopping on
-    the validation NLL.  The positional parameters are the JAX
-    package's (``step_fn`` is the decode step; ``None`` picks it by
-    device).  Every ``disp_freq`` updates a train record (loss,
-    grad norm, seconds since the last record) goes to stdout and
-    ``save_dir/metrics.jsonl``; ``save_dir/ckpt.pt`` is written every
-    ``save_freq`` updates and at the end, ``ckpt_best.pt`` at each better
-    validation NLL; ``reload_`` resumes from ``ckpt.pt``.  An interrupt
-    (``KeyboardInterrupt``) ends the run with an ``interrupt`` record and
-    the same final ``ckpt.pt``, as the JAX package's loop does."""
+    the validation metric (``train.metric``: METEOR, BLEU-4, CIDEr and
+    ROUGE-L from decoded captions, bigger is better; or NLL), as the JAX
+    package's ``fit`` does.  The positional parameters are the JAX
+    package's: ``step_fn`` is the decode step of validation and samples
+    (``None``: ``get_step_fn(None, device)``, the kernel step on a CUDA
+    device); training takes its kernels from the model config.
+
+    Every ``disp_freq`` updates a ``train`` record (loss, grad norm,
+    seconds since the last record), every ``sample_freq`` two greedy
+    ``sample`` records of the training split, and every ``valid_freq``
+    a ``valid`` record (NLL and every caption metric) and, with
+    ``test_ds``, a ``test`` record; the model is selected on valid only.
+    Records go to stdout and ``save_dir/metrics.jsonl``.  A better
+    metric writes ``ckpt_best.pt`` and a ``best`` record; ``patience``
+    rounds without one end the run with an ``early_stop`` record.
+    ``length_buckets`` batches captions by length (``maxlen`` added as
+    the last bucket).  ``ckpt.pt`` is written every ``save_freq``
+    updates and at the end; ``reload_`` resumes from it, keeping the
+    early-stop state only if it was saved under the same metric.  An
+    interrupt (``KeyboardInterrupt``) ends the run with an ``interrupt``
+    record and the same final ``ckpt.pt``."""
     tcfg, mcfg = cfg.train, cfg.model
-    if tcfg.metric != "nll":
-        raise NotImplementedError(
-            f"validation metric {tcfg.metric!r} needs caption metrics, "
-            "which are not ported yet: use metric='nll'")
-    if tcfg.length_buckets:
-        raise NotImplementedError("length buckets are not ported yet")
+    if tcfg.debug_nans:
+        raise NotImplementedError("debug_nans is not ported yet")
+    if step_fn is None:
+        step_fn = get_step_fn(None, device)
     os.makedirs(tcfg.save_dir, exist_ok=True)
     state = init_train_state(tcfg.seed, mcfg, tcfg, device)
-    it = BatchIterator(train_ds.captions.n, tcfg.batch_size, seed=tcfg.seed)
-    fs = {"best": None, "best_step": 0, "bad_rounds": 0, "history": []}
+    metric_name = tcfg.metric
+    key = _metric_key(metric_name)
+    bigger_is_better = metric_name != "nll"
+    fs = {"best": None, "best_step": 0, "bad_rounds": 0, "history": [],
+          "metric": metric_name}
     ckpt = os.path.join(tcfg.save_dir, "ckpt.pt")
     best_ckpt = os.path.join(tcfg.save_dir, "ckpt_best.pt")
-    if tcfg.reload_ and os.path.exists(ckpt):
-        state, fs = restore_checkpoint(ckpt, state, device)
-        _emit(tcfg.save_dir, {"kind": "reload", "step": state["step"]})
+    reload = tcfg.reload_ and os.path.exists(ckpt)
+    if reload:
+        state, saved = restore_checkpoint(ckpt, state, device)
+        # a best of another metric is no yardstick: keep the weights only
+        if saved.get("metric") == metric_name:
+            fs = saved
+    best = fs["best"] if fs["best"] is not None else (
+        -math.inf if bigger_is_better else math.inf)
+    if reload:
+        _emit(tcfg.save_dir, {"kind": "reload", "step": state["step"],
+                              "best": float(best),
+                              "bad_rounds": fs["bad_rounds"]})
     train_step = make_train_step(mcfg, tcfg)
     dev = to_device(train_ds.bank, device, compute_dtype(mcfg))
-    best = math.inf if fs["best"] is None else fs["best"]
+    if tcfg.length_buckets:
+        buckets = parse_buckets(tcfg.length_buckets)
+        if max(buckets) < tcfg.maxlen:
+            buckets = buckets + (tcfg.maxlen,)
+        lens = train_ds.captions.mask.sum(axis=1).astype(np.int64)
+        it = BucketedBatchIterator(lens, tcfg.batch_size, buckets,
+                                   seed=tcfg.seed)
+    else:
+        it = BatchIterator(train_ds.captions.n, tcfg.batch_size,
+                           seed=tcfg.seed)
     update = state["step"]
     log: List[Dict] = []
     stop = update >= (max_updates if max_updates is not None else math.inf)
@@ -388,8 +469,12 @@ def fit(cfg, train_ds: Dataset, valid_ds: Optional[Dataset] = None,
         for epoch in range(tcfg.max_epochs):
             if stop:
                 break
-            for idx, w in it.epoch():
-                batch = gather_batch(dev, train_ds.captions, idx)
+            for item in it.epoch():
+                # a bucketed batch also gives its bucket's length
+                idx, w = item[0], item[1]
+                t_b = item[2] if len(item) == 3 else 0
+                batch = gather_batch(dev, train_ds.captions, idx,
+                                     seq_len=t_b)
                 batch["weight"] = torch.from_numpy(w).to(device)
                 state, m = train_step(state, batch)
                 update += 1
@@ -401,30 +486,43 @@ def fit(cfg, train_ds: Dataset, valid_ds: Optional[Dataset] = None,
                     rec["seconds"] = now - t_last
                     t_last = now
                     log.append(_emit(tcfg.save_dir, rec))
+                if tcfg.sample_freq > 0 and update % tcfg.sample_freq == 0:
+                    _print_samples(state["params"], cfg, train_ds, dev,
+                                   step_fn, update)
                 if (tcfg.valid_freq > 0 and update % tcfg.valid_freq == 0
                         and valid_ds is not None):
-                    val = evaluate_nll(state["params"], mcfg, valid_ds,
-                                       tcfg.valid_batch_size, device)
-                    fs["history"].append({"update": update, "nll": val})
-                    _emit(tcfg.save_dir, {"kind": "valid",
-                                          "update": update, "nll": val})
-                    if val < best:
+                    scores = _validate(state["params"], cfg, valid_ds,
+                                       step_fn, update, "valid", device)
+                    if test_ds is not None:
+                        _validate(state["params"], cfg, test_ds, step_fn,
+                                  update, "test", device)
+                    val = scores[key]
+                    fs["history"].append({"update": update, **scores})
+                    if (val > best) if bigger_is_better else (val < best):
                         best = val
                         fs.update(best=val, best_step=update, bad_rounds=0)
                         save_checkpoint(best_ckpt, state, fs)
+                        _emit(tcfg.save_dir, {"kind": "best",
+                                              "update": update,
+                                              "metric": metric_name,
+                                              "value": val})
                     else:
                         fs["bad_rounds"] += 1
-                        stop = fs["bad_rounds"] >= tcfg.patience
+                        if fs["bad_rounds"] >= tcfg.patience:
+                            _emit(tcfg.save_dir, {
+                                "kind": "early_stop", "update": update,
+                                "bad_rounds": fs["bad_rounds"]})
+                            stop = True
+                            break
                 if tcfg.save_freq > 0 and update % tcfg.save_freq == 0:
                     save_checkpoint(ckpt, state, fs)
-                if stop or (max_updates is not None
-                            and update >= max_updates):
+                if max_updates is not None and update >= max_updates:
                     stop = True
                     break
     except KeyboardInterrupt:
         # keep the progress: the checkpoint below holds the last update
         _emit(tcfg.save_dir, {"kind": "interrupt", "update": update})
     save_checkpoint(ckpt, state, fs)
-    return FitResult(best_metric=best, best_step=fs["best_step"],
+    return FitResult(best_metric=float(best), best_step=fs["best_step"],
                      history=fs["history"], state=state,
                      bad_rounds=fs["bad_rounds"], log=log)

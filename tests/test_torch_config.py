@@ -23,18 +23,27 @@ PRESETS = ("msvd-temporal", "msvd-spatial", "msvd-beam", "msrvtt-fused",
 
 
 def test_port_imports_neither_jax_nor_stvd():
-    """Every module of ``stvd_torch`` imports in a process where ``jax``
-    and ``stvd`` cannot be imported at all."""
+    """Every module of ``stvd_torch`` imports in a process where ``jax``,
+    ``stvd`` and ``nltk`` cannot be imported at all (a card's machine
+    has no nltk), and the caption metrics score there."""
     code = (
         "import sys, pkgutil, importlib\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['stvd'] = None\n"
+        "sys.modules['nltk'] = None\n"
         "import stvd_torch\n"
         "names = [m.name for m in pkgutil.walk_packages(\n"
         "    stvd_torch.__path__, 'stvd_torch.')]\n"
         "for n in names:\n"
         "    importlib.import_module(n)\n"
         "assert 'stvd_torch.train.loop' in names, names\n"
+        "for n in ('tokenizer', 'stem', 'bleu', 'meteor', 'rouge', 'cider',\n"
+        "          'scorer', '_native'):\n"
+        "    assert 'stvd_torch.metrics.' + n in names, n\n"
+        "from stvd_torch.metrics.scorer import score_all\n"
+        "s = score_all({'a': ['a man is running']}, {'a': ['men run']},\n"
+        "              meteor_profile='meteor15-en')\n"
+        "assert s['METEOR'] > 0, s\n"
         "print(len(names))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
