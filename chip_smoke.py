@@ -1152,6 +1152,251 @@ def phase_train(kernel, dev, seed, cfg, phase, expect, updates=5,
     return out
 
 
+def write_corpus(root, cfg, seed, n_videos=768, per_split=256) -> None:
+    """A corpus on disk, written with the port's own writers: the port's
+    synthetic bank of ``n_videos`` (ids vid1..vidN, ``FeatureBank.save``),
+    2 captions a video of 4-28 words drawn Zipf-like over the vocabulary
+    (so captions of every bucket length occur and frequent words are
+    learnable), ``{train,valid,test}_ids.txt`` of ``per_split`` videos
+    each and a ``vocab.pkl`` of the model's whole vocabulary."""
+    from stvd_torch.data.bank import synthetic_bank
+    from stvd_torch.data.text import EOS_TOKEN, UNK_TOKEN, Vocab
+    m = cfg.model
+    bank = synthetic_bank(n_videos, k=m.n_frames, d=m.ctx_dim, seed=seed)
+    bank = dataclasses.replace(
+        bank, ids=[f"vid{i}" for i in range(1, n_videos + 1)])
+    bank.save(os.path.join(root, "feats.npz"))
+    words = [f"w{i}" for i in range(2, m.n_words)]
+    rank = 1.0 / np.arange(1, len(words) + 1)
+    rng = np.random.RandomState(seed)
+    caps = {v: [" ".join(rng.choice(words, rng.randint(4, 29),
+                                    p=rank / rank.sum()))
+                for _ in range(2)] for v in bank.ids}
+    with open(os.path.join(root, "captions.json"), "w") as f:
+        json.dump(caps, f)
+    for i, split in enumerate(("train", "valid", "test")):
+        with open(os.path.join(root, f"{split}_ids.txt"), "w") as f:
+            f.write("\n".join(bank.ids[i * per_split:(i + 1) * per_split]))
+    Vocab({EOS_TOKEN: 0, UNK_TOKEN: 1,
+           **{w: i + 2 for i, w in enumerate(words)}}).save_pickle(
+        os.path.join(root, "vocab.pkl"))
+
+
+def phase_eval_fit(kernel, step_mod, dev, seed, cfg) -> dict:
+    """Model selection as a user runs it, at full width: ``load_splits``
+    reads a corpus written to disk (``write_corpus``), then
+    ``fit(cfg, train, valid, test_ds=test, max_updates=10)`` with
+    ``metric='meteor'``, ``length_buckets='10,20,30'``, validation and
+    samples every 5 updates, batch 64, the train-scan tail kernel on and
+    the decode step picked by ``fit`` itself.  Every kernel's launches
+    are counted from zero over the fit: the attention core and the logit
+    tail once a decode step (beam-5 evaluation of valid and test, greedy
+    samples), all on their Hopper routes (cluster, wgmma), the train-scan
+    tail once a scan step (the updates at their bucket's length, the
+    validation NLL at maxlen), all on wgmma, the others not at all.  Each
+    round's decode, scoring and NLL are timed apart per split (synced);
+    each round's ``score_all`` must give the same scores on the native
+    core and with ``STVD_NO_NATIVE=1``; the samples files must be there;
+    and the fitted weights' valid captions through the kernel step must
+    agree with the plain step's on a share of 0.95 of the videos."""
+    import tempfile
+    from stvd_torch.data import corpus
+    from stvd_torch.metrics import _native
+    from stvd_torch.train import evaluate, loop
+    base = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(base, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=base) as root:
+        t0 = time.perf_counter()
+        write_corpus(root, cfg, seed)
+        run = os.path.join(root, "run")
+        cfg = cfg.replace(
+            model=dataclasses.replace(cfg.model, train_tail_kernel="on"),
+            train=dataclasses.replace(
+                cfg.train, metric="meteor", length_buckets="10,20,30",
+                valid_freq=5, sample_freq=5, disp_freq=5, batch_size=64,
+                save_dir=run),
+            data=dataclasses.replace(
+                cfg.data, dataset="youtube2text", data_dir=root,
+                feature_file="feats.npz", captions_file="captions.json",
+                vocab_file="vocab.pkl"))
+        splits = corpus.load_splits(cfg)
+        corpus_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        require(_native.get_lib() is not None, "eval_fit: no metrics core")
+        core_s = time.perf_counter() - t0       # its build, once a tree
+        require([splits[s].bank.n_videos for s in ("train", "valid", "test")]
+                 == [256] * 3, "eval_fit: splits of 256 videos each")
+
+        timed = []          # (what, split, seconds, payload)
+        split_of = {}
+
+        def timing(fn, what):
+            def wrapped(*args, **kw):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = fn(*args, **kw)
+                torch.cuda.synchronize()
+                # a copy: fit adds the NLL to the scores dict it returns
+                timed.append((what, time.perf_counter() - t, args,
+                              dict(out) if isinstance(out, dict) else out))
+                return out
+            return wrapped
+
+        real = {"generate": evaluate.generate_captions,
+                "score": evaluate.score_all, "nll": loop.evaluate_nll,
+                "gather": loop.gather_batch, "step": kernel.step_kernels}
+        steps, lengths = [0], []
+
+        def gather(dev_bank, caps, idx, seq_len=0):
+            if seq_len:                  # an update's batch, not the NLL's
+                lengths.append(seq_len)
+            return real["gather"](dev_bank, caps, idx, seq_len)
+
+        evaluate.generate_captions = timing(real["generate"], "decode")
+        evaluate.score_all = timing(real["score"], "scoring")
+        loop.evaluate_nll = timing(real["nll"], "nll")
+        loop.gather_batch = gather
+        kernel.step_kernels = counted_step(real["step"], steps)
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches(kernel)
+            t0 = time.perf_counter()
+            out = loop.fit(cfg, splits["train"], splits["valid"],
+                           test_ds=splits["test"], max_updates=10,
+                           device=dev)
+            torch.cuda.synchronize()
+            fit_s = time.perf_counter() - t0
+            launches, by_route = read_launches(kernel), read_routes(kernel)
+        finally:
+            evaluate.generate_captions = real["generate"]
+            evaluate.score_all = real["score"]
+            loop.evaluate_nll = real["nll"]
+            loop.gather_batch = real["gather"]
+            kernel.step_kernels = real["step"]
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+
+        with open(os.path.join(run, "metrics.jsonl")) as f:
+            recs = [json.loads(ln) for ln in f]
+        kinds = [r["kind"] for r in recs]
+        # the splits in the order fit validates them: valid, then test
+        order = [(r["update"], r["kind"]) for r in recs
+                 if r["kind"] in ("valid", "test")]
+        require(order == [(5, "valid"), (5, "test"), (10, "valid"),
+                          (10, "test")], f"eval_fit: rounds {order}")
+        by_what = {w: [t for t in timed if t[0] == w]
+                   for w in ("decode", "scoring", "nll")}
+        require(all(len(v) == 4 for v in by_what.values()),
+                f"eval_fit: timed calls {[len(v) for v in by_what.values()]}")
+        rounds = []
+        for i, (update, split) in enumerate(order):
+            rec = next(r for r in recs if r["kind"] == split
+                       and r["update"] == update)
+            rounds.append({
+                "update": update, "split": split,
+                "decode_s": by_what["decode"][i][1],
+                "scoring_s": by_what["scoring"][i][1],
+                "nll_s": by_what["nll"][i][1],
+                **{k: rec[k] for k in ("nll", "METEOR", "Bleu_4", "CIDEr")}})
+
+        # the scorer on its native core against pure Python, per round
+        os.environ["STVD_NO_NATIVE"] = "1"
+        try:
+            for i, (_, _, args, native) in enumerate(by_what["scoring"]):
+                t0 = time.perf_counter()
+                python = real["score"](args[0], args[1],
+                                       meteor_profile=cfg.train.meteor_profile)
+                rounds[i]["python_scoring_s"] = time.perf_counter() - t0
+                require(python == native,
+                        f"eval_fit: native {native} != python {python}")
+        finally:
+            del os.environ["STVD_NO_NATIVE"]
+
+        decode_steps = steps[0]
+        update_steps = sum(lengths)
+        vbs = cfg.train.valid_batch_size
+        nll_steps = 2 * sum(
+            -(-splits[s].captions.n // min(vbs, splits[s].captions.n))
+            * cfg.train.maxlen for s in ("valid", "test"))
+        want = {k: 0 for k in KERNELS}
+        want.update(attention_core=decode_steps, logit_tail=decode_steps,
+                    train_tail=update_steps + nll_steps)
+        require(decode_steps > 0 and launches == want,
+                f"eval_fit: kernel launches {launches} != {want}")
+        for name, route in (("attention_core", "cluster"),
+                            ("logit_tail", "wgmma"),
+                            ("train_tail", "wgmma")):
+            require(by_route[name][route] == want[name],
+                    f"eval_fit: {name} launches by route {by_route[name]}, "
+                    f"want all {want[name]} on {route}")
+        require(sorted(set(lengths)) == [10, 20, 30],
+                f"eval_fit: bucket lengths {sorted(set(lengths))}")
+        samples = {}
+        for split in ("valid", "test"):
+            for ext in ("txt", "json"):
+                path = os.path.join(run, f"{split}_samples.{ext}")
+                require(os.path.isfile(path), f"eval_fit: no {path}")
+            with open(os.path.join(run, f"{split}_samples.txt")) as f:
+                samples[split] = sum(1 for _ in f)
+        require(samples == {"valid": 256, "test": 256},
+                f"eval_fit: samples lines {samples}")
+        require(os.path.isfile(os.path.join(run, "ckpt_best.pt")),
+                "eval_fit: no ckpt_best.pt")
+
+        # the fitted weights' valid captions: kernel step against plain
+        valid, params = splits["valid"], out.state["params"]
+        rows = []
+
+        def capture(*args, **kw):
+            rows.append(real["generate"](*args, **kw))
+            return rows[-1]
+
+        evaluate.generate_captions = capture
+        t0 = time.perf_counter()
+        try:
+            parity = {name: evaluate.evaluate_split(
+                params, cfg, valid, step_fn=kernel.get_step_fn(use),
+                device=dev) for name, use in (("kernels", True),
+                                              ("plain", False))}
+        finally:
+            evaluate.generate_captions = real["generate"]
+        parity_s = time.perf_counter() - t0
+        same = float(np.mean([a == b for a, b in zip(*rows)]))
+        result = {
+            "phase": "eval_fit",
+            "config": {"preset": NAME, "compute_dtype": cfg.model.compute_dtype,
+                       "dim": cfg.model.dim, "ctx_dim": cfg.model.ctx_dim,
+                       "n_frames": cfg.model.n_frames,
+                       "n_words": cfg.model.n_words,
+                       "train_tail_kernel": cfg.model.train_tail_kernel,
+                       "metric": cfg.train.metric,
+                       "meteor_profile": cfg.train.meteor_profile,
+                       "length_buckets": cfg.train.length_buckets,
+                       "batch": cfg.train.batch_size,
+                       "beam": cfg.decode.beam_size,
+                       "decode_batch": cfg.decode.decode_batch},
+            "videos": {s: splits[s].bank.n_videos for s in splits},
+            "captions": {s: splits[s].captions.n for s in splits},
+            "corpus_write_load_s": corpus_s,
+            "metrics_core_build_s": core_s, "fit_s": fit_s,
+            "rounds": rounds, "update_lengths": lengths,
+            "best": out.best_metric, "best_step": out.best_step,
+            "records": {k: kinds.count(k) for k in sorted(set(kinds))},
+            "decode_steps": decode_steps, "launches": launches,
+            "launches_by_route": by_route, "peak_mem_gib": peak,
+            "scores_native_eq_python": True,
+            "kernel_vs_plain_share": same, "bar": 0.95,
+            "valid_meteor_kernels": parity["kernels"]["METEOR"],
+            "valid_meteor_plain": parity["plain"]["METEOR"],
+            "kernel_vs_plain_s": parity_s}
+        emit(result)
+        require(same >= 0.95, f"eval_fit: kernel and plain steps agree on "
+                              f"{same:.3f} of the valid captions")
+    del out, params
+    torch.cuda.empty_cache()
+    return result
+
+
 def phase_train_kernel_vs_plain(kernel, dev, seed, cfg, batch=16) -> None:
     """One train step's loss and gradients at float32, full width, batch
     16: every training kernel on against every one off, on the same
@@ -1509,6 +1754,7 @@ def main() -> int:
                           "train_temporal_tail", ("train_tail",),
                           routes={"train_tail": "wgmma"})
     phase_train_kernel_vs_plain(kernel, dev, args.seed, cfg_sp)
+    phase_eval_fit(kernel, step_mod, dev, args.seed, cfg)
     if args.profile:
         phase_train_profile(dev, args.seed, cfg_sp, "profile_train_spatial")
         phase_train_profile(dev, args.seed,
@@ -1518,6 +1764,8 @@ def main() -> int:
     require(not any(m == "stvd" or m.startswith("stvd.")
                     for m in sys.modules),
             "the port imported the JAX package")
+    require(not any(m == "nltk" or m.startswith("nltk.")
+                    for m in sys.modules), "the port imported nltk")
 
     src = "stvd_torch/csrc/"
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

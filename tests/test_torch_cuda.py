@@ -11,6 +11,8 @@ This file imports no jax, so it runs where only torch is installed:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -773,3 +775,52 @@ def test_training_kernel_wrappers_reject_what_the_kernels_do_not_take(cuda):
                            z(8, 16), F32)
     with pytest.raises(ValueError):            # mixed operand dtypes
         tkernel.dws_gemm(z(4, 8), z(4, 6, dtype=BF16))
+
+
+def test_preset3_scan_at_a_bucket_length_matches_the_plain_tail(cuda):
+    """Preset 3 at full width (bf16, dim 3584, ctx 1024, K 28), batch 64,
+    cut to a length bucket of T 10 as bucketed training runs it: the
+    loss and gradients with the train-scan tail kernel on (10 launches,
+    all on wgmma) against the plain tail.  The two sum the tail in other
+    orders, and a 1e-7 difference can flip a bf16 rounding downstream,
+    which moves the small attention leaves (their largest entries are
+    1e-4 to 1e-10 of the model's) by a few bf16 ulps of their own size:
+    so every leaf is held to 1e-3 of the model's largest gradient entry,
+    as the float32 test above holds c_att (on an NVIDIA H100 the worst
+    leaf read 2.4e-4 of it, at T 10 as at T 30), and the loss to 1e-3
+    relative."""
+    from stvd_torch.config import preset
+    from stvd_torch.data.bank import to_device
+    from stvd_torch.data.batching import gather_batch, synthetic_dataset
+    from stvd_torch.model.decoder import init_params
+    from stvd_torch.train.loss import loss_fn
+    cfg = preset("msvd-beam")
+    m = cfg.model
+    ds = synthetic_dataset(n_videos=64, k=m.n_frames, d=m.ctx_dim,
+                           maxlen=cfg.train.maxlen, seed=0)
+    batch = gather_batch(to_device(ds.bank, cuda, BF16), ds.captions,
+                         np.arange(64, dtype=np.int32), seq_len=10)
+    batch["weight"] = torch.ones(64, device=cuda)
+    out = {}
+    for tail in ("on", "off"):
+        mc = dataclasses.replace(m, train_tail_kernel=tail,
+                                 use_dropout=False)
+        params = init_params(mc, torch.Generator(device=cuda).manual_seed(0),
+                             cuda)
+        leaves = {k: v.requires_grad_(True) for k, v in params.items()}
+        before = dict(tkernel.train_tail.launches_by_route)
+        loss, _ = loss_fn(leaves, mc, batch, train=False)
+        loss.backward()
+        torch.cuda.synchronize()
+        launched = {r: n - before[r]
+                    for r, n in tkernel.train_tail.launches_by_route.items()}
+        assert launched == ({"wgmma": 10, "wmma": 0, "f32": 0} if tail == "on"
+                            else {"wgmma": 0, "wmma": 0, "f32": 0})
+        out[tail] = (float(loss.detach()),
+                     {k: v.grad.float() for k, v in leaves.items()})
+    (lk, gk), (lp, gp) = out["on"], out["off"]
+    assert abs(lk - lp) <= 1e-3 * abs(lp)
+    top = max(float(v.abs().max()) for v in gp.values())
+    for k in gp:
+        err = float((gk[k] - gp[k]).abs().max())
+        assert err <= 1e-3 * top, (k, err, top)
