@@ -18,7 +18,11 @@ vocab 13056, bf16):
   (+ the W8A8 gates+LSTM kernel);
 * training through ``stvd_torch.train.loop.make_train_step`` (batch 64,
   T 30, adadelta, clip 10): preset 2 (spatial backward step and dWs_att
-  GEMM) and preset 3 with ``train_tail_kernel='on'`` (train-scan tail).
+  GEMM) and preset 3 with ``train_tail_kernel='on'`` (train-scan tail);
+* model selection through ``stvd_torch.train.loop.fit`` (``eval_fit``):
+  a corpus written to disk and read back by ``load_splits``, preset 3
+  trained at bucketed lengths with the train-scan tail, valid and test
+  decoded (attention core, logit tail) and scored by METEOR each round.
 
 Each path's kernel launches are counted from zero over its run: those of
 the path must equal its decode steps (serving; the logit tail and the
@@ -1227,8 +1231,7 @@ def phase_eval_fit(kernel, step_mod, dev, seed, cfg) -> dict:
         require([splits[s].bank.n_videos for s in ("train", "valid", "test")]
                  == [256] * 3, "eval_fit: splits of 256 videos each")
 
-        timed = []          # (what, split, seconds, payload)
-        split_of = {}
+        timed = []          # (what, seconds, args, result)
 
         def timing(fn, what):
             def wrapped(*args, **kw):
@@ -1364,11 +1367,10 @@ def phase_eval_fit(kernel, step_mod, dev, seed, cfg) -> dict:
         same = float(np.mean([a == b for a, b in zip(*rows)]))
         result = {
             "phase": "eval_fit",
-            "config": {"preset": NAME, "compute_dtype": cfg.model.compute_dtype,
-                       "dim": cfg.model.dim, "ctx_dim": cfg.model.ctx_dim,
-                       "n_frames": cfg.model.n_frames,
-                       "n_words": cfg.model.n_words,
-                       "train_tail_kernel": cfg.model.train_tail_kernel,
+            "config": {"preset": NAME,
+                       **{k: getattr(cfg.model, k) for k in (
+                           "compute_dtype", "dim", "ctx_dim", "n_frames",
+                           "n_words", "train_tail_kernel")},
                        "metric": cfg.train.metric,
                        "meteor_profile": cfg.train.meteor_profile,
                        "length_buckets": cfg.train.length_buckets,

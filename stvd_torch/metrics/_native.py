@@ -30,7 +30,7 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -44,8 +44,12 @@ CXXFLAGS = ("-O3", "-mtune=native", "-std=c++17", "-fPIC", "-Wall",
 _lib: Optional[ctypes.CDLL] = None
 
 
+def _cxx_name() -> str:
+    return os.environ.get("CXX") or "g++"
+
+
 def _cxx() -> str:
-    cxx = os.environ.get("CXX") or "g++"
+    cxx = _cxx_name()
     found = shutil.which(cxx)
     if found is None:
         raise RuntimeError(f"C++ compiler {cxx!r} not found: the metrics "
@@ -58,20 +62,18 @@ def compile_command(cxx: str, out: str) -> list:
     return [cxx, *CXXFLAGS, "-shared", "-o", out, str(SOURCE)]
 
 
-def library_path(build_dir: Optional[Path] = None) -> Path:
-    """The library's name: a hash of the source and the compile command
-    (compiler name and flags, paths left out)."""
-    h = hashlib.sha256(repr(compile_command(
-        os.environ.get("CXX") or "g++", "")).encode())
+def library_path() -> Path:
+    """The library's name in ``BUILD_DIR``: a hash of the source and the
+    compile command (compiler name and flags, paths left out)."""
+    h = hashlib.sha256(repr(compile_command(_cxx_name(), "")).encode())
     h.update(SOURCE.read_bytes())
-    return (Path(build_dir) if build_dir else BUILD_DIR) / (
-        f"libstvd_metrics_{h.hexdigest()[:16]}.so")
+    return BUILD_DIR / f"libstvd_metrics_{h.hexdigest()[:16]}.so"
 
 
-def build(build_dir: Optional[Path] = None) -> Path:
+def build() -> Path:
     """The library's path, compiled first unless it exists: to a
     temporary file beside it, moved into place by ``os.replace``."""
-    out = library_path(build_dir)
+    out = library_path()
     if out.is_file():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
@@ -104,11 +106,6 @@ def load(path: Path) -> ctypes.CDLL:
                                       i32p, i32p, i32p, ctypes.c_int32,
                                       i32p, i32p]
     lib.stvd_meteor_align.restype = None
-    lib.stvd_meteor_align_pairs.argtypes = [
-        i32p, i32p, i32p, ctypes.c_int32,
-        i32p, i32p, i32p, ctypes.c_int32,
-        i32p, i32p, i32p, i32p]
-    lib.stvd_meteor_align_pairs.restype = None
     lib.stvd_meteor_corpus.argtypes = [i32p, i32p, i32p, i32p, i32p, i32p,
                                        i32p, ctypes.c_int32,
                                        ctypes.c_double, ctypes.c_double,
@@ -133,6 +130,16 @@ def get_lib() -> Optional[ctypes.CDLL]:
 
 def _as_i32(x: Sequence[int]) -> np.ndarray:
     return np.ascontiguousarray(np.asarray(x, dtype=np.int32))
+
+
+def _csr(items) -> Tuple[np.ndarray, np.ndarray]:
+    """Id arrays flattened, with their offsets (CSR layout)."""
+    off = np.zeros(len(items) + 1, np.int32)
+    for i, x in enumerate(items):
+        off[i + 1] = off[i] + len(x)
+    flat = (np.concatenate([_as_i32(x) for x in items])
+            if items else np.zeros(0, np.int32))
+    return np.ascontiguousarray(flat), np.ascontiguousarray(off)
 
 
 def _ptr(a: np.ndarray):
@@ -193,36 +200,6 @@ def meteor_align(hyp, hyp_stem, hyp_syn, ref, ref_stem, ref_syn
     return int(m.value), int(c.value)
 
 
-def meteor_align_pairs(hyp, hyp_stem, hyp_syn, ref, ref_stem, ref_syn
-                       ) -> Optional[List[Tuple[int, int, int]]]:
-    """Chosen alignment as (hyp_pos, ref_pos, stage) triples in hyp
-    order, or None if the native lib is absent / ref exceeds the
-    native 62-token mask."""
-    lib = get_lib()
-    if lib is None or len(ref) > 62:
-        return None
-    h, hs = _as_i32(hyp), _as_i32(hyp_stem)
-    r, rs = _as_i32(ref), _as_i32(ref_stem)
-    if hyp_syn is None or ref_syn is None:
-        null = ctypes.cast(None, ctypes.POINTER(ctypes.c_int32))
-        hp = rp = null
-    else:
-        hy, ry = _as_i32(hyp_syn), _as_i32(ref_syn)
-        hp, rp = _ptr(hy), _ptr(ry)
-    pairs = np.zeros(max(1, len(h)) * 3, np.int32)
-    n = ctypes.c_int32(0)
-    m = ctypes.c_int32(0)
-    c = ctypes.c_int32(0)
-    lib.stvd_meteor_align_pairs(_ptr(h), _ptr(hs), hp, len(h),
-                                _ptr(r), _ptr(rs), rp, len(r),
-                                _ptr(pairs), ctypes.byref(n),
-                                ctypes.byref(m), ctypes.byref(c))
-    if n.value < 0:
-        return None
-    out = pairs[:n.value * 3].reshape(-1, 3)
-    return [(int(a), int(b), int(s)) for a, b, s in out]
-
-
 def lcs_batch(hyp_ids, refs_ids) -> Optional[np.ndarray]:
     """LCS lengths for every (video hyp, video ref) pair in one call.
 
@@ -233,17 +210,9 @@ def lcs_batch(hyp_ids, refs_ids) -> Optional[np.ndarray]:
     if lib is None:
         return None
 
-    def csr(items):
-        off = np.zeros(len(items) + 1, np.int32)
-        for i, x in enumerate(items):
-            off[i + 1] = off[i] + len(x)
-        flat = (np.concatenate([_as_i32(x) for x in items])
-                if items else np.zeros(0, np.int32))
-        return np.ascontiguousarray(flat), np.ascontiguousarray(off)
-
-    h_flat, h_off = csr(hyp_ids)
+    h_flat, h_off = _csr(hyp_ids)
     all_refs = [r for refs in refs_ids for r in refs]
-    r_flat, r_off = csr(all_refs)
+    r_flat, r_off = _csr(all_refs)
     pair_h, pair_r = [], []
     ri = 0
     for v, refs in enumerate(refs_ids):
@@ -272,20 +241,12 @@ def meteor_corpus(hyp_ids, hyp_stems, refs_ids, refs_stems,
         return None
     n_vid = len(hyp_ids)
 
-    def csr(items):
-        off = np.zeros(len(items) + 1, np.int32)
-        for i, x in enumerate(items):
-            off[i + 1] = off[i] + len(x)
-        flat = (np.concatenate([_as_i32(x) for x in items])
-                if items else np.zeros(0, np.int32))
-        return np.ascontiguousarray(flat), np.ascontiguousarray(off)
-
-    h_flat, h_off = csr(hyp_ids)
-    hs_flat, _ = csr(hyp_stems)
+    h_flat, h_off = _csr(hyp_ids)
+    hs_flat, _ = _csr(hyp_stems)
     all_refs = [r for refs in refs_ids for r in refs]
     all_stems = [r for refs in refs_stems for r in refs]
-    r_flat, r_off = csr(all_refs)
-    rs_flat, _ = csr(all_stems)
+    r_flat, r_off = _csr(all_refs)
+    rs_flat, _ = _csr(all_stems)
     vid_off = np.zeros(n_vid + 1, np.int32)
     for v, refs in enumerate(refs_ids):
         vid_off[v + 1] = vid_off[v] + len(refs)

@@ -95,7 +95,8 @@ class PorterStemmer:
 
     @staticmethod
     def _replace_suffix(word: str, suffix: str, replacement: str) -> str:
-        assert word.endswith(suffix), "Given word doesn't end with given suffix"
+        assert word.endswith(suffix), \
+            "Given word doesn't end with given suffix"
         if suffix == "":
             return word + replacement
         return word[: -len(suffix)] + replacement

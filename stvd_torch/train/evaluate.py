@@ -45,9 +45,7 @@ def generate_captions(params, mcfg, dev_bank: Dict[str, torch.Tensor],
             if pad:
                 rows = np.concatenate([rows, np.zeros(pad, np.int64)])
             idx = torch.from_numpy(rows.astype(np.int64)).to(dev)
-            batch = {k: dev_bank[k].index_select(0, idx)
-                     for k in ("frames", "frame_mask", "regions", "motion")
-                     if k in dev_bank}
+            batch = {k: v.index_select(0, idx) for k, v in dev_bank.items()}
             if dcfg.beam_size <= 1:
                 toks = greedy_decode(params, mcfg, batch, maxlen=dcfg.maxlen,
                                      step_fn=step_fn).tokens

@@ -382,9 +382,7 @@ def _print_samples(params: Params, cfg, ds: Dataset, dev_bank, step_fn,
     first reference, one ``sample`` record each."""
     rows = torch.arange(min(n, ds.bank.n_videos),
                         device=dev_bank["frames"].device)
-    batch = {k: dev_bank[k].index_select(0, rows)
-             for k in ("frames", "frame_mask", "regions", "motion")
-             if k in dev_bank}
+    batch = {k: v.index_select(0, rows) for k, v in dev_bank.items()}
     with torch.no_grad():
         toks = greedy_decode(params, cfg.model, batch,
                              maxlen=cfg.decode.maxlen,

@@ -304,3 +304,15 @@ def test_fit_resume_checks_the_metric(tmp_path, metric, jax_python_scorer):
     else:
         assert reload["best"] == first.best_metric
         assert [h["update"] for h in resumed.history] == [2, 4, 6]
+
+
+def test_metric_keys_and_perplexity_match_jax():
+    """``train.metric`` names the score ``fit`` selects by (with the
+    reference's misspelled 'blue'), and the perplexity of a per-token
+    NLL, clipped at 50, as in the JAX package."""
+    from stvd.train import loop as jloop
+    for name in ("meteor", "bleu4", "blue", "cider", "rouge", "nll"):
+        assert tloop._metric_key(name) == jloop._metric_key(name)
+    assert tloop._metric_key("blue") == "Bleu_4"
+    for nll in (0.0, 1.7, 49.9, 50.0, 80.0):
+        assert tloop.perplexity(nll) == jloop.perplexity(nll)
