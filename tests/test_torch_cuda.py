@@ -786,8 +786,7 @@ def test_preset3_scan_at_a_bucket_length_matches_the_plain_tail(cuda):
     which moves the small attention leaves (their largest entries are
     1e-4 to 1e-10 of the model's) by a few bf16 ulps of their own size:
     so every leaf is held to 1e-3 of the model's largest gradient entry,
-    as the float32 test above holds c_att (on an NVIDIA H100 the worst
-    leaf read 2.4e-4 of it, at T 10 as at T 30), and the loss to 1e-3
+    as the float32 test above holds c_att, and the loss to 1e-3
     relative."""
     from stvd_torch.config import preset
     from stvd_torch.data.bank import to_device
