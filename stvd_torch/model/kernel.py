@@ -263,8 +263,13 @@ logit_tail.launches_by_route = dict.fromkeys(LOGIT_TAIL_ROUTES, 0)
 
 def make_logit_tail(w, b, k_sel: int):
     """The fused logit-tail closure for the decode loops, built once per
-    decode call (mirror of the JAX ``make_logit_tail``).  Columns past the
-    vocab are masked inside the kernel, so W needs no padded copy."""
+    decode call (mirror of the JAX ``make_logit_tail``), or ``None`` when
+    ``k_sel > 8``: the kernel keeps at most eight candidates a row, and
+    the caller then takes the materialized logits, as the JAX package's
+    callers do.  Columns past the vocab are masked inside the kernel, so
+    W needs no padded copy."""
+    if k_sel > 8:
+        return None
     b = b.to(torch.float32)
 
     def tail(act):

@@ -132,3 +132,21 @@ def test_beam_exits_early_once_every_beam_ends():
     assert (out.all_tokens[:, :, 1:] == 0).all()
     assert (out.all_scores[:, 0] == out.scores).all()
     assert torch.isfinite(out.scores).all()
+
+
+def test_beam_above_eight_takes_the_plain_logits():
+    """Beam 9 through the kernel step: the logit tail keeps at most 8
+    candidates a row, so ``make_logit_tail`` gives no closure and the
+    decode takes the materialized logits, as the JAX package's does."""
+    assert tkernel.make_logit_tail(torch.zeros(4, 16), torch.zeros(16),
+                                   9) is None
+    p, frames, mask = inputs()
+    out = tbeam.beam_decode(params_from_numpy(p, "cpu"), CFG,
+                            torch_batch(frames, mask), beam_size=9,
+                            maxlen=MAXLEN, step_fn=tkernel.step_kernels)
+    ref = jax_out("beam", 9)
+    for f in ("tokens", "lengths", "all_tokens"):
+        np.testing.assert_array_equal(getattr(out, f).numpy(), ref[f], f)
+    for f in ("scores", "norm_scores", "all_scores", "all_norm_scores"):
+        np.testing.assert_allclose(getattr(out, f).numpy(), ref[f],
+                                   err_msg=f, **SCORE_TOL)
