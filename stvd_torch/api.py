@@ -14,7 +14,7 @@ n-best lists, sampling and bank-resident requests are still to come.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Optional, Sequence, Union
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -33,15 +33,23 @@ __all__ = ["Captioner", "Config", "Vocab", "chunked_caption",
            "pack_request", "preset"]
 
 
-def chunked_caption(run: Callable[[Dict], torch.Tensor],
-                    batch: Dict[str, torch.Tensor], bsz: int,
-                    vocab: Vocab) -> List[str]:
-    """Drive ``run(chunk) -> tokens`` over a batch of any size in fixed
-    ``bsz`` chunks, the last one zero-padded, so every decode runs at the
-    same shapes.  Padded rows get one valid frame so their softmax stays
-    sane; their captions are dropped."""
+def chunked_caption(run: Callable, params, batch: Dict[str, torch.Tensor],
+                    bsz: int, vocab: Vocab, window: int = 4) -> List[str]:
+    """Drive ``run(params, chunk) -> (tokens, scores)`` over a batch of
+    any size in fixed ``bsz`` chunks, the last one zero-padded, so every
+    decode runs at the same shapes (the JAX package's signature).  Padded
+    rows get one valid frame so their softmax stays sane; their captions
+    are dropped.  Up to ``window`` chunks stay in flight before the
+    oldest one's tokens are copied to the host."""
     n = int(batch["frames"].shape[0])
+    pending: List = []
     out: List[str] = []
+
+    def drain_one():
+        count, toks = pending.pop(0)
+        toks = toks.cpu().numpy()
+        out.extend(" ".join(vocab.decode(toks[i])) for i in range(count))
+
     for s in range(0, n, bsz):
         e = min(s + bsz, n)
         chunk = {k: v[s:e] for k, v in batch.items()}
@@ -50,8 +58,12 @@ def chunked_caption(run: Callable[[Dict], torch.Tensor],
             chunk = {k: torch.cat([v, v.new_zeros((pad,) + v.shape[1:])])
                      for k, v in chunk.items()}
             chunk["frame_mask"][e - s:, 0] = 1.0
-        toks = run(chunk).cpu().numpy()
-        out.extend(" ".join(vocab.decode(toks[i])) for i in range(e - s))
+        toks, _ = run(params, chunk)
+        pending.append((e - s, toks))
+        if len(pending) >= window:
+            drain_one()
+    while pending:
+        drain_one()
     return out
 
 
@@ -103,30 +115,39 @@ class Captioner:
         self.vocab = vocab
         self.step_fn = step_fn or get_step_fn(None, self.device)
 
-    def _run(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    def _run(self, params, batch: Dict[str, torch.Tensor]
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(params, batch) -> (tokens, scores): the best beam and its
+        length-normalized score, or the greedy caption and its log-prob.
+        The weights are an input of the call, not read from ``self``, so
+        a concurrent ``swap_params`` never changes them mid-request;
+        ``inference_mode`` is entered here because it is thread-local."""
         cfg = self.cfg
         d = cfg.decode
         with torch.inference_mode():
             if d.beam_size <= 1:
-                return greedy_decode(self.params, cfg.model, batch,
-                                     maxlen=d.maxlen,
-                                     step_fn=self.step_fn).tokens
-            return beam_decode(self.params, cfg.model, batch,
-                               beam_size=d.beam_size, maxlen=d.maxlen,
-                               length_norm=d.length_norm,
-                               step_fn=self.step_fn).tokens
+                out = greedy_decode(params, cfg.model, batch,
+                                    maxlen=d.maxlen, step_fn=self.step_fn)
+                return out.tokens, out.scores
+            out = beam_decode(params, cfg.model, batch,
+                              beam_size=d.beam_size, maxlen=d.maxlen,
+                              length_norm=d.length_norm,
+                              step_fn=self.step_fn)
+            return out.tokens, out.norm_scores
 
     def caption_batch(self, batch: Dict[str, torch.Tensor]) -> List[str]:
         """Caption a prepared device batch in ``decode_batch`` chunks."""
-        return chunked_caption(self._run, batch,
+        return chunked_caption(self._run, self.params, batch,
                                self.cfg.decode.decode_batch, self.vocab)
 
     def caption(self, features: Union[np.ndarray, Sequence[np.ndarray]],
-                regions: Optional[Sequence[np.ndarray]] = None
+                regions: Optional[Sequence[np.ndarray]] = None,
+                motion: Optional[Sequence[np.ndarray]] = None
                 ) -> List[str]:
         """Caption raw per-video feature arrays: (N, F, D) or a list of
         (F_i, D) arrays, with per-video (F_i, R, Dr) region features for
-        the spatial model."""
+        the spatial model.  ``motion`` raises ``NotImplementedError``
+        until the motion stream is ported."""
         return self.caption_batch(
-            pack_request(self.cfg.model, features, regions,
+            pack_request(self.cfg.model, features, regions, motion,
                          device=self.device))

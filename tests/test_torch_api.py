@@ -71,12 +71,14 @@ def test_pack_request_rejects_unported_streams():
 def test_chunked_caption_pads_last_chunk_with_one_valid_frame():
     seen = []
 
-    def run(chunk):
+    def run(params, chunk):
+        assert params == "weights"
         seen.append({k: v.clone() for k, v in chunk.items()})
-        return torch.zeros((chunk["frames"].shape[0], 4), dtype=torch.int64)
+        n = chunk["frames"].shape[0]
+        return torch.zeros((n, 4), dtype=torch.int64), torch.zeros(n)
 
     batch = tapi.pack_request(CFG, request(n=5), device="cpu")
-    out = tapi.chunked_caption(run, batch, 3, VOCAB)
+    out = tapi.chunked_caption(run, "weights", batch, 3, VOCAB)
     assert out == [""] * 5
     assert [c["frames"].shape[0] for c in seen] == [3, 3]
     last = seen[1]["frame_mask"]
@@ -85,6 +87,30 @@ def test_chunked_caption_pads_last_chunk_with_one_valid_frame():
     np.testing.assert_array_equal(last[2].numpy(),
                                   np.eye(1, CFG.n_frames)[0])
     assert float(seen[1]["frames"][2].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("window", [1, 4])
+@pytest.mark.parametrize("n", [2, 5, 13])
+def test_chunked_caption_takes_the_jax_positional_order(window, n):
+    """``chunked_caption(run, params, batch, bsz, vocab, window)`` as the
+    JAX package calls it gives ``Captioner.caption``'s captions, for runs
+    of fewer chunks than ``window`` (n 2 and 5 at bsz 3) and of more."""
+    cap = tapi.Captioner(numpy_params(CFG, seed=22), config(3), VOCAB,
+                         device="cpu")
+    feats = request(n=n)
+    batch = tapi.pack_request(CFG, feats, device="cpu")
+    got = tapi.chunked_caption(cap._run, cap.params, batch, 3, VOCAB,
+                               window)
+    assert got == cap.caption(feats)
+    assert len(got) == n
+
+
+def test_caption_takes_motion_in_the_jax_position():
+    cap = tapi.Captioner(numpy_params(CFG, seed=22), config(3), VOCAB,
+                         device="cpu")
+    feats = request(n=2)
+    with pytest.raises(NotImplementedError, match="motion"):
+        cap.caption(feats, None, [np.zeros((4, 8), np.float32)] * 2)
 
 
 def test_to_device_casts_features_not_mask():
