@@ -22,11 +22,18 @@ vocab 13056, bf16):
 * model selection through ``stvd_torch.train.loop.fit`` (``eval_fit``):
   a corpus written to disk and read back by ``load_splits``, preset 3
   trained at bucketed lengths with the train-scan tail, valid and test
-  decoded (attention core, logit tail) and scored by METEOR each round.
+  decoded (attention core, logit tail) and scored by METEOR each round;
+* the user entry points (``cli``), preset 3 on such a corpus:
+  ``stvd_torch.cli.train`` (train-scan tail on), ``cli.sample`` (beam
+  samples, n-best, top-k sampling, attention maps, NLL), ``cli.score``,
+  ``cli.convert`` of the bank, and ``cli.serve`` over the run dir with
+  the bank resident (feature, n-best, id and concurrent requests, and a
+  weight swap), each request's captions held to ``Captioner``'s.
 
 Each path's kernel launches are counted from zero over its run: those of
-the path must equal its decode steps (serving; the logit tail and the
-int8 gates+LSTM step all on their wgmma routes) or 30 per update (the
+the path must equal its decode steps (serving and the entry points; the
+logit tail and the int8 gates+LSTM step all on their wgmma routes), its
+scan steps (the train-scan tail of the entry points) or 30 per update (the
 dWs_att GEMM once, all on its wgmma route; the spatial backward step all
 on its 16-byte-load route; the train-scan tail all on its wgmma route),
 the others 0.  The kernels with routes (logit tail, gates+LSTM step,
@@ -1399,6 +1406,358 @@ def phase_eval_fit(kernel, step_mod, dev, seed, cfg) -> dict:
     return result
 
 
+def counted_tails(inner, steps, ks):
+    """``counted_step`` that also records the k of every logit tail a
+    decode asks for (one per decode call)."""
+    fn = counted_step(inner, steps)
+
+    def make_logit_tail(w, b, k_sel):
+        ks.append(k_sel)
+        return inner.make_logit_tail(w, b, k_sel)
+
+    fn.make_logit_tail = make_logit_tail
+    return fn
+
+
+def quiet(fn, *args):
+    """``fn(*args)`` with its standard output kept out of the script's;
+    returns its result and its wall seconds (synced)."""
+    import contextlib
+    import io
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        out = fn(*args)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase_cli(kernel, dev, seed, cfg, info) -> dict:
+    """The port's user entry points in process at full width (preset 3,
+    bf16) on a corpus on disk (``write_corpus``), each with every
+    kernel's launches counted from zero:
+
+    1. ``cli.train``: 5 updates at batch 64 (T 30) with the train-scan
+       tail on, greedy samples and one validation round (valid and test,
+       beam 5) at update 5, which writes ``ckpt_best.pt``;
+    2. ``cli.sample`` on test with ``--nbest 5 --stochastic 2 --top-k 5
+       --dump-attention 8 --nll``, then ``cli.score`` on its samples file,
+       whose scores must equal those ``cli.sample`` wrote;
+    3. ``cli.convert`` of the bank, as legacy pickles, to an .npz that
+       must load equal to the corpus's bank;
+    4. ``cli.serve``'s ``build_server`` on the run dir with that bank
+       resident, ``--coalesce-wait-ms 2`` and ``--allow-swap``: a
+       256-video raw ``/caption`` equal to ``Captioner.from_run_dir``'s
+       captions of the same features, ``/nbest`` on 16 videos whose entry
+       0 equals ``/caption``'s, ``/caption_ids`` on the 256 videos' ids
+       with the same captions, 8 concurrent clients of 32 videos each
+       with the same captions, and a ``/swap_params`` after which the
+       captions equal a fresh Captioner's on the new weights.
+
+    The attention core and the logit tail launch once a decode step, all
+    on their Hopper routes (cluster, wgmma), at the k each decode asks
+    for (beam 5, greedy 1, top-k 5); the train-scan tail once a scan
+    step (updates and NLL passes), all on wgmma; every other kernel not
+    at all.  Then one ``sample_decode`` at top-k 12 launches no logit
+    tail (the plain logits path)."""
+    import math
+    import pickle
+    import tempfile
+    from stvd_torch.api import Captioner
+    from stvd_torch.cli import convert, sample, score, serve, train
+    from stvd_torch.data.bank import FeatureBank, to_device
+    from stvd_torch.decode.sample import sample_decode
+    from stvd_torch.model.step import compute_dtype
+    base = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(base, exist_ok=True)
+    steps, ks = [0], []
+    real_step = kernel.step_kernels
+    kernel.step_kernels = counted_tails(real_step, steps, ks)
+    result = {"phase": "cli", "card": info["nvidia_smi"], "steps": {}}
+
+    def counted(name, fn, *args):
+        """Run one step from zero counts; its record, its output."""
+        reset_launches(kernel)
+        steps[0] = 0
+        ks.clear()
+        out, secs = quiet(fn, *args)
+        rec = {"seconds": secs, "decode_steps": steps[0], "ks": list(ks),
+               "launches": read_launches(kernel),
+               "launches_by_route": read_routes(kernel)}
+        result["steps"][name] = rec
+        return rec, out
+
+    def check(name, rec, train_tail=0):
+        want = {k: 0 for k in KERNELS}
+        want.update(attention_core=rec["decode_steps"],
+                    logit_tail=rec["decode_steps"], train_tail=train_tail)
+        require(rec["launches"] == want,
+                f"cli {name}: kernel launches {rec['launches']} != {want}")
+        for kname, route in (("attention_core", "cluster"),
+                             ("logit_tail", "wgmma"),
+                             ("train_tail", "wgmma")):
+            require(rec["launches_by_route"][kname][route] == want[kname],
+                    f"cli {name}: {kname} launches by route "
+                    f"{rec['launches_by_route'][kname]}, want all on {route}")
+
+    try:
+        with tempfile.TemporaryDirectory(dir=base) as root:
+            write_corpus(root, cfg, seed)
+            run = os.path.join(root, "run")
+            c = cfg.replace(
+                train=dataclasses.replace(
+                    cfg.train, metric="meteor", length_buckets="",
+                    valid_freq=5, sample_freq=5, disp_freq=5,
+                    batch_size=64, save_dir=run),
+                data=dataclasses.replace(
+                    cfg.data, dataset="youtube2text", data_dir=root,
+                    feature_file="feats.npz", captions_file="captions.json",
+                    vocab_file="vocab.pkl"))
+            cfg_path = os.path.join(root, "config.json")
+            with open(cfg_path, "w") as f:
+                f.write(c.to_json())
+            T = c.train.maxlen
+            vbs = c.train.valid_batch_size
+            bank_all = FeatureBank.load(os.path.join(root, "feats.npz"))
+            ids = {}
+            for split in ("train", "valid", "test"):
+                with open(os.path.join(root, f"{split}_ids.txt")) as f:
+                    ids[split] = f.read().split()
+            with open(os.path.join(root, "captions.json")) as f:
+                refs = json.load(f)
+
+            def nll_steps(split):
+                """The train tail's launches of a split's NLL pass."""
+                n = sum(len(refs[v]) for v in ids[split])
+                return 2 * -(-n // min(vbs, n)) * T
+
+            # 1. train
+            rec, rc = counted("train", train.main, [
+                "--config", cfg_path, "--set", "model.train_tail_kernel=on",
+                "--max-updates", "5", "--device", str(dev)])
+            require(rc == 0, f"cli train: exit {rc}")
+            require(rec["ks"] == [1, 5, 5], f"cli train: tails {rec['ks']}")
+            check("train", rec, 5 * T + nll_steps("valid")
+                  + nll_steps("test"))
+            with open(os.path.join(run, "metrics.jsonl")) as f:
+                kinds = [json.loads(ln)["kind"] for ln in f]
+            require(kinds[-1] == "done" and "valid" in kinds
+                    and "test" in kinds, f"cli train: records {kinds}")
+            for name in ("config.json", "vocab.pkl", "ckpt.pt",
+                         "ckpt_best.pt"):
+                require(os.path.isfile(os.path.join(run, name)),
+                        f"cli train: no {name}")
+
+            # 2. sample, then score its samples file
+            rec, rc = counted("sample", sample.main, [
+                "--run-dir", run, "--split", "test", "--nbest", "5",
+                "--stochastic", "2", "--top-k", "5", "--dump-attention",
+                "8", "--nll", "--device", str(dev)])
+            require(rc == 0, f"cli sample: exit {rc}")
+            require(rec["ks"] == [5, 5, 5, 1], f"cli sample: tails "
+                                               f"{rec['ks']}")
+            check("sample", rec, nll_steps("test"))
+            with open(os.path.join(run, "test_scores.json")) as f:
+                sampled = json.load(f)["scores"]
+            require(all(math.isfinite(v) for v in sampled.values())
+                    and sampled["nll"] > 0, f"cli sample: {sampled}")
+            with open(os.path.join(run, "test_samples.txt")) as f:
+                require(sum(1 for _ in f) == 256, "cli sample: samples")
+            with open(os.path.join(run, "test_nbest.json")) as f:
+                nb = json.load(f)
+            require(len(nb) == 5 and all(
+                len(r["beams"]) == 5 and all(
+                    math.isfinite(b["logprob"]) for b in r["beams"])
+                for r in nb), "cli sample: n-best file")
+            with open(os.path.join(run, "test_sampled.json")) as f:
+                sm = json.load(f)
+            require(len(sm) == 256 and all(
+                len(r["samples"]) == 2 and all(
+                    s["logprob"] <= 0 for s in r["samples"]) for r in sm),
+                "cli sample: sampled file")
+            with np.load(os.path.join(run, "test_attention.npz")) as z:
+                al, toks = z["alphas"], z["tokens"]
+            lens = np.minimum((toks != 0).sum(1) + 1, T)
+            live = np.arange(T)[None] < lens[:, None]
+            require(al.shape == (8, T, cfg.model.n_frames)
+                    and np.allclose(al.sum(-1)[live], 1.0, atol=1e-3),
+                    "cli sample: attention maps")
+            scored = os.path.join(run, "test_scored.json")
+            rec, rc = counted("score", score.main, [
+                "--hyp", os.path.join(run, "test_samples.json"),
+                "--refs", os.path.join(root, "captions.json"),
+                "--ids", os.path.join(root, "test_ids.txt"),
+                "--out", scored])
+            require(rc == 0 and rec["decode_steps"] == 0, "cli score")
+            check("score", rec)
+            with open(scored) as f:
+                got = json.load(f)["scores"]
+            require(got == {k: v for k, v in sampled.items() if k in got},
+                    f"cli score: {got} != {sampled}")
+
+            # 3. convert the bank, as legacy pickles, to an npz
+            feats = {v: bank_all.frames[i][bank_all.frame_mask[i] > 0]
+                     for i, v in enumerate(bank_all.ids)}
+            with open(os.path.join(root, "feats.pkl"), "wb") as f:
+                pickle.dump(feats, f, protocol=4)
+            bank_path = os.path.join(root, "bank.npz")
+            rec, rc = counted("convert", convert.main, [
+                "--features", os.path.join(root, "feats.pkl"), "--frames",
+                str(cfg.model.n_frames), "--out", bank_path])
+            require(rc == 0, "cli convert")
+            check("convert", rec)
+            conv = FeatureBank.load(bank_path)
+            rows = [conv.index()[v] for v in bank_all.ids]   # sorted ids
+            require(sorted(conv.ids) == sorted(bank_all.ids)
+                    and np.array_equal(conv.frames[rows], bank_all.frames)
+                    and np.array_equal(conv.frame_mask[rows],
+                                       bank_all.frame_mask),
+                    "cli convert: bank differs from the corpus's")
+
+            # 4. serve
+            result["serve"] = serve_checks(
+                serve, Captioner, counted, check, run, bank_path,
+                [feats[v] for v in ids["test"]], ids["test"], seed, cfg,
+                dev)
+
+            # the plain logits path of sampling: top-k 12, no logit tail
+            cap = Captioner.from_run_dir(run, device=dev)
+            batch = {k: v[:8] for k, v in to_device(
+                conv, dev, compute_dtype(cap.cfg.model)).items()}
+            rec, out = counted("sample_top_k_12", lambda: sample_decode(
+                cap.params, cap.cfg.model, batch,
+                torch.Generator(device=dev).manual_seed(seed),
+                temperature=1.0, top_k=12, n_samples=2,
+                step_fn=kernel.get_step_fn(True)))
+            require(rec["ks"] == [12] and rec["decode_steps"] > 0, "top-k 12")
+            want = {k: 0 for k in KERNELS}
+            want["attention_core"] = rec["decode_steps"]
+            require(rec["launches"] == want,
+                    f"cli top-k 12: launches {rec['launches']} != {want}")
+            require(bool(torch.isfinite(out.scores).all()), "top-k 12 scores")
+            del cap
+    finally:
+        kernel.step_kernels = real_step
+    result["launches"] = {k: sum(r["launches"][k]
+                                 for r in result["steps"].values())
+                          for k in KERNELS}
+    emit(result)
+    torch.cuda.empty_cache()
+    return result
+
+
+def serve_checks(serve, Captioner, counted, check, run, bank_path, videos,
+                 ids, seed, cfg, dev) -> dict:
+    """``cli.serve`` over the run dir with the bank resident (see
+    ``phase_cli``, step 4).  The raw wire carries (N, K, D) arrays, so
+    the feature requests send the test videos as the bank holds them, K
+    frames each with zero frames after a short video's own; the id
+    requests name the same videos."""
+    import argparse
+    import http.client
+    import threading
+    host = "127.0.0.1"
+    args = argparse.Namespace(
+        artifact=None, run_dir=run, bank=bank_path, bank_shards=0,
+        params=None, quant=None, device=str(dev), host=host, port=0,
+        no_warmup=False, coalesce_wait_ms=2.0, allow_swap=True,
+        allow_shutdown=False, verbose=False)
+    k = cfg.model.n_frames
+    arr = np.stack([np.pad(f, ((0, k - len(f)), (0, 0))) for f in videos])
+
+    def call(port, method, path, body=None):
+        conn = http.client.HTTPConnection(host, port, timeout=300)
+        try:
+            conn.request(method, path, body=body,
+                         headers={"Content-Type": "application/json"})
+            resp = conn.getresponse()
+            return resp.status, json.loads(resp.read())
+        finally:
+            conn.close()
+
+    def timed(res, name, n, fn, *a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        dt = time.perf_counter() - t0
+        res[name] = {"videos": n, "seconds": dt, "captions_per_s": n / dt}
+        return out
+
+    def drive():
+        server, build_s = quiet(serve.build_server, args)
+        warm_s = server.warmup()
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        port = server.server_port
+        res = {"build_server_s": build_s, "warmup_s": warm_s}
+        try:
+            caps = timed(res, "caption_256", 256, serve.request_captions,
+                         host, port, arr, None, None, 300.0)
+            direct = Captioner.from_run_dir(run, device=dev)
+            require(caps == direct.caption(arr),
+                    "cli serve: /caption != Captioner.caption")
+            nb = timed(res, "nbest_16", 16, serve.request_nbest, host, port,
+                       arr[:16], None, None, None, 300.0)
+            require([v[0][0] for v in nb] == caps[:16],
+                    "cli serve: /nbest entry 0 != /caption")
+            by_id = timed(res, "caption_ids_256", 256,
+                          serve.request_caption_ids, host, port, ids, 300.0)
+            require(by_id == direct.caption(videos),
+                    "cli serve: /caption_ids != Captioner.caption")
+            got = [None] * 8
+
+            def client(i):
+                got[i] = serve.request_captions(
+                    host, port, arr[32 * i:32 * (i + 1)], timeout=300.0)
+
+            def clients():
+                threads = [threading.Thread(target=client, args=(i,))
+                           for i in range(8)]
+                for t in threads:
+                    t.start()
+                for t in threads:
+                    t.join(timeout=300)
+
+            timed(res, "concurrent_8x32", 256, clients)
+            require(sum(got, []) == caps,
+                    "cli serve: concurrent clients != /caption")
+            blob = torch.load(os.path.join(run, "ckpt.pt"),
+                              weights_only=True)["params"]
+            new = {n: v.float().numpy() for n, v in blob.items()}
+            new["ff_logit_b"] = new["ff_logit_b"] + 2.0 * (
+                np.random.RandomState(seed).randn(
+                    *new["ff_logit_b"].shape).astype(np.float32))
+            swap_path = os.path.join(os.path.dirname(run), "swap.npz")
+            np.savez(swap_path, **new)
+            st, body = call(port, "POST", "/swap_params",
+                            json.dumps({"path": swap_path}))
+            require(st == 200 and body["status"] == "swapped",
+                    f"cli serve: /swap_params {st} {body}")
+            swapped = serve.request_captions(host, port, arr[:32],
+                                             timeout=300.0)
+            fresh = Captioner(new, direct.cfg, direct.vocab, device=dev)
+            require(swapped == fresh.caption(arr[:32]),
+                    "cli serve: after the swap != a fresh Captioner")
+            require(swapped != caps[:32],
+                    "cli serve: the swap changed no caption")
+            _, stats = call(port, "GET", "/stats")
+            res["stats"] = {r: {n: v[n] for n in ("count", "videos",
+                                                  "p50_ms", "p95_ms")}
+                            for r, v in stats.items()
+                            if isinstance(v, dict) and "p50_ms" in v}
+            res["coalesce"] = stats.get("coalesce")
+        finally:
+            server.shutdown()
+            server.server_close()
+            thread.join(timeout=60)
+        return res
+
+    rec, res = counted("serve", drive)
+    require(rec["ks"] and set(rec["ks"]) == {5}, f"cli serve: tails "
+                                                f"{rec['ks']}")
+    check("serve", rec)
+    return res
+
+
 def phase_train_kernel_vs_plain(kernel, dev, seed, cfg, batch=16) -> None:
     """One train step's loss and gradients at float32, full width, batch
     16: every training kernel on against every one off, on the same
@@ -1757,6 +2116,7 @@ def main() -> int:
                           routes={"train_tail": "wgmma"})
     phase_train_kernel_vs_plain(kernel, dev, args.seed, cfg_sp)
     phase_eval_fit(kernel, step_mod, dev, args.seed, cfg)
+    phase_cli(kernel, dev, args.seed, cfg, info)
     if args.profile:
         phase_train_profile(dev, args.seed, cfg_sp, "profile_train_spatial")
         phase_train_profile(dev, args.seed,

@@ -16,6 +16,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from pathlib import Path
 from typing import Optional
@@ -57,6 +58,7 @@ _SIGNATURES = {
 }
 
 _lib: Optional[ctypes.CDLL] = None
+_lib_lock = threading.Lock()   # server threads may race the first build
 build_seconds: float = 0.0
 
 
@@ -136,15 +138,17 @@ def build() -> Path:
 
 
 def lib() -> ctypes.CDLL:
-    """The loaded kernel library (built on first call)."""
+    """The loaded kernel library (built on first call, by one thread)."""
     global _lib
     if _lib is None:
-        so = ctypes.CDLL(str(build()))
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(so, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        _lib = so
+        with _lib_lock:
+            if _lib is None:
+                so = ctypes.CDLL(str(build()))
+                for name, argtypes in _SIGNATURES.items():
+                    fn = getattr(so, name)
+                    fn.argtypes = argtypes
+                    fn.restype = ctypes.c_int
+                _lib = so
     return _lib
 
 

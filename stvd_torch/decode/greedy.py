@@ -17,14 +17,16 @@ class GreedyOut(NamedTuple):
     tokens: torch.Tensor    # (B, maxlen) int64, EOS-terminated, 0-padded
     scores: torch.Tensor    # (B,) total log-prob of the emitted sequence
     lengths: torch.Tensor   # (B,) emitted tokens incl. EOS
+    alphas: Optional[torch.Tensor] = None  # (B, maxlen, K) temporal attention
 
 
 def greedy_decode(params, cfg, batch: Dict[str, torch.Tensor],
-                  maxlen: int = 30, step_fn: Optional[StepFn] = None
-                  ) -> GreedyOut:
+                  maxlen: int = 30, step_fn: Optional[StepFn] = None,
+                  return_alphas: bool = False) -> GreedyOut:
     """Greedy argmax decode of a batch (frames (B,K,D), frame_mask (B,K)
     [, regions (B,K,R,Dr)]) with an early exit once every sequence has
-    emitted EOS."""
+    emitted EOS.  ``return_alphas`` also records each step's temporal
+    attention weights (zeros past the exit)."""
     step_fn = step_fn or step_mod.step
     params = step_mod.cast_params(params, cfg)
     frames = batch["frames"]
@@ -43,6 +45,9 @@ def greedy_decode(params, cfg, batch: Dict[str, torch.Tensor],
     score = torch.zeros((B,), dtype=torch.float32, device=dev)
     length = torch.zeros((B,), dtype=torch.int64, device=dev)
     buf = torch.zeros((B, maxlen), dtype=torch.int64, device=dev)
+    abuf = (torch.zeros((B, maxlen, batch["frame_mask"].shape[1]),
+                        dtype=torch.float32, device=dev)
+            if return_alphas else None)
     for t in range(maxlen):
         if t == 0:
             emb_t = torch.zeros((B, cfg.dim_word),
@@ -66,9 +71,11 @@ def greedy_decode(params, cfg, batch: Dict[str, torch.Tensor],
         emit = torch.where(alive, nxt, EOS_ID)
         finished = finished | (nxt == EOS_ID)
         buf[:, t] = emit
+        if abuf is not None:
+            abuf[:, t] = out.alpha.to(torch.float32)
         state = StepState(out.h, out.c)
         prev = emit
         # early exit: one host sync per step reads the finished flags
         if bool(finished.all()):
             break
-    return GreedyOut(tokens=buf, scores=score, lengths=length)
+    return GreedyOut(tokens=buf, scores=score, lengths=length, alphas=abuf)

@@ -275,20 +275,29 @@ def make_train_step(mcfg, tcfg
 
 
 @torch.no_grad()
-def evaluate_nll(params: Params, mcfg, ds: Dataset, batch_size: int,
-                 device: torch.device | str = "cuda") -> float:
-    """Mean per-example NLL over a split, without dropout, in
-    fixed-shape batches (the wrapped tail weighs 0)."""
+def evaluate_nll_stats(params: Params, mcfg, ds: Dataset, batch_size: int,
+                       device: torch.device | str = "cuda"
+                       ) -> Tuple[float, float, float]:
+    """(NLL numerator, example count, token count) over a split, without
+    dropout, in fixed-shape batches (the wrapped tail weighs 0)."""
     dev = to_device(ds.bank, device, compute_dtype(mcfg))
     it = BatchIterator(ds.captions.n, min(batch_size, ds.captions.n),
                        shuffle=False)
-    num = ex = 0.0
+    num = ex = tok = 0.0
     for idx, w in it.epoch():
         batch = gather_batch(dev, ds.captions, idx)
         batch["weight"] = torch.from_numpy(w).to(device)
         t = loss_terms(params, mcfg, batch, train=False)
         num += float(t["nll_num"])
         ex += float(t["ex_den"])
+        tok += float(t["tok_den"])
+    return num, ex, tok
+
+
+def evaluate_nll(params: Params, mcfg, ds: Dataset, batch_size: int,
+                 device: torch.device | str = "cuda") -> float:
+    """Mean per-example NLL over a split."""
+    num, ex, _ = evaluate_nll_stats(params, mcfg, ds, batch_size, device)
     return num / max(ex, 1.0)
 
 
@@ -344,7 +353,13 @@ class FitResult:
     log: List[Dict] = dataclasses.field(default_factory=list)
 
 
-def _emit(save_dir: str, record: Dict) -> Dict:
+def _emit(save_dir: str, record: Dict, logger=None) -> Dict:
+    """One record through ``logger`` (a ``MetricsLogger``), or without
+    one as a JSON line on stdout and in ``save_dir/metrics.jsonl``."""
+    if logger is not None:
+        logger.log(record["kind"],
+                   **{k: v for k, v in record.items() if k != "kind"})
+        return record
     print(json.dumps(record), flush=True)
     with open(os.path.join(save_dir, "metrics.jsonl"), "a") as f:
         f.write(json.dumps(record) + "\n")
@@ -363,7 +378,7 @@ def perplexity(nll_per_token: float) -> float:
 
 
 def _validate(params: Params, cfg, ds: Dataset, step_fn, update: int,
-              split: str, device) -> Dict[str, float]:
+              split: str, device, logger=None) -> Dict[str, float]:
     """NLL and the caption metrics of a split, as one record of kind
     ``split``; the samples files go to ``save_dir``."""
     nll = evaluate_nll(params, cfg.model, ds, cfg.train.valid_batch_size,
@@ -372,12 +387,13 @@ def _validate(params: Params, cfg, ds: Dataset, step_fn, update: int,
                             save_dir=cfg.train.save_dir, step_fn=step_fn,
                             device=device)
     scores["nll"] = nll
-    _emit(cfg.train.save_dir, {"kind": split, "update": update, **scores})
+    _emit(cfg.train.save_dir, {"kind": split, "update": update, **scores},
+          logger)
     return scores
 
 
 def _print_samples(params: Params, cfg, ds: Dataset, dev_bank, step_fn,
-                   update: int, n: int = 2) -> None:
+                   update: int, logger=None, n: int = 2) -> None:
     """Greedy captions of the split's first ``n`` videos beside their
     first reference, one ``sample`` record each."""
     rows = torch.arange(min(n, ds.bank.n_videos),
@@ -392,11 +408,11 @@ def _print_samples(params: Params, cfg, ds: Dataset, dev_bank, step_fn,
         _emit(cfg.train.save_dir, {
             "kind": "sample", "update": update, "video": ds.bank.ids[i],
             "pred": " ".join(ds.vocab.decode(toks[i])),
-            "gold": " ".join(refs[0]) if refs else ""})
+            "gold": " ".join(refs[0]) if refs else ""}, logger)
 
 
 def fit(cfg, train_ds: Dataset, valid_ds: Optional[Dataset] = None,
-        step_fn=None, *, max_updates: Optional[int] = None,
+        step_fn=None, *, logger=None, max_updates: Optional[int] = None,
         test_ds: Optional[Dataset] = None,
         device: torch.device | str = "cuda") -> FitResult:
     """Train until ``max_epochs``, ``max_updates`` or early stopping on
@@ -412,7 +428,9 @@ def fit(cfg, train_ds: Dataset, valid_ds: Optional[Dataset] = None,
     ``sample`` records of the training split, and every ``valid_freq``
     a ``valid`` record (NLL and every caption metric) and, with
     ``test_ds``, a ``test`` record; the model is selected on valid only.
-    Records go to stdout and ``save_dir/metrics.jsonl``.  A better
+    Records go through ``logger`` (a ``utils.logging.MetricsLogger``,
+    which the caller closes) or, without one, to stdout and
+    ``save_dir/metrics.jsonl``.  A better
     metric writes ``ckpt_best.pt`` and a ``best`` record; ``patience``
     rounds without one end the run with an ``early_stop`` record.
     ``length_buckets`` batches captions by length (``maxlen`` added as
@@ -446,7 +464,7 @@ def fit(cfg, train_ds: Dataset, valid_ds: Optional[Dataset] = None,
     if reload:
         _emit(tcfg.save_dir, {"kind": "reload", "step": state["step"],
                               "best": float(best),
-                              "bad_rounds": fs["bad_rounds"]})
+                              "bad_rounds": fs["bad_rounds"]}, logger)
     train_step = make_train_step(mcfg, tcfg)
     dev = to_device(train_ds.bank, device, compute_dtype(mcfg))
     if tcfg.length_buckets:
@@ -483,17 +501,18 @@ def fit(cfg, train_ds: Dataset, valid_ds: Optional[Dataset] = None,
                     now = time.perf_counter()
                     rec["seconds"] = now - t_last
                     t_last = now
-                    log.append(_emit(tcfg.save_dir, rec))
+                    log.append(_emit(tcfg.save_dir, rec, logger))
                 if tcfg.sample_freq > 0 and update % tcfg.sample_freq == 0:
                     _print_samples(state["params"], cfg, train_ds, dev,
-                                   step_fn, update)
+                                   step_fn, update, logger)
                 if (tcfg.valid_freq > 0 and update % tcfg.valid_freq == 0
                         and valid_ds is not None):
                     scores = _validate(state["params"], cfg, valid_ds,
-                                       step_fn, update, "valid", device)
+                                       step_fn, update, "valid", device,
+                                       logger)
                     if test_ds is not None:
                         _validate(state["params"], cfg, test_ds, step_fn,
-                                  update, "test", device)
+                                  update, "test", device, logger)
                     val = scores[key]
                     fs["history"].append({"update": update, **scores})
                     if (val > best) if bigger_is_better else (val < best):
@@ -503,13 +522,13 @@ def fit(cfg, train_ds: Dataset, valid_ds: Optional[Dataset] = None,
                         _emit(tcfg.save_dir, {"kind": "best",
                                               "update": update,
                                               "metric": metric_name,
-                                              "value": val})
+                                              "value": val}, logger)
                     else:
                         fs["bad_rounds"] += 1
                         if fs["bad_rounds"] >= tcfg.patience:
                             _emit(tcfg.save_dir, {
                                 "kind": "early_stop", "update": update,
-                                "bad_rounds": fs["bad_rounds"]})
+                                "bad_rounds": fs["bad_rounds"]}, logger)
                             stop = True
                             break
                 if tcfg.save_freq > 0 and update % tcfg.save_freq == 0:
@@ -519,7 +538,8 @@ def fit(cfg, train_ds: Dataset, valid_ds: Optional[Dataset] = None,
                     break
     except KeyboardInterrupt:
         # keep the progress: the checkpoint below holds the last update
-        _emit(tcfg.save_dir, {"kind": "interrupt", "update": update})
+        _emit(tcfg.save_dir, {"kind": "interrupt", "update": update},
+              logger)
     save_checkpoint(ckpt, state, fs)
     return FitResult(best_metric=float(best), best_step=fs["best_step"],
                      history=fs["history"], state=state,
