@@ -1529,7 +1529,7 @@ def phase_cli(kernel, dev, seed, cfg, info) -> dict:
             def nll_steps(split):
                 """The train tail's launches of a split's NLL pass."""
                 n = sum(len(refs[v]) for v in ids[split])
-                return 2 * -(-n // min(vbs, n)) * T
+                return -(-n // min(vbs, n)) * T
 
             # 1. train
             rec, rc = counted("train", train.main, [
