@@ -1659,7 +1659,7 @@ def serve_checks(serve, Captioner, counted, check, run, bank_path, videos,
     host = "127.0.0.1"
     args = argparse.Namespace(
         artifact=None, run_dir=run, bank=bank_path, bank_shards=0,
-        params=None, quant=None, device=str(dev), host=host, port=0,
+        quant=None, device=str(dev), host=host, port=0,
         no_warmup=False, coalesce_wait_ms=2.0, allow_swap=True,
         allow_shutdown=False, verbose=False)
     k = cfg.model.n_frames

@@ -62,13 +62,11 @@ def padded_chunks(batch: Dict[str, torch.Tensor], bsz: int):
         yield e - s, chunk
 
 
-def chunked_caption(run: Callable, params, batch: Dict[str, torch.Tensor],
-                    bsz: int, vocab: Vocab, window: int = 4) -> List[str]:
-    """Drive ``run(params, chunk) -> (tokens, scores)`` over a batch of
-    any size in ``padded_chunks`` of ``bsz`` (the JAX package's
-    signature); the padded rows' captions are dropped.  Up to ``window``
-    chunks stay in flight before the oldest one's tokens are copied to
-    the host."""
+def _captions_in_window(results, vocab: Vocab, window: int) -> List[str]:
+    """Captions of a lazy sequence of ``(rows, tokens)`` decode results,
+    pulling (and so dispatching) up to ``window`` of them before the
+    oldest one's tokens are copied to the host; each result's first
+    ``rows`` captions are kept."""
     pending: List = []
     out: List[str] = []
 
@@ -77,14 +75,24 @@ def chunked_caption(run: Callable, params, batch: Dict[str, torch.Tensor],
         toks = toks.cpu().numpy()
         out.extend(" ".join(vocab.decode(toks[i])) for i in range(count))
 
-    for count, chunk in padded_chunks(batch, bsz):
-        toks, _ = run(params, chunk)
-        pending.append((count, toks))
+    for item in results:
+        pending.append(item)
         if len(pending) >= window:
             drain_one()
     while pending:
         drain_one()
     return out
+
+
+def chunked_caption(run: Callable, params, batch: Dict[str, torch.Tensor],
+                    bsz: int, vocab: Vocab, window: int = 4) -> List[str]:
+    """Drive ``run(params, chunk) -> (tokens, scores)`` over a batch of
+    any size in ``padded_chunks`` of ``bsz`` (the JAX package's
+    signature), up to ``window`` chunks in flight; the padded rows'
+    captions are dropped."""
+    return _captions_in_window(
+        ((count, run(params, chunk)[0])
+         for count, chunk in padded_chunks(batch, bsz)), vocab, window)
 
 
 def chunked_caption_ids(run_ids: Callable, params,
@@ -97,26 +105,16 @@ def chunked_caption_ids(run_ids: Callable, params,
     Short chunks repeat row 0 (a valid row, so masks stay sane); their
     captions are dropped.  Up to ``window`` chunks stay in flight."""
     dev = bank["frames"].device
-    n = int(rows.shape[0])
-    pending: List = []
-    out: List[str] = []
 
-    def drain_one():
-        count, toks = pending.pop(0)
-        toks = toks.cpu().numpy()
-        out.extend(" ".join(vocab.decode(toks[i])) for i in range(count))
+    def results():
+        for s in range(0, int(rows.shape[0]), bsz):
+            chunk = np.zeros(bsz, np.int64)
+            part = rows[s:s + bsz]
+            chunk[:len(part)] = part
+            yield len(part), run_ids(params, bank,
+                                     torch.from_numpy(chunk).to(dev))[0]
 
-    for s in range(0, n, bsz):
-        e = min(s + bsz, n)
-        chunk = np.zeros(bsz, np.int64)
-        chunk[:e - s] = rows[s:e]
-        toks, _ = run_ids(params, bank, torch.from_numpy(chunk).to(dev))
-        pending.append((e - s, toks))
-        if len(pending) >= window:
-            drain_one()
-    while pending:
-        drain_one()
-    return out
+    return _captions_in_window(results(), vocab, window)
 
 
 def pack_request(model_cfg, features, regions=None, motion=None, *,

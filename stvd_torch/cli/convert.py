@@ -26,6 +26,7 @@ import argparse
 import os
 import sys
 
+from . import device as cli_device
 from ..data.bank import load_legacy_pickle, pack_bank
 
 
@@ -98,6 +99,7 @@ def main(argv=None) -> int:
     if args.ref_model:
         if not args.run_dir:
             ap.error("--ref-model requires --run-dir")
+        cli_device(args.device)
         return _convert_model(args)
     if not args.features or not args.out:
         ap.error("feature mode requires --features and --out")

@@ -23,6 +23,7 @@ import sys
 import numpy as np
 import torch
 
+from . import device as cli_device
 from ..api import padded_chunks
 from ..config import Config, validate
 from ..data.bank import to_device
@@ -159,9 +160,9 @@ def main(argv=None) -> int:
                     help="torch device (default cuda; cpu for a CPU run)")
     args = ap.parse_args(argv)
 
-    device = torch.device(args.device)
     with open(os.path.join(args.run_dir, "config.json")) as f:
         cfg = Config.from_json(f.read())
+    device = cli_device(args.device)
     if args.beam is not None:
         cfg = dataclasses.replace(
             cfg, decode=dataclasses.replace(cfg.decode, beam_size=args.beam))

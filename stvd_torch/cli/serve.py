@@ -661,9 +661,6 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     ap.add_argument("--bank-shards", type=int, default=0, metavar="N",
                     help="shard the resident bank over N devices (not "
                          "ported yet: N above 1 raises)")
-    ap.add_argument("--params", default=None,
-                    help="override weights of an exported artifact "
-                         "(artifact mode only)")
     ap.add_argument("--quant", default=None, choices=["none", "int8"],
                     help="live mode: override model.decode_quant")
     ap.add_argument("--device", default="cuda",

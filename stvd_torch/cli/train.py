@@ -20,6 +20,7 @@ import sys
 
 import torch
 
+from . import device as cli_device
 from ..config import Config, preset, validate
 from ..data.corpus import load_splits
 from ..model.kernel import get_step_fn
@@ -95,7 +96,7 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     cfg = build_config(args)
-    device = torch.device(args.device)
+    device = cli_device(args.device)
     dp = (cfg.train.data_parallel if args.data_parallel is None
           else args.data_parallel)
     mp = (cfg.train.model_parallel if args.model_parallel is None

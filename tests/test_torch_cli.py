@@ -444,3 +444,22 @@ def test_metrics_logger_matches_jax(tmp_path, capsys):
         "kind": "train", "update": 3, "loss": 1.5, "note": "x"}
     out = capsys.readouterr().out.splitlines()
     assert out[0].split()[0] == out[1].split()[0] == "[train]"
+
+
+def test_clis_default_to_the_card(run_dirs, tmp_path, monkeypatch):
+    """Without --device the CLIs are for the card: where there is none
+    they raise instead of running on the CPU."""
+    from stvd_torch.cli import serve as tserve
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    _, tdir = run_dirs
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        ttrain.main(TRAIN_FLAGS + ["--set", f"train.save_dir={tmp_path}"])
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        tsample.main(["--run-dir", tdir])
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        tconvert.main(["--ref-model", str(tmp_path / "m.npz"),
+                       "--run-dir", str(tmp_path / "r")])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tserve.build_server(argparse.Namespace(
+            artifact=None, run_dir=tdir, quant=None, host="127.0.0.1",
+            port=0, verbose=False))

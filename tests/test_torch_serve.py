@@ -12,7 +12,6 @@ import argparse
 import dataclasses
 import http.client
 import json
-import os
 import threading
 
 import numpy as np
@@ -57,7 +56,7 @@ def features(n, seed=0):
 
 def server_args(run_dir, **kw):
     base = dict(artifact=None, run_dir=run_dir, bank=None, bank_shards=0,
-                params=None, quant=None, device="cpu", host="127.0.0.1",
+                quant=None, device="cpu", host="127.0.0.1",
                 port=0, no_warmup=True, coalesce_wait_ms=0.0,
                 allow_swap=False, allow_shutdown=False, verbose=False)
     base.update(kw)
