@@ -193,7 +193,8 @@ def main(argv=None) -> int:
     if args.nll:
         from ..train.loop import evaluate_nll_stats, perplexity
         num, ex, tok = evaluate_nll_stats(
-            params, cfg.model, ds, cfg.train.valid_batch_size, device)
+            params, cfg.model, ds, cfg.train.valid_batch_size, step_fn,
+            device=device)
         scores["nll"] = num / max(ex, 1.0)
         scores["nll_per_token"] = num / max(tok, 1.0)
         scores["perplexity"] = perplexity(num / max(tok, 1.0))

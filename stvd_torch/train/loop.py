@@ -276,10 +276,13 @@ def make_train_step(mcfg, tcfg
 
 @torch.no_grad()
 def evaluate_nll_stats(params: Params, mcfg, ds: Dataset, batch_size: int,
-                       device: torch.device | str = "cuda"
+                       step_fn=None, *, device: torch.device | str = "cuda"
                        ) -> Tuple[float, float, float]:
     """(NLL numerator, example count, token count) over a split, without
-    dropout, in fixed-shape batches (the wrapped tail weighs 0)."""
+    dropout, in fixed-shape batches (the wrapped tail weighs 0).  The
+    positional parameters are the JAX package's; ``step_fn`` is not read,
+    since the teacher-forced scan runs its own step body (as in the JAX
+    package)."""
     dev = to_device(ds.bank, device, compute_dtype(mcfg))
     it = BatchIterator(ds.captions.n, min(batch_size, ds.captions.n),
                        shuffle=False)
@@ -295,9 +298,11 @@ def evaluate_nll_stats(params: Params, mcfg, ds: Dataset, batch_size: int,
 
 
 def evaluate_nll(params: Params, mcfg, ds: Dataset, batch_size: int,
-                 device: torch.device | str = "cuda") -> float:
+                 step_fn=None, *, device: torch.device | str = "cuda"
+                 ) -> float:
     """Mean per-example NLL over a split."""
-    num, ex, _ = evaluate_nll_stats(params, mcfg, ds, batch_size, device)
+    num, ex, _ = evaluate_nll_stats(params, mcfg, ds, batch_size, step_fn,
+                                    device=device)
     return num / max(ex, 1.0)
 
 
@@ -382,7 +387,7 @@ def _validate(params: Params, cfg, ds: Dataset, step_fn, update: int,
     """NLL and the caption metrics of a split, as one record of kind
     ``split``; the samples files go to ``save_dir``."""
     nll = evaluate_nll(params, cfg.model, ds, cfg.train.valid_batch_size,
-                       device)
+                       step_fn, device=device)
     scores = evaluate_split(params, cfg, ds, split=split,
                             save_dir=cfg.train.save_dir, step_fn=step_fn,
                             device=device)

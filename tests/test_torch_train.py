@@ -556,3 +556,29 @@ def test_fit_takes_the_jax_positional_order(tmp_path):
     out = tloop.fit(tiny_config(tmp_path), ds, ds, tstep.step,
                     max_updates=2, device="cpu")
     assert out.state["step"] == 2
+
+
+@pytest.mark.parametrize("name", ["evaluate_nll", "evaluate_nll_stats"])
+def test_evaluate_nll_takes_the_jax_positional_order(name):
+    """``evaluate_nll(params, mcfg, ds, batch_size, step_fn)`` binds as in
+    the JAX package: the 5th positional parameter is the step function
+    and ``device`` is keyword-only, so a caller written for the reference
+    cannot pass its step function as the device.  The NLL then equals
+    the JAX package's on the same weights."""
+    import inspect
+    jpos = list(inspect.signature(getattr(jloop, name)).parameters)
+    params = inspect.signature(getattr(tloop, name)).parameters
+    tpos = [n for n, p in params.items()
+            if p.kind == p.POSITIONAL_OR_KEYWORD]
+    assert tpos == jpos == ["params", "mcfg", "ds", "batch_size", "step_fn"]
+    assert params["device"].kind == inspect.Parameter.KEYWORD_ONLY
+    jcfg, tcfg = configs()
+    kw = dict(n_videos=N_VIDEOS, k=jcfg.n_frames, d=jcfg.ctx_dim,
+              maxlen=MAXLEN, seed=0)
+    npp = numpy_params(jcfg)
+    got = getattr(tloop, name)(params_from_numpy(npp, "cpu"), tcfg,
+                               synthetic_dataset(**kw), 3, tstep.step,
+                               device="cpu")
+    ref = getattr(jloop, name)(jax_params(npp), jcfg,
+                               jsynthetic_dataset(**kw), 3, jstep.step)
+    np.testing.assert_allclose(got, ref, rtol=1e-5)
