@@ -14,10 +14,8 @@ float32 master parameters in place.  Global-norm clipping is optax's
 from __future__ import annotations
 
 import dataclasses
-import json
 import math
 import os
-import time
 from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -31,6 +29,8 @@ from ..decode.greedy import greedy_decode
 from ..model.decoder import init_params
 from ..model.kernel import get_step_fn
 from ..model.step import Params, compute_dtype
+from ..utils.logging import MetricsLogger
+from ..utils.profiling import StepTimer
 from .evaluate import evaluate_split
 from .loss import loss_from_terms, loss_terms
 
@@ -358,16 +358,10 @@ class FitResult:
     log: List[Dict] = dataclasses.field(default_factory=list)
 
 
-def _emit(save_dir: str, record: Dict, logger=None) -> Dict:
-    """One record through ``logger`` (a ``MetricsLogger``), or without
-    one as a JSON line on stdout and in ``save_dir/metrics.jsonl``."""
-    if logger is not None:
-        logger.log(record["kind"],
-                   **{k: v for k, v in record.items() if k != "kind"})
-        return record
-    print(json.dumps(record), flush=True)
-    with open(os.path.join(save_dir, "metrics.jsonl"), "a") as f:
-        f.write(json.dumps(record) + "\n")
+def _emit(logger, record: Dict) -> Dict:
+    """One record through ``logger`` (a ``MetricsLogger``); returns it."""
+    logger.log(record["kind"],
+               **{k: v for k, v in record.items() if k != "kind"})
     return record
 
 
@@ -383,7 +377,7 @@ def perplexity(nll_per_token: float) -> float:
 
 
 def _validate(params: Params, cfg, ds: Dataset, step_fn, update: int,
-              split: str, device, logger=None) -> Dict[str, float]:
+              split: str, device, logger) -> Dict[str, float]:
     """NLL and the caption metrics of a split, as one record of kind
     ``split``; the samples files go to ``save_dir``."""
     nll = evaluate_nll(params, cfg.model, ds, cfg.train.valid_batch_size,
@@ -392,13 +386,12 @@ def _validate(params: Params, cfg, ds: Dataset, step_fn, update: int,
                             save_dir=cfg.train.save_dir, step_fn=step_fn,
                             device=device)
     scores["nll"] = nll
-    _emit(cfg.train.save_dir, {"kind": split, "update": update, **scores},
-          logger)
+    _emit(logger, {"kind": split, "update": update, **scores})
     return scores
 
 
 def _print_samples(params: Params, cfg, ds: Dataset, dev_bank, step_fn,
-                   update: int, logger=None, n: int = 2) -> None:
+                   update: int, logger, n: int = 2) -> None:
     """Greedy captions of the split's first ``n`` videos beside their
     first reference, one ``sample`` record each."""
     rows = torch.arange(min(n, ds.bank.n_videos),
@@ -410,10 +403,10 @@ def _print_samples(params: Params, cfg, ds: Dataset, dev_bank, step_fn,
                              step_fn=step_fn).tokens.cpu().numpy()
     for i in range(len(rows)):
         refs = ds.references[i]
-        _emit(cfg.train.save_dir, {
+        _emit(logger, {
             "kind": "sample", "update": update, "video": ds.bank.ids[i],
             "pred": " ".join(ds.vocab.decode(toks[i])),
-            "gold": " ".join(refs[0]) if refs else ""}, logger)
+            "gold": " ".join(refs[0]) if refs else ""})
 
 
 def fit(cfg, train_ds: Dataset, valid_ds: Optional[Dataset] = None,
@@ -428,14 +421,16 @@ def fit(cfg, train_ds: Dataset, valid_ds: Optional[Dataset] = None,
     (``None``: ``get_step_fn(None, device)``, the kernel step on a CUDA
     device); training takes its kernels from the model config.
 
-    Every ``disp_freq`` updates a ``train`` record (loss, grad norm,
-    seconds since the last record), every ``sample_freq`` two greedy
+    Every ``disp_freq`` updates a ``train`` record (loss, grad norm and,
+    once a window of ``max(disp_freq, 10)`` updates has passed, their
+    ``steps_per_sec``), every ``sample_freq`` two greedy
     ``sample`` records of the training split, and every ``valid_freq``
     a ``valid`` record (NLL and every caption metric) and, with
     ``test_ds``, a ``test`` record; the model is selected on valid only.
     Records go through ``logger`` (a ``utils.logging.MetricsLogger``,
-    which the caller closes) or, without one, to stdout and
-    ``save_dir/metrics.jsonl``.  A better
+    which the caller closes) or, without one, through a
+    ``MetricsLogger(save_dir, tensorboard=train.tensorboard)`` that
+    ``fit`` opens and closes, as the JAX package's does.  A better
     metric writes ``ckpt_best.pt`` and a ``best`` record; ``patience``
     rounds without one end the run with an ``early_stop`` record.
     ``length_buckets`` batches captions by length (``maxlen`` added as
@@ -447,9 +442,16 @@ def fit(cfg, train_ds: Dataset, valid_ds: Optional[Dataset] = None,
     tcfg, mcfg = cfg.train, cfg.model
     if tcfg.debug_nans:
         raise NotImplementedError("debug_nans is not ported yet")
+    if tcfg.profile_dir:
+        raise NotImplementedError(
+            "train.profile_dir is not ported yet (ROADMAP.md Queue 1 "
+            "item 10)")
     if step_fn is None:
         step_fn = get_step_fn(None, device)
     os.makedirs(tcfg.save_dir, exist_ok=True)
+    own_logger = logger is None
+    if own_logger:
+        logger = MetricsLogger(tcfg.save_dir, tensorboard=tcfg.tensorboard)
     state = init_train_state(tcfg.seed, mcfg, tcfg, device)
     metric_name = tcfg.metric
     key = _metric_key(metric_name)
@@ -467,9 +469,8 @@ def fit(cfg, train_ds: Dataset, valid_ds: Optional[Dataset] = None,
     best = fs["best"] if fs["best"] is not None else (
         -math.inf if bigger_is_better else math.inf)
     if reload:
-        _emit(tcfg.save_dir, {"kind": "reload", "step": state["step"],
-                              "best": float(best),
-                              "bad_rounds": fs["bad_rounds"]}, logger)
+        _emit(logger, {"kind": "reload", "step": state["step"],
+                       "best": float(best), "bad_rounds": fs["bad_rounds"]})
     train_step = make_train_step(mcfg, tcfg)
     dev = to_device(train_ds.bank, device, compute_dtype(mcfg))
     if tcfg.length_buckets:
@@ -485,7 +486,7 @@ def fit(cfg, train_ds: Dataset, valid_ds: Optional[Dataset] = None,
     update = state["step"]
     log: List[Dict] = []
     stop = update >= (max_updates if max_updates is not None else math.inf)
-    t_last = time.perf_counter()
+    timer = StepTimer(window=max(tcfg.disp_freq, 10))
     try:
         for epoch in range(tcfg.max_epochs):
             if stop:
@@ -499,14 +500,14 @@ def fit(cfg, train_ds: Dataset, valid_ds: Optional[Dataset] = None,
                 batch["weight"] = torch.from_numpy(w).to(device)
                 state, m = train_step(state, batch)
                 update += 1
+                rate = timer.tick()
                 if update % tcfg.disp_freq == 0:
                     rec = {"kind": "train", "epoch": epoch,
                            "update": update, "loss": float(m["loss"]),
                            "grad_norm": float(m["grad_norm"])}
-                    now = time.perf_counter()
-                    rec["seconds"] = now - t_last
-                    t_last = now
-                    log.append(_emit(tcfg.save_dir, rec, logger))
+                    if rate:
+                        rec["steps_per_sec"] = round(rate, 2)
+                    log.append(_emit(logger, rec))
                 if tcfg.sample_freq > 0 and update % tcfg.sample_freq == 0:
                     _print_samples(state["params"], cfg, train_ds, dev,
                                    step_fn, update, logger)
@@ -524,16 +525,14 @@ def fit(cfg, train_ds: Dataset, valid_ds: Optional[Dataset] = None,
                         best = val
                         fs.update(best=val, best_step=update, bad_rounds=0)
                         save_checkpoint(best_ckpt, state, fs)
-                        _emit(tcfg.save_dir, {"kind": "best",
-                                              "update": update,
-                                              "metric": metric_name,
-                                              "value": val}, logger)
+                        _emit(logger, {"kind": "best", "update": update,
+                                       "metric": metric_name, "value": val})
                     else:
                         fs["bad_rounds"] += 1
                         if fs["bad_rounds"] >= tcfg.patience:
-                            _emit(tcfg.save_dir, {
+                            _emit(logger, {
                                 "kind": "early_stop", "update": update,
-                                "bad_rounds": fs["bad_rounds"]}, logger)
+                                "bad_rounds": fs["bad_rounds"]})
                             stop = True
                             break
                 if tcfg.save_freq > 0 and update % tcfg.save_freq == 0:
@@ -543,9 +542,10 @@ def fit(cfg, train_ds: Dataset, valid_ds: Optional[Dataset] = None,
                     break
     except KeyboardInterrupt:
         # keep the progress: the checkpoint below holds the last update
-        _emit(tcfg.save_dir, {"kind": "interrupt", "update": update},
-              logger)
+        _emit(logger, {"kind": "interrupt", "update": update})
     save_checkpoint(ckpt, state, fs)
+    if own_logger:
+        logger.close()
     return FitResult(best_metric=float(best), best_step=fs["best_step"],
                      history=fs["history"], state=state,
                      bad_rounds=fs["bad_rounds"], log=log)

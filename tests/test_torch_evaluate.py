@@ -159,8 +159,12 @@ def fit_configs(save_dir, **train):
 
 
 def records(save_dir, kind=None):
+    """The records of ``metrics.jsonl``, without the logger's clock
+    (``elapsed_s``)."""
     recs = [json.loads(ln) for ln in
             (save_dir / "metrics.jsonl").read_text().splitlines()]
+    for r in recs:
+        r.pop("elapsed_s")
     return [r for r in recs if kind is None or r["kind"] == kind]
 
 

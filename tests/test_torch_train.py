@@ -459,12 +459,13 @@ def test_fit_checkpoints_and_resumes(tmp_path):
 
 
 @pytest.mark.parametrize("train", [dict(ss_prob=0.25),
-                                   dict(debug_nans=True)])
+                                   dict(debug_nans=True),
+                                   dict(profile_dir="trace")])
 def test_fit_rejects_what_is_not_ported(tmp_path, train):
-    """Scheduled sampling and NaN debugging are still to be ported, and
-    ``fit`` says so rather than training without them (caption metrics
-    and length buckets, which it rejected before, now run:
-    tests/test_torch_evaluate.py)."""
+    """Scheduled sampling, NaN debugging and the profiler window are
+    still to be ported, and ``fit`` says so rather than training without
+    them (caption metrics and length buckets, which it rejected before,
+    now run: tests/test_torch_evaluate.py)."""
     cfg = tiny_config(tmp_path, **train)
     ds = synthetic_dataset(n_videos=2, k=6, d=32, maxlen=MAXLEN, seed=0)
     with pytest.raises(NotImplementedError):
@@ -531,6 +532,7 @@ def test_interrupted_fit_keeps_its_progress(tmp_path, monkeypatch):
     assert blob["step"] == 3
     recs = [json.loads(ln) for ln in
             (tmp_path / "metrics.jsonl").read_text().splitlines()]
+    recs[-1].pop("elapsed_s")
     assert recs[-1] == {"kind": "interrupt", "update": 3}
     monkeypatch.setattr(tloop, "make_train_step", real)
     resumed = tloop.fit(cfg.replace(train=dataclasses.replace(
@@ -582,3 +584,41 @@ def test_evaluate_nll_takes_the_jax_positional_order(name):
     ref = getattr(jloop, name)(jax_params(npp), jcfg,
                                jsynthetic_dataset(**kw), 3, jstep.step)
     np.testing.assert_allclose(got, ref, rtol=1e-5)
+
+
+def test_fit_without_a_logger_writes_the_jax_records(tmp_path, capsys):
+    """Without a logger both packages' ``fit`` open a ``MetricsLogger``
+    on ``save_dir``: the same record kinds in the same order with the
+    same keys (``elapsed_s`` on each, ``steps_per_sec`` on the train
+    record that closes a window of 10 updates), and the same
+    ``[kind] k=v`` lines on stdout; only the timings differ."""
+    from stvd import config as jconfig
+    kw = dict(n_videos=6, k=6, d=32, maxlen=MAXLEN, seed=0)
+    train = dict(disp_freq=1, valid_freq=6, sample_freq=6)
+    tcfg = tiny_config(tmp_path / "torch", **train)
+    jc = jconfig.Config.from_json(tcfg.replace(train=dataclasses.replace(
+        tcfg.train, save_dir=str(tmp_path / "jax"))).to_json())
+    tloop.fit(tcfg, synthetic_dataset(**kw), synthetic_dataset(**kw),
+              max_updates=12, device="cpu")
+    tout = capsys.readouterr().out
+    jloop.fit(jc, jsynthetic_dataset(**kw), jsynthetic_dataset(**kw),
+              max_updates=12)
+    jout = capsys.readouterr().out
+
+    def shape(name):
+        import json
+        recs = [json.loads(ln) for ln in
+                (tmp_path / name / "metrics.jsonl").read_text().splitlines()]
+        return [(r["kind"], sorted(r)) for r in recs]
+
+    got, want = shape("torch"), shape("jax")
+    assert got == want
+    assert ("train", sorted(["kind", "elapsed_s", "epoch", "update", "loss",
+                             "grad_norm", "steps_per_sec"])) in got
+    assert {k for k, _ in got} == {"train", "sample", "valid", "best"}
+
+    def kinds(out):
+        return [ln.split()[0][1:-1] for ln in out.splitlines()
+                if ln.startswith("[")]
+
+    assert kinds(tout) == kinds(jout) == [k for k, _ in want]
