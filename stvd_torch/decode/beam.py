@@ -51,7 +51,12 @@ def _length_penalty(lengths: torch.Tensor, alpha: float, mode: str
 def beam_decode(params, cfg, batch: Dict[str, torch.Tensor],
                 beam_size: int = 5, maxlen: int = 30,
                 length_norm: float = 0.6, norm_mode: str = "gnmt",
-                step_fn: Optional[StepFn] = None) -> BeamOut:
+                step_fn: Optional[StepFn] = None,
+                topk_chunks: int = 1) -> BeamOut:
+    """Batched beam search (the JAX package's parameters).
+    ``topk_chunks`` picks a TPU lowering of the beam's top-k there; the
+    port has one top-k, so it is accepted and not read."""
+    del topk_chunks
     step_fn = step_fn or step_mod.step
     params = step_mod.cast_params(params, cfg)
     k = beam_size

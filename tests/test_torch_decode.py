@@ -150,3 +150,27 @@ def test_beam_above_eight_takes_the_plain_logits():
     for f in ("scores", "norm_scores", "all_scores", "all_norm_scores"):
         np.testing.assert_allclose(getattr(out, f).numpy(), ref[f],
                                    err_msg=f, **SCORE_TOL)
+
+
+@pytest.mark.parametrize("chunks", [1, 2])
+def test_beam_takes_the_jax_topk_chunks_keyword(chunks):
+    """``beam_decode(..., topk_chunks=n)`` is accepted as in the JAX
+    package, where it picks a TPU lowering of the beam's top-k (the
+    port has one): tokens equal the JAX package's plain-step beam at the
+    same ``topk_chunks``, and scores agree."""
+    from stvd.model import step as jstep
+    p, frames, mask = inputs()
+    jp = {n: jnp.asarray(v) for n, v in p.items()}
+    ref = jbeam.beam_decode(jp, CFG, {"frames": jnp.asarray(frames),
+                                      "frame_mask": jnp.asarray(mask)},
+                            beam_size=3, maxlen=MAXLEN, step_fn=jstep.step,
+                            topk_chunks=chunks)
+    out = tbeam.beam_decode(params_from_numpy(p, "cpu"), CFG,
+                            torch_batch(frames, mask), beam_size=3,
+                            maxlen=MAXLEN, step_fn=tstep.step,
+                            topk_chunks=chunks)
+    np.testing.assert_array_equal(out.tokens.numpy(), np.asarray(ref.tokens))
+    np.testing.assert_allclose(out.scores.numpy(), np.asarray(ref.scores),
+                               **SCORE_TOL)
+    np.testing.assert_allclose(out.all_scores.numpy(),
+                               np.asarray(ref.all_scores), **SCORE_TOL)
