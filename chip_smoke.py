@@ -28,7 +28,14 @@ vocab 13056, bf16):
   samples, n-best, top-k sampling, attention maps, NLL), ``cli.score``,
   ``cli.convert`` of the bank, and ``cli.serve`` over the run dir with
   the bank resident (feature, n-best, id and concurrent requests, and a
-  weight swap), each request's captions held to ``Captioner``'s.
+  weight swap), each request's captions held to ``Captioner``'s;
+* preset 4 (``msrvtt``: appearance and motion streams fused to a
+  2048-wide float32 context, vocab 20096): kernels 1, 2 and 6 at its
+  shapes (kernel 1 on its eight-warp cluster route), serving with and
+  without the frame-LSTM encoder, the kernel step against the plain
+  step, a training update and float32 gradients of kernel and plain
+  paths, ``cli.convert --motion`` and ``cli.serve`` with the motion bank
+  resident.
 
 Each path's kernel launches are counted from zero over its run: those of
 the path must equal its decode steps (serving and the entry points; the
@@ -74,6 +81,7 @@ import torch
 
 NAME = "msvd-beam"     # preset 3: the serving path bench.py measures
 SPATIAL = "msvd-spatial"   # preset 2: the model the paper is named for
+MSRVTT = "msrvtt-fused"    # preset 4: appearance + motion, ctx 2048
 KERNEL_TOL = 1e-4      # float32 sums over A=1024 / K=28 / dw=512 in another order
 INT8_TOL = 1e-5        # int32 sums are exact; only the pointwise math differs
 TRAIN_BF16_TOL = 1e-2  # of the largest entry: one bf16 ulp of tanh may flip
@@ -251,7 +259,8 @@ def repeats(fn, args) -> bool:
     return all(torch.equal(p, q) for p, q in zip(first, second))
 
 
-def phase_attention(kernel, step_mod, dev, g, cfg, splits=False) -> dict:
+def phase_attention(kernel, step_mod, dev, g, cfg, splits=False,
+                    shapes=None, phase="kernel_attention_core") -> dict:
     """Kernel 1 at the serving shape (preset 3: Bc=256, nb=5, K=28,
     A=Dc=1024, ctx bf16), at the training shape (batch 64, nb 1: the
     train forward scan with ``train_fwd_kernel='on'``) and at path A's
@@ -263,12 +272,14 @@ def phase_attention(kernel, step_mod, dev, g, cfg, splits=False) -> dict:
     times of the wrapper called back to back, as for every other kernel,
     which the wrapper's host work bounds here; device_ms and
     simple_device_ms are device times (``device_ms``).  With ``splits``
-    (--profile), split_ms gives the device time with 1-4 CTAs a row."""
+    (--profile), split_ms gives the device time with 1-4 CTAs a row.
+    ``shapes`` ((name, rows, nb, ctx dtype) tuples) replaces the three
+    cases, e.g. preset 4's (its fused context is float32)."""
     m = cfg.model
     k, a, dc = m.n_frames, m.attn_dim, m.ctx_dim
     rows = cfg.decode.decode_batch
     cases = {}
-    for name, bc, nb, cdt in (
+    for name, bc, nb, cdt in shapes or (
             ("serving", rows, cfg.decode.beam_size, torch.bfloat16),
             ("training", cfg.train.batch_size, 1, torch.bfloat16),
             ("path_a", rows * cfg.decode.beam_size, 1, torch.float32)):
@@ -277,7 +288,8 @@ def phase_attention(kernel, step_mod, dev, g, cfg, splits=False) -> dict:
         ctx = torch.randn(bc, k, dc, generator=g, device=dev).to(cdt)
         mask = (torch.rand(bc, k, generator=g, device=dev) > 0.25).float()
         mask[:, 0] = 1.0
-        n_split, kc = kernel.attention_core_split(k, bc, nb)
+        n_split, kc = kernel.attention_core_split(k, bc, nb, a, dc,
+                                                  ctx.element_size())
         mask[3, (n_split - 1) * kc:] = 0.0
         mask[7] = 0.0
         u = 3.0 * torch.randn(a, generator=g, device=dev) / a ** 0.5
@@ -326,11 +338,17 @@ def phase_attention(kernel, step_mod, dev, g, cfg, splits=False) -> dict:
             **bound(traffic, bs * k * (4 * a + 2 * dc), "f32")}
         c = cases[name]
         if splits:
+            # a plan whose ctx slice does not fit shared memory (1 CTA a
+            # row of 28 float32 frames of 2048) has no time
             c["split_ms"] = {n: device_ms(lambda: kernel._attention_core_cuda(
-                *args, route="cluster", splits=n)) for n in (1, 2, 3, 4)}
+                *args, route="cluster", splits=n))
+                if kernel.attention_core_route(
+                    bc, nb, k, a, dc, cdt, pctx.data_ptr(), ctx.data_ptr(),
+                    -(-k // n)) == "cluster" else None
+                for n in (1, 2, 3, 4)}
         c["bound_share"] = c["bound_ms"] / c["device_ms"]
         c["simple_ratio"] = c["device_ms"] / c["simple_device_ms"]
-    out = {"phase": "kernel_attention_core", "tol": KERNEL_TOL,
+    out = {"phase": phase, "tol": KERNEL_TOL,
            "max_abs_err": max(c["max_abs_err"] for c in cases.values()),
            "cases": cases, **{key: val for key, val in cases["serving"].items()
                               if key != "max_abs_err"}}
@@ -404,7 +422,8 @@ def exact_tail_inputs(rows, dw, v, dtype, dev, rng):
             torch.from_numpy(w).to(dev, dtype), torch.from_numpy(b).to(dev))
 
 
-def phase_tail(kernel, dev, g, seed, cfg) -> dict:
+def phase_tail(kernel, dev, g, seed, cfg, phase="kernel_logit_tail"
+               ) -> dict:
     """Kernel 2 at the serving shapes (preset 3: rows=1280, dw=512,
     V=13056) with k=5 and 1 in bf16, plus a ragged vocab, float32
     operands and all-zero weights; each case reports its route (the
@@ -468,7 +487,7 @@ def phase_tail(kernel, dev, g, seed, cfg) -> dict:
     product_ms = time_ms(lambda: torch.mm(xb, w, out_dtype=torch.float32))
     # in: x, W, b; out: k values, k int64 ids and the lse per row
     traffic = nbytes(xb, w, b) + rows * (5 * 12 + 4)
-    out = {"phase": "kernel_logit_tail", "shape": [rows, dw, v, 5],
+    out = {"phase": phase, "shape": [rows, dw, v, 5],
            "max_abs_err": err, "cases": cases, "tol": KERNEL_TOL,
            "route": cases["exact_bf16_k5"]["route"],
            "bitwise_repeatable": same, "ms": ms, "wmma_ms": wmma_ms,
@@ -679,6 +698,22 @@ def regions_for(feats, model_cfg, seed):
             for f in feats]
 
 
+def motion_for(feats, model_cfg, seed):
+    """Random (F_i, Dm) motion features matching each video's frames, for
+    the dual-stream model (preset 4)."""
+    if not model_cfg.use_motion:
+        return None
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal((f.shape[0], model_cfg.motion_dim),
+                                dtype=np.float32) for f in feats]
+
+
+def streams(feats, model_cfg, seed):
+    """The (regions, motion) arrays a request of ``feats`` carries."""
+    return (regions_for(feats, model_cfg, seed),
+            motion_for(feats, model_cfg, seed + 7))
+
+
 def counted_step(inner, counter):
     def step_fn(*args):
         counter[0] += 1
@@ -704,7 +739,7 @@ def phase_serving(api, kernel, dev, seed, params, vocab, cfg, phase,
     reqs = {}
     for n in (1, 37, cfg.decode.decode_batch):
         feats = request(rng, n, cfg.model)
-        reqs[n] = (feats, regions_for(feats, cfg.model, seed + n))
+        reqs[n] = (feats, *streams(feats, cfg.model, seed + n))
     cap.caption(*reqs[1])                         # warm-up (cuBLAS, allocator)
     torch.cuda.synchronize()
 
@@ -716,10 +751,10 @@ def phase_serving(api, kernel, dev, seed, params, vocab, cfg, phase,
     for mode in modes:
         if mode == "eos_suppressed":
             cap.params["ff_logit_b"][0] = -1e9
-        for n, (feats, regs) in reqs.items():
+        for n, (feats, regs, mots) in reqs.items():
             s0 = steps[0]
             t0 = time.perf_counter()
-            caps = cap.caption(feats, regs)
+            caps = cap.caption(feats, regs, mots)
             torch.cuda.synchronize()
             dt = time.perf_counter() - t0
             require(len(caps) == n, "wrong number of captions")
@@ -745,6 +780,10 @@ def phase_serving(api, kernel, dev, seed, params, vocab, cfg, phase,
                 f"want all {want[name]} on {route}")
     out = {"phase": phase,
            "config": {"use_spatial": cfg.model.use_spatial,
+                      "use_motion": cfg.model.use_motion,
+                      "encoder": cfg.model.encoder,
+                      "ctx_dim": cfg.model.ctx_dim,
+                      "n_words": cfg.model.n_words,
                       "decode_quant": cfg.model.decode_quant,
                       "gates_kernel": cfg.model.gates_kernel},
            "runs": runs, "decode_steps": steps[0], "launches": launches,
@@ -775,12 +814,12 @@ def decode_all(api, dev, seed, params, vocab, cfg, runs):
     seconds each took."""
     feats = request(np.random.RandomState(seed + 1),
                     cfg.decode.decode_batch, cfg.model)
-    regs = regions_for(feats, cfg.model, seed + 1)
+    regs, mots = streams(feats, cfg.model, seed + 1)
     caps, secs = {}, {}
     for name, fn, c in runs:
         t0 = time.perf_counter()
         caps[name] = api.Captioner(params, c, vocab, step_fn=fn,
-                                   device=dev).caption(feats, regs)
+                                   device=dev).caption(feats, regs, mots)
         secs[name + "_seconds"] = time.perf_counter() - t0
     return caps, secs
 
@@ -838,13 +877,13 @@ def phase_profile(api, dev, params, vocab, seed, cfg, phase) -> None:
     cap.params["ff_logit_b"][0] = -1e9
     feats = request(np.random.RandomState(seed + 2),
                     cfg.decode.decode_batch, cfg.model)
-    regs = regions_for(feats, cfg.model, seed + 2)
-    cap.caption(feats, regs)
+    regs, mots = streams(feats, cfg.model, seed + 2)
+    cap.caption(feats, regs, mots)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        cap.caption(feats, regs)
+        cap.caption(feats, regs, mots)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     cap.params["ff_logit_b"][0] = eos_bias
@@ -947,7 +986,8 @@ def host_us(fn, calls: int = 200) -> float:
     return out
 
 
-def phase_train_tail(kernel, dev, g, cfg, batch) -> dict:
+def phase_train_tail(kernel, dev, g, cfg, batch,
+                     phase="kernel_train_tail") -> dict:
     """Kernel 6 at the training shapes (rows 64, dc 1024, 4 dim 14336)
     and a ragged 37 rows, bf16 and float32 Wc; x_pre is one step of the
     time-major view and h_gates a column view of the h-projection, as
@@ -1020,7 +1060,7 @@ def phase_train_tail(kernel, dev, g, cfg, batch) -> dict:
             t["bound_share"] = t["bound_ms"] / t["ms"]
             t["bound_share_device"] = t["bound_ms"] / t["device_ms"]
             times[str(cd)[6:]] = t
-    out = {"phase": "kernel_train_tail", "shape": [batch, dc, 4 * dim],
+    out = {"phase": phase, "shape": [batch, dc, 4 * dim],
            "max_abs_err": cases[f"bfloat16_rows{batch}"]["max_abs_err"],
            "cases": cases, "route": cases[f"bfloat16_rows{batch}"]["route"],
            "tol": KERNEL_TOL, "times": times, **times["bfloat16"]}
@@ -1084,8 +1124,9 @@ def phase_dws(kernel, dev, g, cfg, batch) -> dict:
 
 def train_setup(cfg, dev, seed, batch):
     """A train state from ``seed`` and one synthetic batch at the
-    config's widths (frames, and regions for the spatial model, made by
-    the port's synthetic dataset from ``seed``)."""
+    config's widths (frames, regions for the spatial model and motion
+    for the dual-stream one, made by the port's synthetic dataset from
+    ``seed``)."""
     from stvd_torch.data.bank import to_device
     from stvd_torch.data.batching import (BatchIterator, gather_batch,
                                           synthetic_dataset)
@@ -1095,7 +1136,9 @@ def train_setup(cfg, dev, seed, batch):
     ds = synthetic_dataset(
         n_videos=batch, captions_per_video=2, k=m.n_frames, d=m.ctx_dim,
         n_regions=m.n_regions if m.use_spatial else 0,
-        region_dim=m.region_dim, maxlen=cfg.train.maxlen, seed=seed)
+        region_dim=m.region_dim,
+        motion_dim=m.motion_dim if m.use_motion else 0,
+        maxlen=cfg.train.maxlen, seed=seed)
     bank = to_device(ds.bank, dev, compute_dtype(m))
     idx, w = next(BatchIterator(ds.captions.n, batch, seed=seed).epoch())
     b = gather_batch(bank, ds.captions, idx)
@@ -1146,7 +1189,8 @@ def phase_train(kernel, dev, seed, cfg, phase, expect, updates=5,
     step_s = float(np.median(secs))
     out = {"phase": phase,
            "config": {k: getattr(cfg.model, k) for k in (
-               "use_spatial", "compute_dtype", "spatial_bwd_kernel",
+               "use_spatial", "use_motion", "encoder", "compute_dtype",
+               "spatial_bwd_kernel",
                "train_tail_kernel", "train_fwd_kernel",
                "spatial_wgrad_dtype")},
            "batch": cfg.train.batch_size, "steps_T": steps,
@@ -1758,14 +1802,222 @@ def serve_checks(serve, Captioner, counted, check, run, bank_path, videos,
     return res
 
 
-def phase_train_kernel_vs_plain(kernel, dev, seed, cfg, batch=16) -> None:
+def phase_msrvtt_entry(kernel, dev, seed, cfg, params, vocab,
+                       n_videos=128) -> dict:
+    """Preset 4's entry points: ``cli.convert --features --motion`` of
+    ``n_videos`` random videos (20-36 frames of appearance and motion
+    features, 2048 wide) from legacy pickles, whose bank must equal
+    ``pack_bank`` of the same arrays; then ``cli.serve``'s
+    ``build_server`` on a run dir of ``params`` with that bank resident
+    (warm-up with a motion stream): ``/caption`` with a motion array over
+    the raw wire and ``/caption_ids`` of the same videos, each equal to
+    ``Captioner.from_run_dir``'s captions, with the attention core and
+    the logit tail launched once a decode step, all on cluster / wgmma."""
+    import argparse
+    import pickle
+    import tempfile
+    import threading
+    from stvd_torch.api import Captioner
+    from stvd_torch.cli import convert, serve
+    from stvd_torch.data.bank import FeatureBank, pack_bank
+    from stvd_torch.train.loop import save_checkpoint
+    m = cfg.model
+    rng = np.random.default_rng(seed + 11)
+    lens = rng.integers(20, 37, size=n_videos)
+    ids = [f"video{i}" for i in range(n_videos)]
+    feats = {v: rng.standard_normal((f, m.ctx_dim), dtype=np.float32)
+             for v, f in zip(ids, lens)}
+    mots = {v: rng.standard_normal((f, m.motion_dim), dtype=np.float32)
+            for v, f in zip(ids, lens)}
+    base = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(base, exist_ok=True)
+    res = {}
+    with tempfile.TemporaryDirectory(dir=base) as root:
+        for name, obj in (("feats.pkl", feats), ("motion.pkl", mots)):
+            with open(os.path.join(root, name), "wb") as f:
+                pickle.dump(obj, f, protocol=4)
+        bank_path = os.path.join(root, "bank.npz")
+        rc, res["convert_s"] = quiet(convert.main, [
+            "--features", os.path.join(root, "feats.pkl"), "--motion",
+            os.path.join(root, "motion.pkl"), "--frames", str(m.n_frames),
+            "--out", bank_path])
+        require(rc == 0, "msrvtt convert")
+        conv = FeatureBank.load(bank_path)
+        want = pack_bank(feats, m.n_frames, motion=mots)
+        require(conv.ids == want.ids and conv.motion is not None
+                and all(np.array_equal(getattr(conv, k), getattr(want, k))
+                        for k in ("frames", "frame_mask", "motion")),
+                "msrvtt convert: bank != pack_bank of the same arrays")
+        run = os.path.join(root, "run")
+        os.makedirs(run)
+        with open(os.path.join(run, "config.json"), "w") as f:
+            f.write(cfg.to_json())
+        vocab.save_pickle(os.path.join(run, "vocab.pkl"))
+        save_checkpoint(os.path.join(run, "ckpt.pt"),
+                        {"params": params, "opt_state": (), "step": 0,
+                         "generator": torch.Generator(device=dev)}, {})
+        order = sorted(ids)                       # the bank's row order
+        arr = np.stack([conv.frames[conv.index()[v]] for v in order])
+        mot = np.stack([conv.motion[conv.index()[v]] for v in order])
+        args = argparse.Namespace(
+            artifact=None, run_dir=run, bank=bank_path, bank_shards=0,
+            quant=None, device=str(dev), host="127.0.0.1", port=0,
+            no_warmup=False, coalesce_wait_ms=0.0, allow_swap=False,
+            allow_shutdown=False, verbose=False)
+        steps, ks = [0], []
+        real_step = kernel.step_kernels
+        kernel.step_kernels = counted_tails(real_step, steps, ks)
+        try:
+            server, res["build_server_s"] = quiet(serve.build_server, args)
+            res["warmup_s"] = server.warmup()
+            thread = threading.Thread(target=server.serve_forever,
+                                      daemon=True)
+            thread.start()
+            try:
+                reset_launches(kernel)
+                steps[0] = 0
+                t0 = time.perf_counter()
+                caps = serve.request_captions("127.0.0.1",
+                                              server.server_port, arr,
+                                              None, mot, timeout=300.0)
+                res["caption_s"] = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                by_id = serve.request_caption_ids(
+                    "127.0.0.1", server.server_port, order, timeout=300.0)
+                res["caption_ids_s"] = time.perf_counter() - t0
+                launches, by_route = read_launches(kernel), read_routes(kernel)
+                served_steps = steps[0]
+            finally:
+                server.shutdown()
+                server.server_close()
+                thread.join(timeout=60)
+        finally:
+            kernel.step_kernels = real_step
+        direct = Captioner.from_run_dir(run, device=dev)
+        require(caps == direct.caption(arr, None, mot),
+                "msrvtt serve: /caption != Captioner.caption")
+        require(by_id == direct.caption(
+            [feats[v] for v in order], None, [mots[v] for v in order]),
+            "msrvtt serve: /caption_ids != Captioner.caption")
+        require(len(caps) == n_videos and any(caps),
+                "msrvtt serve: captions")
+        want = {name: 0 for name in KERNELS}
+        want["attention_core"] = want["logit_tail"] = served_steps
+        require(served_steps > 0 and launches == want,
+                f"msrvtt serve: launches {launches} != {want}")
+        for name, route in SERVING_ROUTES.items():
+            require(by_route[name][route] == want[name],
+                    f"msrvtt serve: {name} by route {by_route[name]}")
+        del direct
+    res.update(videos=n_videos, decode_steps=served_steps,
+               launches=launches, launches_by_route=by_route)
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_msrvtt(api, kernel, step_mod, dev, seed, info, profile) -> dict:
+    """Preset 4 (``msrvtt-fused``: appearance and motion streams fused to
+    a 2048-wide float32 context; dim 3584, dim_word 512, vocab 20096,
+    bf16) at full width, random weights from ``seed``:
+
+    * kernel 1 at its serving shape (256 rows, nb 5, A = Dc = 2048, ctx
+      float32, and bf16 beside it) and at the training scan's (64, nb 1)
+      on route 'cluster' against its plain version and route 'simple';
+      kernel 2 at V 20096; kernel 6 at (64, 2048, 14336);
+    * serving (beam 5, 256 videos of 20-36 frames, natural EOS and EOS
+      suppressed), every attention-core launch on 'cluster' and every
+      logit-tail launch on 'wgmma'; the kernel step against the plain
+      step at float32 (share >= 0.95); a second decode with the
+      frame-LSTM encoder;
+    * one training setup at batch 64, T 30, bf16, tail kernel on, and the
+      float32 gradients of the kernel path against the plain path (every
+      leaf, W_app, W_mot and b_fuse among them);
+    * the entry points (``phase_msrvtt_entry``)."""
+    from stvd_torch.model.decoder import init_params
+    cfg = api.preset(MSRVTT)
+    m = cfg.model
+    g = torch.Generator(device=dev).manual_seed(seed + 40)
+    rows, nb, tb = (cfg.decode.decode_batch, cfg.decode.beam_size,
+                    cfg.train.batch_size)
+    f32, bf16 = torch.float32, torch.bfloat16
+    attn = phase_attention(
+        kernel, step_mod, dev, g, cfg, splits=profile,
+        shapes=(("serving", rows, nb, f32), ("serving_bf16_ctx", rows, nb,
+                                             bf16),
+                ("training", tb, 1, f32), ("training_bf16_ctx", tb, 1,
+                                           bf16)),
+        phase="msrvtt_kernel_attention_core")
+    tail = phase_tail(kernel, dev, g, seed, cfg,
+                      phase="msrvtt_kernel_logit_tail")
+    train_tail = phase_train_tail(kernel, dev, g, cfg, tb,
+                                  phase="msrvtt_kernel_train_tail")
+    vocab = api.Vocab({f"w{i}": i for i in range(2, m.n_words)})
+    params = init_params(
+        m, torch.Generator(device=dev).manual_seed(seed + 4), dev)
+    serving = phase_serving(api, kernel, dev, seed, params, vocab, cfg,
+                            "msrvtt_serving", ("attention_core",
+                                               "logit_tail"),
+                            routes=SERVING_ROUTES)
+    phase_kernel_vs_plain(api, kernel, step_mod, dev, seed, params, vocab,
+                          with_model(cfg, compute_dtype="float32"),
+                          "msrvtt_kernel_vs_plain_f32")
+    if profile:
+        phase_profile(api, dev, params, vocab, seed, cfg, "profile_msrvtt")
+    entry = phase_msrvtt_entry(kernel, dev, seed, cfg, params, vocab)
+    emit({"phase": "msrvtt_entry", **entry})
+    del params
+    torch.cuda.empty_cache()
+    cfg_l = with_model(cfg, encoder="lstm")
+    params = init_params(
+        cfg_l.model, torch.Generator(device=dev).manual_seed(seed + 5), dev)
+    serving_l = phase_serving(api, kernel, dev, seed, params, vocab, cfg_l,
+                              "msrvtt_serving_lstm",
+                              ("attention_core", "logit_tail"),
+                              modes=("eos_suppressed",),
+                              routes=SERVING_ROUTES)
+    del params
+    torch.cuda.empty_cache()
+    train = phase_train(kernel, dev, seed,
+                        with_model(cfg, train_tail_kernel="on"),
+                        "msrvtt_train", ("train_tail",),
+                        routes={"train_tail": "wgmma"})
+    phase_train_kernel_vs_plain(kernel, dev, seed, cfg,
+                                phase="msrvtt_train_kernel_vs_plain_f32")
+    worst = serving["runs"][f"eos_suppressed_{rows}"]
+    natural = serving["runs"][f"natural_eos_{rows}"]
+    out = {"phase": "msrvtt", "card": info["nvidia_smi"],
+           "attention_core": {c: {k: attn["cases"][c][k] for k in (
+               "route", "splits", "max_abs_err", "ms", "device_ms",
+               "simple_device_ms", "bound_ms", "bound_share")}
+               for c in attn["cases"]},
+           "logit_tail": {k: tail[k] for k in ("route", "ms", "bound_ms",
+                                                "max_abs_err")},
+           "train_tail": {k: train_tail[k] for k in (
+               "route", "ms", "device_ms", "cold_device_ms", "bound_ms")},
+           "worst_case_captions_per_s": worst["captions_per_s"],
+           "natural_eos_captions_per_s": natural["captions_per_s"],
+           "serving_peak_mem_gib": serving["peak_mem_gib"],
+           "lstm_worst_case_captions_per_s": serving_l["runs"][
+               f"eos_suppressed_{rows}"]["captions_per_s"],
+           "lstm_peak_mem_gib": serving_l["peak_mem_gib"],
+           "train_median_step_s": train["median_step_s"],
+           "train_peak_mem_gib": train["peak_mem_gib"],
+           "serve_caption_s": entry["caption_s"],
+           "serve_caption_ids_s": entry["caption_ids_s"]}
+    emit(out)
+    return {"attention": attn, "tail": tail, "train_tail": train_tail,
+            "serving": serving, "train": train}
+
+
+def phase_train_kernel_vs_plain(kernel, dev, seed, cfg, batch=16,
+                                phase="train_kernel_vs_plain_f32") -> None:
     """One train step's loss and gradients at float32, full width, batch
     16: every training kernel on against every one off, on the same
     weights and batch.  Per parameter, max|g_kernel - g_plain| must stay
     within GRAD_TOL of max|g_plain|; c_att and cs_att shift every score
     of a softmax alike, so their gradient is zero up to rounding and is
-    held to GRAD_TOL of the largest gradient entry of the model.  Frames
-    and regions are drawn i.i.d. normal: the synthetic dataset's frames
+    held to GRAD_TOL of the largest gradient entry of the model.  Frames,
+    regions and motion are drawn i.i.d. normal: the synthetic dataset's frames
     of a video differ by 0.1-scale noise, so the attention weights are
     near uniform and the softmax backwards subtract near-equal terms,
     which magnifies float32 rounding of any summation order."""
@@ -1773,8 +2025,9 @@ def phase_train_kernel_vs_plain(kernel, dev, seed, cfg, batch=16) -> None:
     cfg = with_model(cfg, compute_dtype="float32", use_dropout=False)
     state, b = train_setup(cfg, dev, seed, batch)
     gen = torch.Generator(device=dev).manual_seed(seed + 3)
-    for key in ("frames", "regions"):
-        b[key] = torch.randn(b[key].shape, generator=gen, device=dev)
+    for key in ("frames", "regions", "motion"):
+        if key in b:
+            b[key] = torch.randn(b[key].shape, generator=gen, device=dev)
     params = state["params"]
     out = {}
     for name, switch in (("kernels", "on"), ("plain", "off")):
@@ -1798,7 +2051,7 @@ def phase_train_kernel_vs_plain(kernel, dev, seed, cfg, batch=16) -> None:
         worst[k] = float((gk[k] - gp[k]).abs().max()) / scale
     bad = {k: v for k, v in worst.items() if not v <= GRAD_TOL}
     loss_rel = abs(lk - lp) / abs(lp)
-    emit({"phase": "train_kernel_vs_plain_f32", "batch": batch,
+    emit({"phase": phase, "batch": batch,
           "loss_kernels": lk, "loss_plain": lp, "loss_rel_diff": loss_rel,
           "worst_leaf": max(worst, key=worst.get),
           "worst_rel": max(worst.values()), "bar": GRAD_TOL,
@@ -2117,6 +2370,8 @@ def main() -> int:
     phase_train_kernel_vs_plain(kernel, dev, args.seed, cfg_sp)
     phase_eval_fit(kernel, step_mod, dev, args.seed, cfg)
     phase_cli(kernel, dev, args.seed, cfg, info)
+    msrvtt = phase_msrvtt(api, kernel, step_mod, dev, args.seed, info,
+                          args.profile)
     if args.profile:
         phase_train_profile(dev, args.seed, cfg_sp, "profile_train_spatial")
         phase_train_profile(dev, args.seed,
@@ -2156,6 +2411,17 @@ def main() -> int:
             train_t["launches"]["train_tail"], train_tail),
         row("dws_gemm", "dws_gemm.cu", "tools/probe_dws_gemm.py:87",
             train["launches"]["dws_gemm"], dws),
+        # the same kernels at preset 4's shapes, launches of its paths
+        row("attention_core_msrvtt", "attn_core.cu",
+            "stvd/model/kernel.py:45",
+            msrvtt["serving"]["launches"]["attention_core"],
+            msrvtt["attention"]),
+        row("logit_tail_msrvtt", "logit_tail.cu", "stvd/model/kernel.py:593",
+            msrvtt["serving"]["launches"]["logit_tail"], msrvtt["tail"]),
+        row("train_tail_msrvtt", "train_tail.cu",
+            "stvd/model/kernel.py:1032",
+            msrvtt["train"]["launches"]["train_tail"],
+            msrvtt["train_tail"]),
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": info["name"],
                                  "count": info["count"]}})

@@ -3,12 +3,14 @@
     cap = Captioner.from_run_dir("runs/msvd")    # device="cuda" by default
     texts = cap.caption(features)          # (N, F, D) numpy -> [str]
     texts = cap.caption(features, regions=regions)   # spatial (preset 2)
+    texts = cap.caption(features, None, motion)      # dual stream (preset 4)
     hyps = cap.nbest(features, n=3)        # [[(text, logprob), ...], ...]
     cap.attach_bank(FeatureBank.load("bank.npz"))
     texts = cap.caption_ids(["vid1", "vid7"])  # features already resident
 
-``Captioner`` decodes the temporal and the spatial model by beam search
-or greedy decoding, with bf16 or W8A8 int8 gates (``decode_quant='int8'``;
+``Captioner`` decodes the temporal, the spatial and the dual-stream
+(appearance + motion, optionally with the frame-LSTM encoder) models by
+beam search or greedy decoding, with bf16 or W8A8 int8 gates (``decode_quant='int8'``;
 ``gates_kernel='on'`` runs them through the fused gates kernel): captions
 of raw features or of a prepared batch, n-best lists, stochastic samples,
 and id-addressed requests against a feature bank resident on the device
@@ -16,9 +18,9 @@ and id-addressed requests against a feature bank resident on the device
 ``cli.convert`` or of the port's ``cli.train`` (``from_run_dir``) and
 swaps in new weights of the same shapes between requests
 (``swap_params``).  The weights are an input of every decode call, so a
-swap is the assignment of a new dict.  Not ported: the motion stream
-(``motion=`` raises ``NotImplementedError``) and a bank sharded over
-several devices (``attach_bank(mesh=...)`` raises likewise).
+swap is the assignment of a new dict.  Not ported: a bank sharded over
+several devices (``attach_bank(mesh=...)`` raises
+``NotImplementedError``).
 """
 
 from __future__ import annotations
@@ -120,14 +122,13 @@ def chunked_caption_ids(run_ids: Callable, params,
 def pack_request(model_cfg, features, regions=None, motion=None, *,
                  device: torch.device | str = "cuda"
                  ) -> Dict[str, torch.Tensor]:
-    """Raw per-video feature arrays -> a device batch (frames and regions
-    in the compute dtype, frame_mask float32).  ``features`` is (N, F, D)
-    or a list of (F_i, D) arrays, ``regions`` a matching sequence of
-    (F_i, R, Dr) arrays; frame counts are subsampled or padded to the
-    model's K by ``pack_bank``.  The positional parameters are the JAX
-    package's; ``device`` is keyword-only."""
-    if motion is not None:
-        raise NotImplementedError("the motion stream is not ported yet")
+    """Raw per-video feature arrays -> a device batch (frames, regions and
+    motion in the compute dtype, frame_mask float32).  ``features`` is
+    (N, F, D) or a list of (F_i, D) arrays, ``regions`` a matching
+    sequence of (F_i, R, Dr) arrays, ``motion`` one of (F_i, Dm) arrays;
+    frame counts are subsampled or padded to the model's K by
+    ``pack_bank``.  The positional parameters are the JAX package's;
+    ``device`` is keyword-only."""
     if isinstance(features, np.ndarray) and features.ndim == 3:
         feats = {f"v{i}": features[i] for i in range(features.shape[0])}
     else:
@@ -135,7 +136,10 @@ def pack_request(model_cfg, features, regions=None, motion=None, *,
     ids = [f"v{i}" for i in range(len(feats))]
     regs = ({v: np.asarray(r) for v, r in zip(ids, regions)}
             if regions is not None else None)
-    bank = pack_bank(feats, model_cfg.n_frames, ids=ids, regions=regs)
+    mots = ({v: np.asarray(m) for v, m in zip(ids, motion)}
+            if motion is not None else None)
+    bank = pack_bank(feats, model_cfg.n_frames, ids=ids, regions=regs,
+                     motion=mots)
     return to_device(bank, device, compute_dtype(model_cfg))
 
 
@@ -384,8 +388,8 @@ class Captioner(BankResident):
                 ) -> List[str]:
         """Caption raw per-video feature arrays: (N, F, D) or a list of
         (F_i, D) arrays, with per-video (F_i, R, Dr) region features for
-        the spatial model.  ``motion`` raises ``NotImplementedError``
-        until the motion stream is ported."""
+        the spatial model and (F_i, Dm) motion features for the
+        dual-stream model."""
         return self.caption_batch(
             pack_request(self.cfg.model, features, regions, motion,
                          device=self.device))

@@ -47,7 +47,16 @@
 //   divides by the summed denominator.  No atomics, and every sum has a
 //   fixed order, so results repeat bit for bit; a CTA whose frames are all
 //   masked adds zeros, and a fully-masked row still gives zeros.
-// The route needs A and Dc multiples of 8 and at most 1024, 16-byte
+// A CTA has four warps for A and Dc up to 1024 (preset 3, path A) and
+// eight above, up to 2048 (preset 4: A = Dc = 2048, a float32 context):
+// a warp keeps one 256-column score chunk and a thread 8 columns of Dc,
+// so the math, the sums and their order are those of the four-warp CTA.
+// At preset 4 (Bc=256, nb=5, K=28) a call moves pctx 58.7 MB, ctx 58.7 MB
+// (float32), h_att 10.5 MB and ctx_t 10.5 MB: 138 MB, ~41 us at 3.35
+// TB/s.  Its float32 slice of 14 frames would be 115 KB, one CTA an SM,
+// so a row takes 4 CTAs of 7 frames (57 KB each) there
+// (stvd_torch/model/kernel.py:attention_core_split).
+// The route needs A and Dc multiples of 8 and at most 2048, 16-byte
 // aligned pctx and ctx and a slice that fits shared memory; other shapes
 // take "simple".
 
@@ -204,9 +213,11 @@ cudaError_t launch(const void* h_att, long long ld_h, const void* beta_logit,
 // Route "cluster"
 // ---------------------------------------------------------------------------
 
-constexpr int kClWarps = 4;    // score chunks per row must divide this
+// Warps of a CTA: 4 for A and Dc up to 1024, 8 up to 2048 (score chunks
+// per row must divide it; a thread holds 8 columns of Dc).
+constexpr int kClWarps = 4;
+constexpr int kClWideWarps = 8;
 constexpr int kMaxSplits = 4;  // CTAs of a cluster (one row)
-constexpr int kClThreads = 32 * kClWarps;
 
 __device__ __forceinline__ void load8(const float* p, float (&v)[8]) {
   const float4 x = *reinterpret_cast<const float4*>(p);
@@ -244,8 +255,8 @@ inline size_t cluster_smem(int nb, int kc, int dc, int nq, size_t ctx_bytes) {
          4 * (static_cast<size_t>(nb) * kc * (nq + 1) + 5 * nb);
 }
 
-template <int NB, typename CtxT>
-__global__ void __launch_bounds__(kClThreads)
+template <int NB, int WARPS, typename CtxT>
+__global__ void __launch_bounds__(32 * WARPS)
 attn_core_cluster(const float* __restrict__ h_att, long long ld_h,
                   const float* __restrict__ beta_logit, long long ld_beta,
                   const float* __restrict__ pctx,
@@ -256,6 +267,7 @@ attn_core_cluster(const float* __restrict__ h_att, long long ld_h,
                   const float* __restrict__ b_sel, int selector,
                   float* __restrict__ ctx_t, float* __restrict__ alpha, int k,
                   int a, int dc, int kc, int nq) {
+  constexpr int kClThreads = 32 * WARPS;
   extern __shared__ __align__(16) unsigned char cl_smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int splits = static_cast<int>(cluster.num_blocks());
@@ -306,9 +318,9 @@ attn_core_cluster(const float* __restrict__ h_att, long long ld_h,
   if (warp < units)
     load_row(pbase + static_cast<long long>(warp >> qshift) * a, q, lane, a,
              pa, pb);
-  for (int u = warp; u < units; u += kClWarps) {
+  for (int u = warp; u < units; u += WARPS) {
     const int f = u >> qshift;
-    const int un = u + kClWarps;
+    const int un = u + WARPS;
     float4 na, nb4;
     if (un < units)
       load_row(pbase + static_cast<long long>(un >> qshift) * a, q, lane, a,
@@ -357,7 +369,7 @@ attn_core_cluster(const float* __restrict__ h_att, long long ld_h,
     ls[tid] = l;
   }
   // o = sum_f p_f ctx_f over this CTA's frames: a thread per 8 columns
-  // (Dc <= 8 kClThreads), held in registers until every thread has read
+  // (Dc <= 8 * 32 * WARPS), held in registers until every thread has read
   // the slab, then written over it
   mbar_wait(bar, 0);
   const int d8 = tid;
@@ -437,7 +449,7 @@ attn_core_cluster(const float* __restrict__ h_att, long long ld_h,
   cluster.sync();   // no CTA leaves while another reads its shared memory
 }
 
-template <int NB, typename CtxT>
+template <int NB, int WARPS, typename CtxT>
 cudaError_t launch_cluster_nb(const void* h_att, long long ld_h,
                               const void* beta_logit, long long ld_beta,
                               const void* pctx, const void* ctx,
@@ -449,13 +461,13 @@ cudaError_t launch_cluster_nb(const void* h_att, long long ld_h,
   const int nq = score_chunks(a);
   const int splits = (k + kc - 1) / kc;
   const size_t smem = cluster_smem(NB, kc, dc, nq, sizeof(CtxT));
-  auto kern = attn_core_cluster<NB, CtxT>;
+  auto kern = attn_core_cluster<NB, WARPS, CtxT>;
   static std::atomic<int> allowed[kMaxDevices];
   cudaError_t e = allow_smem(kern, smem, allowed);
   if (e != cudaSuccess) return e;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(static_cast<unsigned>(bc * splits));
-  cfg.blockDim = dim3(kClThreads);
+  cfg.blockDim = dim3(32 * WARPS);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
@@ -487,16 +499,24 @@ cudaError_t launch_cluster(const void* h_att, long long ld_h,
                            int kc, cudaStream_t stream) {
   const int splits = kc >= 1 ? (k + kc - 1) / kc : 0;
   if (kc < 1 || splits > kMaxSplits || a % 8 || dc % 8 ||
-      a > 256 * kClWarps || dc > 8 * kClThreads || !aligned16(pctx) || !aligned16(ctx) ||
+      a > 256 * kClWideWarps || dc > 8 * 32 * kClWideWarps ||
+      !aligned16(pctx) || !aligned16(ctx) ||
       cluster_smem(nb, kc, dc, score_chunks(a), sizeof(CtxT)) > kSmemLimit ||
       static_cast<long long>(bc) * splits > 2147483647LL)
     return cudaErrorInvalidValue;
-#define STVD_NB(N)                                                           \
-  case N:                                                                    \
-    return launch_cluster_nb<N, CtxT>(h_att, ld_h, beta_logit, ld_beta, pctx, \
-                                      ctx, mask, u_att, c_att, b_sel,        \
-                                      selector, ctx_t, alpha, bc, k, a, dc,  \
-                                      kc, stream);
+  // the four-warp CTA where it covers A and Dc, so those shapes keep
+  // their instantiation; eight warps above
+  const bool wide = a > 256 * kClWarps || dc > 8 * 32 * kClWarps;
+#define STVD_NB(N)                                                            \
+  case N:                                                                     \
+    return wide ? launch_cluster_nb<N, kClWideWarps, CtxT>(                   \
+                      h_att, ld_h, beta_logit, ld_beta, pctx, ctx, mask,      \
+                      u_att, c_att, b_sel, selector, ctx_t, alpha, bc, k, a,  \
+                      dc, kc, stream)                                         \
+                : launch_cluster_nb<N, kClWarps, CtxT>(                       \
+                      h_att, ld_h, beta_logit, ld_beta, pctx, ctx, mask,      \
+                      u_att, c_att, b_sel, selector, ctx_t, alpha, bc, k, a,  \
+                      dc, kc, stream);
   switch (nb) {
     STVD_NB(1) STVD_NB(2) STVD_NB(3) STVD_NB(4)
     STVD_NB(5) STVD_NB(6) STVD_NB(7) STVD_NB(8)

@@ -92,13 +92,50 @@ def init_params(cfg, generator: torch.Generator,
 
 def encode_context(params: Params, cfg, frames: torch.Tensor,
                    motion: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """(B, K, ctx_dim) context: the frames themselves for a single
-    feature stream."""
-    if cfg.use_motion:
-        raise NotImplementedError("dual-stream fusion is not ported yet")
+    """Fuse the input feature streams to the (B, K, ctx_dim) context.
+
+    Single stream (MSVD): the frames themselves.  Dual stream (MSR-VTT,
+    preset 4): the linear fusion ``frames @ W_app + motion @ W_mot +
+    b_fuse``, float32 (the products accumulate in float32 and the bias
+    is float32, as in the JAX package; it is not cast back to the
+    compute dtype).  With ``encoder='lstm'`` the frame-level LSTM's
+    states are added as a residual."""
+    cdtype = step_mod.compute_dtype(cfg)
+    if not cfg.use_motion:
+        ctx = frames
+    else:
+        if motion is None:
+            raise ValueError("use_motion=True but no motion features given")
+        ctx = (step_mod._dot(frames, params["W_app"], cdtype)
+               + step_mod._dot(motion, params["W_mot"], cdtype)
+               + params["b_fuse"])
     if cfg.encoder == "lstm":
-        raise NotImplementedError("the frame-LSTM encoder is not ported yet")
-    return frames
+        # masked frames are excluded downstream by the attention mask
+        ctx = ctx + _frame_lstm(params, cfg, ctx)
+    return ctx
+
+
+def _frame_lstm(params: Params, cfg, ctx: torch.Tensor) -> torch.Tensor:
+    """Frame-level LSTM over the K frames (gates i, f, o, g; zero initial
+    state): one input product over all frames, then the K-step
+    recurrence.  Returns the (B, K, ctx_dim) float32 states."""
+    cdtype = step_mod.compute_dtype(cfg)
+    dc = cfg.ctx_dim
+    x_pre = step_mod._dot(ctx, params["enc_W"], cdtype) + params["enc_b"]
+    h = torch.zeros((ctx.shape[0], dc), dtype=torch.float32,
+                    device=ctx.device)
+    c = torch.zeros_like(h)
+    hs = []
+    for t in range(ctx.shape[1]):
+        preact = x_pre[:, t] + step_mod._dot(h, params["enc_U"], cdtype)
+        i = torch.sigmoid(preact[:, 0 * dc: 1 * dc])
+        f = torch.sigmoid(preact[:, 1 * dc: 2 * dc])
+        o = torch.sigmoid(preact[:, 2 * dc: 3 * dc])
+        g = torch.tanh(preact[:, 3 * dc: 4 * dc])
+        c = f * c + i * g
+        h = o * torch.tanh(c)
+        hs.append(h)
+    return torch.stack(hs, dim=1)
 
 
 class ForwardOut(NamedTuple):

@@ -64,20 +64,38 @@ ATTENTION_CORE_ROUTES = ("cluster", "simple")
 
 
 _CLUSTER_CTAS = 512   # CTAs the card holds at once at 3+ beams: one wave
+_SM_SMEM = 233472     # shared memory of an SM; each CTA also takes 1 KB
+_WIDE = 2048          # A and Dc the eight-warp CTA covers (csrc)
 
 
-def attention_core_split(k: int, rows: int, nb: int) -> Tuple[int, int]:
+def _cluster_smem(nb: int, kc: int, a: int, dc: int, ctx_bytes: int) -> int:
+    """Route 'cluster''s shared memory a CTA (csrc: cluster_smem): the
+    mbarrier, the ctx slice of ``kc`` frames or the partial sums of its
+    nb beams over it, partial scores, scores and five nb-vectors."""
+    return (16 + max(kc * dc * ctx_bytes, 4 * nb * dc)
+            + 4 * (nb * kc * (score_chunks(a) + 1) + 5 * nb))
+
+
+def attention_core_split(k: int, rows: int, nb: int, a: int = 0,
+                         dc: int = 0, ctx_bytes: int = 2
+                         ) -> Tuple[int, int]:
     """Route 'cluster''s plan for K frames of ``rows`` context rows of
     ``nb`` beams: (CTAs per row, frames per CTA).  Up to 4 CTAs a row,
     frames as even as whole frames allow and no CTA empty.  From 3 beams
     up a CTA holds 2^(C h) of every beam in registers (~96 a thread,
     about 5 CTAs an SM), so only as many CTAs a row as keep the launch
     within ~512 CTAs, one wave: K 28 over 256 rows of 5 beams -> (2, 14);
-    over 64 rows of 1 beam -> (4, 7).  ``chip_smoke.py --profile`` times
-    every split at the serving paths' shapes (split_ms)."""
+    over 64 rows of 1 beam -> (4, 7) - unless that plan's shared memory
+    (A, Dc and the ctx element's ``ctx_bytes`` given) leaves room for one
+    CTA an SM: preset 4's 14 float32 frames of 2048 (115 KB) take 4 CTAs
+    of 7 frames instead.  ``chip_smoke.py --profile`` times every split
+    at the paths' shapes (split_ms)."""
     want = min(4, k)
     if nb >= 3:
-        want = max(1, min(want, _CLUSTER_CTAS // max(rows, 1)))
+        wave = max(1, min(want, _CLUSTER_CTAS // max(rows, 1)))
+        smem = _cluster_smem(nb, -(-k // wave), a, dc, ctx_bytes)
+        if 2 * (smem + 1024) <= _SM_SMEM:
+            want = wave
     kc = -(-k // want)
     return -(-k // kc), kc
 
@@ -87,20 +105,19 @@ def attention_core_route(rows: int, nb: int, k: int, a: int, dc: int,
                          kc: Optional[int] = None) -> str:
     """The attention core's route, from shapes, dtype and alignment alone:
     'cluster' when A and Dc are multiples of 8 (16-byte rows, whole TMA
-    spans) and at most 1024 (four warps, one 256-column chunk each; a
-    thread per 8 columns of Dc), pctx and ctx start 16-byte aligned and a
-    CTA's shared memory (its ctx slice of ``kc`` frames, by default
-    ``attention_core_split``'s, or the partial sums of its nb beams over
-    it) fits; else 'simple'."""
-    if (a % 8 or dc % 8 or a > 1024 or dc > 1024 or pctx_ptr % 16
+    spans) and at most 2048 (four warps a CTA up to 1024 columns, eight
+    above; one 256-column score chunk a warp, a thread per 8 columns of
+    Dc), pctx and ctx start 16-byte aligned and a CTA's shared memory (its
+    ctx slice of ``kc`` frames, by default ``attention_core_split``'s, or
+    the partial sums of its nb beams over it) fits; else 'simple'."""
+    if (a % 8 or dc % 8 or a > _WIDE or dc > _WIDE or pctx_ptr % 16
             or ctx_ptr % 16):
         return "simple"
-    if kc is None:
-        kc = attention_core_split(k, rows, nb)[1]
     el = 2 if ctx_dtype == torch.bfloat16 else 4
-    smem = (16 + max(kc * dc * el, 4 * nb * dc)
-            + 4 * (nb * kc * (score_chunks(a) + 1) + 5 * nb))
-    return "cluster" if smem <= _SMEM_LIMIT else "simple"
+    if kc is None:
+        kc = attention_core_split(k, rows, nb, a, dc, el)[1]
+    return ("cluster" if _cluster_smem(nb, kc, a, dc, el) <= _SMEM_LIMIT
+            else "simple")
 
 
 def _attention_core_cuda(h_att, beta_logit, pctx, ctx, ctx_mask, u_att,
@@ -136,8 +153,8 @@ def _attention_core_cuda(h_att, beta_logit, pctx, ctx, ctx_mask, u_att,
     c_att = c_att.to(f32).reshape(())
     b_sel = b_sel.to(f32).reshape(())
     nb = bs // bc
-    kc = (attention_core_split(k, bc, nb)[1] if splits is None
-          else -(-k // splits))
+    kc = (attention_core_split(k, bc, nb, a, dc, ctx.element_size())[1]
+          if splits is None else -(-k // splits))
     if route is None:
         route = attention_core_route(bc, nb, k, a, dc, ctx.dtype,
                                      pctx.data_ptr(), ctx.data_ptr(), kc)

@@ -63,10 +63,27 @@ def test_pack_request_matches_jax():
                                       np.asarray(ref[k], np.float32))
 
 
+def motion_request(feats, dm=8, seed=23):
+    """Per-video (F_i, Dm) motion features beside ``feats``."""
+    rng = np.random.RandomState(seed)
+    return [rng.randn(f.shape[0], dm).astype(np.float32) for f in feats]
+
+
 def test_pack_request_rejects_unported_streams():
-    with pytest.raises(NotImplementedError):
-        tapi.pack_request(CFG, request(), motion=request(),
-                          device="cpu")
+    """The motion stream, which ``pack_request`` once rejected, is packed
+    as the JAX package packs it: subsampled or padded to K beside the
+    frames, in the compute dtype."""
+    cfg = dataclasses.replace(CFG, compute_dtype="bfloat16",
+                              use_motion=True, motion_dim=8)
+    feats = request()
+    mots = motion_request(feats)
+    ref = japi.pack_request(cfg, feats, None, mots)
+    got = tapi.pack_request(cfg, feats, None, mots, device="cpu")
+    assert sorted(got) == sorted(ref) == ["frame_mask", "frames", "motion"]
+    assert got["motion"].dtype == torch.bfloat16
+    for k in ref:
+        np.testing.assert_array_equal(got[k].float().numpy(),
+                                      np.asarray(ref[k], np.float32))
 
 
 def test_chunked_caption_pads_last_chunk_with_one_valid_frame():
@@ -107,11 +124,19 @@ def test_chunked_caption_takes_the_jax_positional_order(window, n):
 
 
 def test_caption_takes_motion_in_the_jax_position():
-    cap = tapi.Captioner(numpy_params(CFG, seed=22), config(3), VOCAB,
-                         device="cpu")
-    feats = request(n=2)
-    with pytest.raises(NotImplementedError, match="motion"):
-        cap.caption(feats, None, [np.zeros((4, 8), np.float32)] * 2)
+    """``caption(features, None, motion)`` as written for the JAX package
+    gives the JAX Captioner's captions of the dual-stream model."""
+    cfg = dataclasses.replace(config(3), model=dataclasses.replace(
+        CFG, use_motion=True, motion_dim=8))
+    p = numpy_params(cfg.model, seed=22)
+    feats = request(n=4)
+    mots = motion_request(feats)
+    ref = japi.Captioner({k: jnp.asarray(v) for k, v in p.items()}, cfg,
+                         VOCAB).caption(feats, None, mots)
+    got = tapi.Captioner(p, cfg, VOCAB, device="cpu").caption(feats, None,
+                                                              mots)
+    assert got == ref
+    assert len(got) == 4 and any(got)
 
 
 def test_to_device_casts_features_not_mask():

@@ -241,17 +241,22 @@ def test_spatial_bwd_route(s, dr, cdtype, ptrs, route):
     (256, 5, 28, 1024, 1024, BF16, 0, 2, "simple"),
     (256, 5, 28, 100, 304, BF16, 0, 0, "simple"),
     (256, 5, 28, 1024, 300, F32, 0, 0, "simple"),
-    (256, 5, 28, 2048, 1024, BF16, 0, 0, "simple"),
-    (256, 5, 28, 1024, 2048, BF16, 0, 0, "simple"),
-    (64, 8, 400, 1024, 1024, F32, 0, 0, "simple")])
+    (256, 5, 28, 2048, 1024, BF16, 0, 0, "cluster"),
+    (256, 5, 28, 1024, 2048, BF16, 0, 0, "cluster"),
+    (64, 8, 400, 1024, 1024, F32, 0, 0, "simple"),
+    (256, 5, 28, 2048, 2048, F32, 0, 0, "cluster"),
+    (64, 1, 28, 2048, 2048, F32, 0, 0, "cluster"),
+    (256, 5, 28, 2056, 2048, F32, 0, 0, "simple"),
+    (256, 5, 28, 2048, 4096, BF16, 0, 0, "simple")])
 def test_attention_core_route(rows, nb, k, a, dc, dtype, pctx_ptr, ctx_ptr,
                               route):
     """'cluster' only when A and Dc are whole 16-byte vectors of float32
-    (multiples of 8 also for the bf16 TMA span) of at most 1024 columns,
-    both bases are 16-byte aligned and a CTA's ctx slice (or its partial
-    sums over it) fits shared memory: at 1024 rows one CTA a row takes all
-    28 float32 frames (115 KB); K 400 over 64 rows, 100 float32 frames a
-    CTA, does not fit."""
+    (multiples of 8 also for the bf16 TMA span) of at most 2048 columns
+    (four warps a CTA up to 1024, eight above), both bases are 16-byte
+    aligned and a CTA's ctx slice (or its partial sums over it) fits
+    shared memory: at 1024 rows one CTA a row takes all 28 float32 frames
+    (115 KB); K 400 over 64 rows, 100 float32 frames a CTA, does not
+    fit."""
     assert tkernel.attention_core_route(rows, nb, k, a, dc, dtype, pctx_ptr,
                                         ctx_ptr) == route
     assert route in tkernel.ATTENTION_CORE_ROUTES
@@ -287,6 +292,22 @@ def test_attention_core_split(k, rows, nb, plan):
     assert 1 <= splits <= 4 and (splits - 1) * kc < k <= splits * kc
     if nb >= 3:
         assert rows * splits <= max(512, rows)
+
+
+@pytest.mark.parametrize("k,rows,nb,a,dc,el,plan", [
+    (28, 256, 5, 2048, 2048, 4, (4, 7)), (28, 256, 5, 2048, 2048, 2, (2, 14)),
+    (28, 64, 1, 2048, 2048, 4, (4, 7)), (28, 1024, 8, 2048, 2048, 4, (4, 7)),
+    (5, 256, 5, 2048, 2048, 4, (2, 3)), (28, 256, 5, 1024, 1024, 2, (2, 14)),
+    (28, 256, 5, 1024, 1024, 4, (2, 14))])
+def test_attention_core_split_by_shared_memory(k, rows, nb, a, dc, el, plan):
+    """From 3 beams up the one-wave plan holds unless its CTA's shared
+    memory leaves room for one CTA an SM: preset 4's 14 float32 frames of
+    2048 (115 KB) take 4 CTAs of 7 frames; the same frames in bf16 (57 KB)
+    or preset 3's keep (2, 14).  Without A and Dc the plan is the
+    one-wave rule's."""
+    assert tkernel.attention_core_split(k, rows, nb, a, dc, el) == plan
+    if nb >= 3 and plan != tkernel.attention_core_split(k, rows, nb):
+        assert plan[0] == min(4, k)
 
 
 @pytest.mark.parametrize("nb,r,s,dr,dtype,pregion_ptr,regions_ptr,route", [

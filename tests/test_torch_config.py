@@ -41,8 +41,8 @@ def test_port_imports_neither_jax_nor_stvd():
         "          'scorer', '_native'):\n"
         "    assert 'stvd_torch.metrics.' + n in names, n\n"
         "for n in ('cli.train', 'cli.sample', 'cli.score', 'cli.convert',\n"
-        "          'cli.serve', 'utils.logging', 'decode.sample',\n"
-        "          'model.importer'):\n"
+        "          'cli.serve', 'utils.logging', 'utils.profiling',\n"
+        "          'decode.sample', 'model.importer'):\n"
         "    assert 'stvd_torch.' + n in names, n\n"
         "from stvd_torch.metrics.scorer import score_all\n"
         "s = score_all({'a': ['a man is running']}, {'a': ['men run']},\n"
@@ -52,7 +52,7 @@ def test_port_imports_neither_jax_nor_stvd():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 25
+    assert int(out.stdout.split()[-1]) >= 26
 
 
 @pytest.mark.parametrize("name", PRESETS)

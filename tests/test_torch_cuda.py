@@ -56,7 +56,8 @@ def attention_inputs(bc, nb, k, a, dc, ctx_dtype, device, seed):
     ctx = torch.randn(bc, k, dc, generator=g, device=device).to(ctx_dtype)
     mask = (torch.rand(bc, k, generator=g, device=device) > 0.3).float()
     mask[:, 0] = 1.0
-    splits, kc = tkernel.attention_core_split(k, bc, nb)
+    splits, kc = tkernel.attention_core_split(k, bc, nb, a, dc,
+                                              ctx.element_size())
     mask[1, (splits - 1) * kc:] = 0.0
     mask[2] = 0.0
     u = torch.randn(a, generator=g, device=device) / a ** 0.5
@@ -150,6 +151,34 @@ def test_attention_core_kernel_is_deterministic(cuda, bc, nb, k, route):
     torch.cuda.synchronize()
     for p, q in zip(first, second):
         assert torch.equal(p, q)
+
+
+@pytest.mark.parametrize("bc,nb,k,a,dc,ctx_dtype", [
+    (256, 5, 28, 2048, 2048, torch.float32),
+    (256, 5, 28, 2048, 2048, torch.bfloat16),
+    (64, 1, 28, 2048, 2048, torch.float32),
+    (64, 1, 28, 2048, 2048, torch.bfloat16),
+    (9, 3, 29, 2048, 2048, torch.float32),
+    (7, 8, 5, 1800, 2000, torch.float32),
+    (6, 5, 28, 1024, 2048, torch.bfloat16),
+    (6, 5, 28, 2048, 1024, torch.float32)])
+def test_attention_core_kernel_at_preset_4_width(cuda, bc, nb, k, a, dc,
+                                                 ctx_dtype):
+    """Preset 4's width (A = Dc = 2048; the fused context float32, and
+    bf16 beside it) on the cluster route's eight-warp CTA: the serving
+    shape (256 rows, nb 5) and the training scan's (64, nb 1), K 29 and 5
+    (a short last CTA), nb 8 with A and Dc off the 256-column chunk, and
+    only one of A, Dc above 1024.  Against the plain core, and two calls
+    bit for bit."""
+    args = attention_inputs(bc, nb, k, a, dc, ctx_dtype, cuda, seed=k + nb)
+    check_attention(args, True, "cluster")
+    first = tkernel.attention_core(*args, False)
+    second = tkernel.attention_core(*args, False)
+    ref = tstep._attention_core(*args, False)
+    torch.cuda.synchronize()
+    for p, q, r in zip(first, second, ref):
+        assert torch.equal(p, q)
+        torch.testing.assert_close(p, r, rtol=1e-4, atol=1e-5)
 
 
 @pytest.mark.parametrize("mode", [0, 1])

@@ -51,6 +51,33 @@ def test_attention_core_matches_jax(nb, selector):
                                    **TOL)
 
 
+@pytest.mark.parametrize("rows,a,dc,route", [
+    (1280, 2048, 2048, "cluster"), (256, 2048, 2048, "cluster"),
+    (64, 2048, 2048, "cluster"), (1280, 4096, 2048, "simple"),
+    (1280, 2048, 4096, "simple")])
+def test_attention_core_route_at_preset_4(rows, a, dc, route):
+    """Preset 4's width (A = Dc = 2048, a float32 fused context) takes
+    route 'cluster' at 5 beams and at the training scan's 1 beam; only
+    above 2048 columns does the core fall back to 'simple'."""
+    nb = 5 if rows != 64 else 1
+    assert tkernel.attention_core_route(rows, nb, 28, a, dc, torch.float32,
+                                        0, 0) == route
+
+
+@pytest.mark.parametrize("nb", [1, 5])
+def test_attention_core_matches_jax_at_preset_4_width(nb):
+    """The plain core at A = Dc = 2048 with a float32 context against the
+    JAX kernel (interpret mode) and its jnp oracle."""
+    arrs = attention_inputs(bc=2, nb=nb, k=5, a=2048, dc=2048, seed=3)
+    jargs = [jnp.asarray(x) for x in arrs]
+    targs = [torch.from_numpy(np.asarray(x)) for x in arrs]
+    got = tkernel.attention_core(*targs, True)
+    for ref in (jkernel.attention_core_pallas(*jargs, True),
+                jstep._attention_core_jnp(*jargs, True)):
+        for g, r in zip(got, ref):
+            np.testing.assert_allclose(g.numpy(), np.asarray(r), **TOL)
+
+
 def tail_inputs(rows, dw, v, seed=0):
     rng = np.random.RandomState(seed)
     return (rng.randn(rows, dw).astype(np.float32),

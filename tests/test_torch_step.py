@@ -180,9 +180,20 @@ def test_precompute_rejects_unported(field, value):
 @pytest.mark.parametrize("field,value", [("use_motion", True),
                                          ("encoder", "lstm")])
 def test_encode_context_rejects_unported(field, value):
-    cfg = small_cfg(**{field: value})
-    with pytest.raises(NotImplementedError):
-        encode_context({}, cfg, torch.zeros(1, cfg.n_frames, cfg.ctx_dim))
+    """The dual-stream fusion and the frame-LSTM encoder, which the port
+    once rejected, now give the JAX package's context within 1e-5."""
+    from stvd.model.decoder import encode_context as jencode_context
+    cfg = small_cfg(motion_dim=20, **{field: value})
+    jp, tp = both_params(cfg)
+    frames, _ = numpy_frames(cfg, 3)
+    motion = (np.random.RandomState(5).randn(3, cfg.n_frames, 20)
+              .astype(np.float32) if cfg.use_motion else None)
+    got = encode_context(tp, cfg, torch.from_numpy(frames),
+                         None if motion is None else torch.from_numpy(motion))
+    ref = jencode_context(jp, cfg, jnp.asarray(frames),
+                          None if motion is None else jnp.asarray(motion))
+    assert got.dtype == torch.float32
+    close(got, ref)
 
 
 def test_encode_context_single_stream_is_identity():
