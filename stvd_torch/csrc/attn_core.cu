@@ -241,7 +241,7 @@ __device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&v)[8]) {
 // slice (kc, Dc) and after it, in the same bytes, the float32 partial
 // sums o (nb, Dc); then partial scores (nb, kc, chunks), scores / weights
 // (nb, kc) and five nb-vectors (local max, cluster max, local sum,
-// denominator, gate).  stvd_torch/model/kernel.py:attention_core_route
+// denominator, gate).  stvd_torch/model/kernel.py:_cluster_smem
 // repeats this.
 __host__ __device__ inline size_t slab_region(int nb, int kc, int dc,
                                               size_t ctx_bytes) {

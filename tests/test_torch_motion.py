@@ -632,3 +632,31 @@ def test_train_cli_takes_the_msrvtt_recipe(tmp_path):
     cap = tapi.Captioner.from_run_dir(run, device="cpu")
     feats, mots = raw_request(cfg_of(CLI_MODEL), n=2)
     assert len(cap.caption(feats, None, mots)) == 2
+
+
+def test_msrvtt_recipe_routes():
+    """``recipes/msrvtt.json`` is not preset 4 (dim 3518, dim_word 468,
+    vocab 20000): its decode step takes kernel 1's cluster route (A = Dc
+    = 2048, float32 context) and the wmma routes of kernels 2, 3 and 6,
+    whose TMA boxes need widths that are multiples of 8."""
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(repo, "recipes", "msrvtt.json")) as f:
+        cfg = tconfig.Config.from_json(f.read())
+    m, d = cfg.model, cfg.decode
+    bf16 = torch.bfloat16
+    rows = d.decode_batch * d.beam_size
+    assert (m.dim, m.dim_word, m.n_words) == (3518, 468, 20000)
+    assert tkernel.attention_core_route(d.decode_batch, d.beam_size,
+                                        m.n_frames, m.attn_dim, m.ctx_dim,
+                                        torch.float32, 0, 0) == "cluster"
+    assert tkernel.logit_tail_route(rows, m.dim_word, m.n_words, bf16,
+                                    0, 0) == "wmma"
+    assert tkernel.gates_route(rows, m.dim_word + m.dim + m.ctx_dim, m.dim,
+                               bf16, 0, 0) == "wmma"
+    assert tkernel.train_tail_route(cfg.train.batch_size, m.ctx_dim, m.dim,
+                                    bf16, 0, 0) == "wmma"
+    p4 = tconfig.preset("msrvtt-fused").model
+    assert tkernel.logit_tail_route(rows, p4.dim_word, p4.n_words, bf16,
+                                    0, 0) == "wgmma"
+    assert tkernel.train_tail_route(64, p4.ctx_dim, p4.dim, bf16, 0,
+                                    0) == "wgmma"
