@@ -6,6 +6,11 @@ Usage:
     python -m stvd_torch.cli.train --config cfg.json [--preset msvd-beam]
         [--set train.max_epochs=3] [--max-updates N] [--device cpu]
 
+Scheduled sampling takes ``--set train.ss_prob=0.25``, the autodiff
+train scan ``--set model.fused_seq_grad=false`` (with ``--set
+model.remat=true`` to recompute each step in the backward); both run
+the kernel step on a CUDA device (``--no-kernel``: the plain step).
+
 Runs on the card unless ``--device cpu``.  Data parallelism on one
 visible device is a single-device run; more devices, and
 ``--model-parallel`` above 1, raise ``NotImplementedError``.
@@ -72,8 +77,9 @@ def main(argv=None) -> int:
                     help="override: section.key=value")
     ap.add_argument("--max-updates", type=int, default=None)
     ap.add_argument("--use-kernel", action="store_true", default=None,
-                    help="force the kernel decode step for validation "
-                         "(default: auto, the kernels on a CUDA device)")
+                    help="force the kernel step for validation and the "
+                         "autograd train scans (default: auto, the "
+                         "kernels on a CUDA device)")
     ap.add_argument("--no-kernel", dest="use_kernel",
                     action="store_false", help="force the plain step")
     ap.add_argument("--data-parallel", action="store_true", default=None,

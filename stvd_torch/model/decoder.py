@@ -12,11 +12,12 @@ import dataclasses
 from typing import Callable, Dict, NamedTuple, Optional
 
 import torch
+import torch.utils.checkpoint
 
 from . import step as step_mod
 from .step import Params, StepOut
 
-# (params, cfg, state, step_context, emb_t) -> StepOut
+# (params, cfg, state, step_context, emb_t, x_pre=None) -> StepOut
 StepFn = Callable[..., StepOut]
 
 
@@ -144,49 +145,133 @@ class ForwardOut(NamedTuple):
     nll_per_example: torch.Tensor  # (B,)
 
 
+def _ss_coins(generator: torch.Generator, ss_prob: float, batch: int,
+              steps: int, device) -> torch.Tensor:
+    """(T, B) bool: each True with probability ``ss_prob``, drawn from
+    ``generator``.  Step t > 0 of the scheduled-sampling scan feeds row
+    b the model's own previous prediction where entry (t, b) is True (the
+    counterpart of JAX's per-step ``bernoulli`` draws; the CPU tests
+    replace this function with those draws)."""
+    return torch.rand((steps, batch), generator=generator,
+                      device=device) < ss_prob
+
+
+def _scan(body, carry, xs, remat: bool):
+    """Run ``body(*carry, *x_t) -> (*carry, *y_t)`` over the steps of
+    ``xs`` (tensors with a leading T axis, or None) and stack each
+    ``y`` along axis 1.  With ``remat`` each step runs under
+    ``torch.utils.checkpoint``: only its inputs and outputs are kept, and
+    the backward runs its forward again.  Every random draw of a step is
+    in ``xs``, made before the scan: the recomputation restores no
+    explicit ``torch.Generator``."""
+    n = len(carry)
+    ys = []
+    for t in range(len(xs[0])):
+        x_t = [None if x is None else x[t] for x in xs]
+        out = (torch.utils.checkpoint.checkpoint(
+            body, *carry, *x_t, use_reentrant=False) if remat
+            else body(*carry, *x_t))
+        carry = out[:n]
+        ys.append(out[n:])
+    return [torch.stack(y, dim=1) for y in zip(*ys)]
+
+
 def forward_train(params: Params, cfg, batch: Dict[str, torch.Tensor],
                   generator: Optional[torch.Generator] = None,
-                  train: bool = True, ss_prob: float = 0.0) -> ForwardOut:
-    """Teacher-forced forward over a batch (frames (B, K, D), frame_mask
+                  train: bool = True, ss_prob: float = 0.0,
+                  step_fn: Optional[StepFn] = None) -> ForwardOut:
+    """The training forward over a batch (frames (B, K, D), frame_mask
     (B, K), tokens (B, T), token_mask (B, T), regions (B, K, R, Dr) for
-    the spatial model).  The scan runs through the hand-derived sequence
-    VJP of ``seqgrad``; the vocab projection then runs once over all
-    (B, T) states.  ``generator`` draws the train dropout and must live on
-    the batch's device.  Training never quantizes: ``decode_quant`` is
-    forced to 'none'."""
-    if ss_prob > 0.0:
-        raise NotImplementedError(
-            "scheduled sampling (ss_prob > 0) is not ported yet: it comes "
-            "with the scheduled-sampling slice (ROADMAP.md, Queue 1)")
-    if not cfg.fused_seq_grad:
-        raise NotImplementedError(
-            "only the hand-derived sequence VJP (fused_seq_grad=True) is "
-            "ported; the autodiff scan comes with the scheduled-sampling "
-            "slice (ROADMAP.md, Queue 1)")
-    from . import seqgrad
+    the spatial model, motion (B, K, Dm) for the dual-stream one).
+    ``generator`` draws the train dropout (and the scheduled-sampling
+    coins; without one they come from a generator seeded 0, as JAX's
+    default key) and must live on the batch's device.  Training never
+    quantizes: ``decode_quant`` is forced to 'none'.
+
+    Teacher forcing (``ss_prob == 0``): step t sees gold word t-1 (zeros
+    at t = 0), the input projection runs once for all steps, and the
+    vocab projection once over all (B, T) states.  With
+    ``cfg.fused_seq_grad`` (the default) the scan is the hand-derived
+    sequence VJP of ``seqgrad``, which has its own step body: ``step_fn``
+    is not consulted there, as in the JAX package.  Without it the scan
+    calls ``step_fn`` (default the plain step) with each step's ``x_pre``
+    and autograd differentiates it.
+
+    Scheduled sampling (``ss_prob > 0``): at step t > 0 each row feeds
+    the embedding of the model's own previous prediction (the first
+    argmax of its logits) with probability ``ss_prob``, else the gold
+    one; each step runs ``step_fn`` without ``x_pre`` and takes its own
+    logits, dropout included.  ``cfg.remat`` recomputes each step's
+    forward in the backward (``torch.utils.checkpoint``) on both
+    autograd scans; the coins and dropout masks are drawn before the
+    scan."""
+    step_fn = step_fn or step_mod.step
     if cfg.decode_quant != "none":
         cfg = dataclasses.replace(cfg, decode_quant="none")
     params = step_mod.cast_params(params, cfg)
     cdtype = step_mod.compute_dtype(cfg)
     tokens = batch["tokens"]
+    b, t_len = tokens.shape
+    teacher = ss_prob == 0.0
     ctx = encode_context(params, cfg, batch["frames"], batch.get("motion"))
     sc = step_mod.precompute(params, cfg, ctx, batch["frame_mask"],
-                             batch.get("regions"), train=True)
+                             batch.get("regions"), train=teacher)
     state0 = step_mod.init_state(params, cfg, sc)
     emb_all = params["Wemb"][tokens]                      # (B, T, dw)
     # step t sees gold word t-1, zeros at t = 0
     emb_in = torch.cat([torch.zeros_like(emb_all[:, :1]), emb_all[:, :-1]],
                        dim=1)
-    x_pre_all = step_mod._dot(emb_in, params["W"], cdtype) + params["b"]
-    run = seqgrad.run_spatial if cfg.use_spatial else seqgrad.run
-    hs, ctxs, alphas = run(params, cfg, sc, state0,
-                           x_pre_all.transpose(0, 1))
-    logits = step_mod.logits_from_states(
-        params, cfg, hs.transpose(0, 1), ctxs.transpose(0, 1), emb_in,
-        generator, train)
+    remat = cfg.remat and train
+
+    if teacher:
+        x_pre_all = step_mod._dot(emb_in, params["W"], cdtype) + params["b"]
+        if cfg.fused_seq_grad:
+            from . import seqgrad
+            run = seqgrad.run_spatial if cfg.use_spatial else seqgrad.run
+            hs, ctxs, alphas = run(params, cfg, sc, state0,
+                                   x_pre_all.transpose(0, 1))
+            hs, ctxs, alphas = (hs.transpose(0, 1), ctxs.transpose(0, 1),
+                                alphas.transpose(0, 1))
+        else:
+            def body(h, c, emb_t, x_pre_t):
+                out = step_fn(params, cfg, step_mod.StepState(h, c), sc,
+                              emb_t, x_pre_t)
+                return out.h, out.c, out.h, out.ctx_t, out.alpha
+
+            hs, ctxs, alphas = _scan(
+                body, state0, (emb_in.transpose(0, 1),
+                               x_pre_all.transpose(0, 1)), remat)
+        logits = step_mod.logits_from_states(params, cfg, hs, ctxs, emb_in,
+                                             generator, train)
+    else:
+        dev = tokens.device
+        if generator is None:
+            if cfg.use_dropout and train:
+                raise ValueError("train dropout requires a generator")
+            generator = torch.Generator(device=dev).manual_seed(0)
+        coins = _ss_coins(generator, ss_prob, b, t_len, dev)
+        use_model = coins & (torch.arange(t_len, device=dev) > 0)[:, None]
+        keep = (step_mod.dropout_keep(cfg, (t_len, b, cfg.dim_word),
+                                      generator, dev)
+                if cfg.use_dropout and train else None)
+        wemb = params["Wemb"]
+
+        def body(h, c, prev, emb_gold_t, use_model_t, keep_t):
+            emb_t = torch.where(use_model_t[:, None], wemb[prev],
+                                emb_gold_t)
+            out = step_fn(params, cfg, step_mod.StepState(h, c), sc, emb_t)
+            logit_t = step_mod.logits_from_states(
+                params, cfg, out.h, out.ctx_t, emb_t, train=train,
+                keep=keep_t)
+            pred = logit_t.detach().argmax(dim=-1)   # first index on ties
+            return out.h, out.c, pred, logit_t, out.alpha
+
+        prev0 = torch.zeros(b, dtype=torch.long, device=dev)
+        logits, alphas = _scan(body, (*state0, prev0),
+                               (emb_in.transpose(0, 1), use_model, keep),
+                               remat)
     nll = sequence_nll(logits, tokens, batch["token_mask"])
-    return ForwardOut(logits=logits, alphas=alphas.transpose(0, 1),
-                      nll_per_example=nll)
+    return ForwardOut(logits=logits, alphas=alphas, nll_per_example=nll)
 
 
 def sequence_nll(logits: torch.Tensor, tokens: torch.Tensor,

@@ -173,19 +173,87 @@ def _attention_core_cuda(h_att, beta_logit, pctx, ctx, ctx_mask, u_att,
     return ctx_t, alpha
 
 
-def attention_core(h_att, beta_logit, pctx, ctx, ctx_mask, u_att, c_att,
-                   b_sel, selector: bool
-                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Drop-in for ``step._attention_core`` (same contract, beam
-    broadcast over an un-tiled context).  CPU tensors take the plain
-    version; CUDA tensors take the kernel on the route
-    ``attention_core_route`` picks."""
+def _attention_core_fwd(h_att, beta_logit, pctx, ctx, ctx_mask, u_att,
+                        c_att, b_sel, selector: bool):
     if h_att.device.type == "cpu":
         return step_mod._attention_core(h_att, beta_logit, pctx, ctx,
                                         ctx_mask, u_att, c_att, b_sel,
                                         selector)
     return _attention_core_cuda(h_att, beta_logit, pctx, ctx, ctx_mask,
                                 u_att, c_att, b_sel, selector)
+
+
+def _needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def _plain_vjp(ctx, plain, inputs, grads):
+    """The cotangents of ``inputs`` (those ``ctx.needs_input_grad``
+    marks; None for the rest) of ``plain(*inputs)`` against ``grads``,
+    each cast to its input's dtype: the plain version is run again with
+    autograd and differentiated."""
+    want = [i for i, t in enumerate(inputs)
+            if ctx.needs_input_grad[i] and t is not None]
+    res = [None] * len(inputs)
+    if not want:
+        return res
+    leaves = [t.detach().requires_grad_(i in want) if t is not None else t
+              for i, t in enumerate(inputs)]
+    with torch.enable_grad():
+        out = plain(*leaves)
+    got = torch.autograd.grad(out, [leaves[i] for i in want], grads,
+                              allow_unused=True)
+    for i, gr in zip(want, got):
+        res[i] = (torch.zeros_like(inputs[i]) if gr is None
+                  else gr.to(inputs[i].dtype))
+    return res
+
+
+class AttentionCore(torch.autograd.Function):
+    """Kernel 1 under a gradient (the JAX package's ``_core_diff``
+    custom VJP).  Forward: the kernel for CUDA tensors, the plain version
+    for CPU tensors, with autograd off; only the inputs are saved.
+    Backward: the plain version run again with autograd, and its VJP.
+    There is no backward kernel, as the JAX package has none.  Gradients
+    go to h_att, beta_logit, pctx, ctx, U_att, c_att and b_sel, each in
+    its input's dtype; ``ctx_mask`` gets none."""
+
+    @staticmethod
+    def forward(ctx, h_att, beta_logit, pctx, ctx_, ctx_mask, u_att, c_att,
+                b_sel, selector):
+        ctx.save_for_backward(h_att, beta_logit, pctx, ctx_, ctx_mask,
+                              u_att, c_att, b_sel)
+        ctx.selector = selector
+        return _attention_core_fwd(h_att, beta_logit, pctx, ctx_, ctx_mask,
+                                   u_att, c_att, b_sel, selector)
+
+    @staticmethod
+    def backward(ctx, g_ctx, g_alpha):
+        ins = ctx.saved_tensors
+        mask, sel = ins[4], ctx.selector
+
+        def plain(h, beta, pctx, ctx_, _mask, u, c_att, b_sel):
+            return step_mod._attention_core(h, beta, pctx, ctx_, mask, u,
+                                            c_att, b_sel, sel)
+
+        grads = _plain_vjp(ctx, plain, ins, (g_ctx, g_alpha))
+        grads[4] = None
+        return (*grads, None)
+
+
+def attention_core(h_att, beta_logit, pctx, ctx, ctx_mask, u_att, c_att,
+                   b_sel, selector: bool
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Drop-in for ``step._attention_core`` (same contract, beam
+    broadcast over an un-tiled context).  CPU tensors take the plain
+    version; CUDA tensors take the kernel on the route
+    ``attention_core_route`` picks.  When a gradient must pass, the call
+    goes through ``AttentionCore``, whose backward is the plain
+    version's VJP."""
+    args = (h_att, beta_logit, pctx, ctx, ctx_mask, u_att, c_att, b_sel)
+    if _needs_grad(*args):
+        return AttentionCore.apply(*args, selector)
+    return _attention_core_fwd(*args, selector)
 
 
 attention_core.launches = 0
@@ -369,17 +437,50 @@ def _spatial_core_cuda(h_satt, pregion, regions, u_s, c_s, route=None
     return spat, alpha
 
 
+def _spatial_core_fwd(h_satt, pregion, regions, u_s, c_s, cdtype):
+    if h_satt.device.type == "cpu":
+        return step_mod._spatial_core(h_satt, pregion, regions, u_s, c_s,
+                                      cdtype)
+    return _spatial_core_cuda(h_satt, pregion, regions, u_s, c_s)
+
+
+class SpatialCore(torch.autograd.Function):
+    """Kernel 4 under a gradient (the JAX package's ``_spatial_diff``
+    custom VJP).  Forward: the kernel for CUDA tensors, the plain version
+    for CPU tensors, with autograd off; only the inputs are saved.
+    Backward: the plain version run again with autograd at float32 (as
+    JAX's ``_spatial_bwd`` runs its oracle), and its VJP.  There is no
+    backward kernel, as the JAX package has none.  Gradients go to
+    h_satt, pregion, regions, Us_att and cs_att, each in its input's
+    dtype."""
+
+    @staticmethod
+    def forward(ctx, h_satt, pregion, regions, u_s, c_s, cdtype):
+        ctx.save_for_backward(h_satt, pregion, regions, u_s, c_s)
+        return _spatial_core_fwd(h_satt, pregion, regions, u_s, c_s, cdtype)
+
+    @staticmethod
+    def backward(ctx, g_spat, g_alpha):
+        def plain(h, pre, reg, u, c):
+            return step_mod._spatial_core(h, pre, reg, u, c, torch.float32)
+
+        return (*_plain_vjp(ctx, plain, ctx.saved_tensors,
+                            (g_spat, g_alpha)), None)
+
+
 def spatial_core(h_satt, pregion, regions, u_s, c_s, cdtype
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Drop-in for ``step._spatial_core`` (same contract, beam broadcast
     over an un-tiled region bank).  CPU tensors take the plain version;
     CUDA tensors take the kernel on the route ``spatial_core_route``
     picks, whose sums are float32 whatever ``cdtype`` (bf16 regions are
-    upcast in registers) and whose ``spat`` is float32."""
-    if h_satt.device.type == "cpu":
-        return step_mod._spatial_core(h_satt, pregion, regions, u_s, c_s,
-                                      cdtype)
-    return _spatial_core_cuda(h_satt, pregion, regions, u_s, c_s)
+    upcast in registers) and whose ``spat`` is float32.  When a gradient
+    must pass, the call goes through ``SpatialCore``, whose backward is
+    the plain version's VJP."""
+    args = (h_satt, pregion, regions, u_s, c_s)
+    if _needs_grad(*args):
+        return SpatialCore.apply(*args, cdtype)
+    return _spatial_core_fwd(*args, cdtype)
 
 
 spatial_core.launches = 0
@@ -493,13 +594,7 @@ def _train_tail_plain(ctx_t, x_pre_t, h_gates, c, wc, cdtype
     """One train-scan step's tail: preact = (x_pre_t + h_gates) + ctx_t @
     Wc, then the LSTM pointwise.  Returns (h_t, c_t, preact), float32."""
     preact = x_pre_t + h_gates + step_mod._dot(ctx_t, wc, cdtype)
-    dim = wc.shape[1] // 4
-    i = torch.sigmoid(preact[:, 0 * dim: 1 * dim])
-    f = torch.sigmoid(preact[:, 1 * dim: 2 * dim])
-    o = torch.sigmoid(preact[:, 2 * dim: 3 * dim])
-    g = torch.tanh(preact[:, 3 * dim: 4 * dim])
-    c_t = f * c + i * g
-    return o * torch.tanh(c_t), c_t, preact
+    return (*step_mod.lstm_update(preact, c), preact)
 
 
 # index = the route's number in csrc/train_tail.cu
@@ -811,13 +906,41 @@ def region_projection(regions, w, b, cdtype, use_kernel: bool = True
 # Step selection
 # ---------------------------------------------------------------------------
 
-def step_kernels(params, cfg, state, sc, emb_t):
+def _gates_core(cfg):
+    """The gates hook of ``step_kernels``: the kernel when
+    ``cfg.gates_kernel`` is 'on' or 'auto' (both mean the kernel for
+    CUDA tensors), the plain cuBLAS gates for 'off'.  The kernel has no
+    backward, as in the JAX package, whose ``gates_lstm_pallas`` cannot
+    be differentiated: when a gradient must pass through it ('on' on any
+    device, 'auto' on CUDA tensors) the call raises rather than swap in
+    the plain gates.  'auto' on CPU tensors keeps the plain gates, as
+    JAX's 'auto' declines off the TPU."""
+    if cfg.gates_kernel == "off":
+        return step_mod._gates_lstm
+
+    def gates(x, w, b, c, s_r=None, scale=None):
+        if _needs_grad(x, w, b, c):
+            if cfg.gates_kernel == "on" or x.is_cuda:
+                raise ValueError(
+                    f"gates_kernel={cfg.gates_kernel!r}: the gates+LSTM "
+                    "kernel has no backward; train with "
+                    "gates_kernel='off'")
+            return step_mod._gates_lstm(x, w, b, c, s_r, scale)
+        return gates_lstm(x, w, b, c, s_r, scale)
+
+    return gates
+
+
+def step_kernels(params, cfg, state, sc, emb_t, x_pre=None):
     """Decoder step through the kernels (drop-in for ``step.step``): the
     attention core always, the spatial core under spatial attention, the
     gates+LSTM kernel when ``cfg.gates_kernel`` is 'on' or 'auto' (both
     mean the kernel for CUDA tensors; 'off', every preset's default,
-    keeps the cuBLAS gates).  Decode loops take the fused logit tail from
-    its ``make_logit_tail`` attribute.
+    keeps the cuBLAS gates) on the decode branch (no ``x_pre``).  Under a
+    gradient (the autodiff and scheduled-sampling train scans) the
+    attention and spatial cores carry it through their autograd
+    Functions; the gates kernel raises (``_gates_core``).  Decode loops
+    take the fused logit tail from its ``make_logit_tail`` attribute.
 
     This step plays the role of the JAX package's ``step_pallas_spatial``,
     not of ``step_pallas``: the JAX package kept XLA's fusion of the
@@ -826,12 +949,10 @@ def step_kernels(params, cfg, state, sc, emb_t):
     fusion: the plain core builds ``e_s`` of shape (Bc, nb, K, R, s) in
     float32 every step (7.2 GB at decode batch 256, beam 5), so on the
     card the kernel is the only path that keeps it out of memory."""
-    gates = (gates_lstm if cfg.gates_kernel != "off"
-             else step_mod._gates_lstm)
-    return step_mod.step_with_core(params, cfg, state, sc, emb_t,
+    return step_mod.step_with_core(params, cfg, state, sc, emb_t, x_pre,
                                    attention_core=attention_core,
                                    spatial_core=spatial_core,
-                                   gates_core=gates)
+                                   gates_core=_gates_core(cfg))
 
 
 step_kernels.make_logit_tail = make_logit_tail

@@ -8,8 +8,9 @@ dropout).  It is the correctness oracle for the CUDA kernels in
 ``kernel.py``: ``_attention_core``, ``_spatial_core`` and ``_gates_lstm``
 here are the plain versions of the attention-core, spatial-core and
 gates+LSTM kernels, and ``step_with_core`` swaps each for its kernel
-through a hook.  The teacher-forced train scan has its own step body with
-a hand-derived backward (``seqgrad.py``).
+through a hook.  The step also has the JAX step's teacher-forced branch
+(``x_pre`` given), which the autodiff train scan runs; the default train
+scan has its own step body with a hand-derived backward (``seqgrad.py``).
 
 Layouts follow the JAX package at every public function: batch-major
 ``(B, K, D)`` context, a state batch ``Bs = Bc * nb`` that may carry
@@ -198,12 +199,15 @@ def precompute(params: Params, cfg, ctx: torch.Tensor,
                train: bool = False) -> StepContext:
     """Hoist the h-independent work out of the decode loop or the train
     scan: the context and region projections and the stacked weights.
-    Decoding stacks the gates weights [W; U; Wc] and, under
-    ``decode_quant='int8'``, quantizes them once (from the compute-dtype
-    stack, as in JAX); training (``train``) stacks the fused h-projection
-    [U | h_att_w] instead.  JAX builds both and lets XLA drop the unused
-    one; run eagerly, each would cost a copy of U (117 MB in bf16 at
-    preset widths)."""
+    The step's decode branch (decoding, and the scheduled-sampling train
+    scan) reads the gates weights [W; U; Wc], stacked here in the compute
+    dtype and, under ``decode_quant='int8'``, quantized once (from the
+    compute-dtype stack, as in JAX); the teacher-forced scans (``train``:
+    the hand-derived VJP and the autodiff scan, whose step takes
+    ``x_pre``) read the fused h-projection [U | h_att_w] instead.  JAX
+    builds both and lets XLA drop the unused one; run eagerly, each would
+    cost a copy of U (117 MB in bf16 at preset widths).  Both stacks are
+    differentiable: gradients reach W, U and Wc through the cast copy."""
     _check_options(cfg)
     cdtype = compute_dtype(cfg)
     pctx = _dot(ctx, params["Wc_att"], cdtype) + params["b_att"]
@@ -318,6 +322,19 @@ def _int8_mm(x_q: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
     return torch._int_mm(x_q, w_q)[:m, :n]
 
 
+def lstm_update(preact: torch.Tensor, c: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The LSTM pointwise from the (rows, 4 dim) float32 preactivation,
+    gate order i, f, o, g: returns (h_t, c_t)."""
+    dim = preact.shape[1] // 4
+    i = torch.sigmoid(preact[:, 0 * dim: 1 * dim])
+    f = torch.sigmoid(preact[:, 1 * dim: 2 * dim])
+    o = torch.sigmoid(preact[:, 2 * dim: 3 * dim])
+    g = torch.tanh(preact[:, 3 * dim: 4 * dim])
+    c_t = f * c + i * g
+    return o * torch.tanh(c_t), c_t
+
+
 def _gates_lstm(x, w, b, c, s_r=None, scale=None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """LSTM gates and state update: the plain version of the gates+LSTM
@@ -332,30 +349,34 @@ def _gates_lstm(x, w, b, c, s_r=None, scale=None
         preact = acc.to(torch.float32) * (s_r * scale[None, :]) + b
     else:
         preact = _dot(x, w, w.dtype) + b
-    dim = w.shape[1] // 4
-    i = torch.sigmoid(preact[:, 0 * dim: 1 * dim])
-    f = torch.sigmoid(preact[:, 1 * dim: 2 * dim])
-    o = torch.sigmoid(preact[:, 2 * dim: 3 * dim])
-    g = torch.tanh(preact[:, 3 * dim: 4 * dim])
-    c_t = f * c + i * g
-    h_t = o * torch.tanh(c_t)
-    return h_t, c_t
+    return lstm_update(preact, c)
 
 
 def step_with_core(params: Params, cfg, state: StepState, sc: StepContext,
-                   emb_t: torch.Tensor,
+                   emb_t: torch.Tensor, x_pre: Optional[torch.Tensor] = None,
                    attention_core=_attention_core,
                    spatial_core=_spatial_core,
                    gates_core=_gates_lstm) -> StepOut:
-    """One decode step; ``emb_t`` (B, dim_word) is the previous word's
-    embedding.  Only the decode branch of the JAX step is ported: the
-    teacher-forced ``x_pre`` branch belongs to training.  The three hooks
-    take the plain cores by default and the CUDA kernels in
+    """One decoder step; ``emb_t`` (B, dim_word) is the previous word's
+    embedding.  Without ``x_pre`` (decoding, and the scheduled-sampling
+    train scan) the h-projection takes only the attention and selector
+    columns, and the gates are one product over [emb_t | h | ctx_t]
+    through ``gates_core``.  With ``x_pre`` (B, 4 dim), the input
+    projection ``emb_t @ W + b`` that the teacher-forced autodiff scan
+    takes for all T steps in one product, the h-projection also gives
+    the recurrent term ``h @ U`` and the preactivation is ``x_pre +
+    h @ U + ctx_t @ Wc``, as in the JAX step.  The three hooks take the
+    plain cores by default and the CUDA kernels in
     ``kernel.step_kernels``."""
     cdtype = compute_dtype(cfg)
     attn = cfg.attn_dim
     h, c = state
-    hp = _dot(h, sc.h_att_w, cdtype)                  # (B, attn + 1 [+ s])
+    if x_pre is None:
+        hp = _dot(h, sc.h_att_w, cdtype)              # (B, attn + 1 [+ s])
+        off = 0
+    else:
+        hp = _dot(h, sc.h_proj_w, cdtype)     # (B, 4 dim + attn + 1 [+ s])
+        off = 4 * cfg.dim
     # beam broadcast: context tensors keep their (Bc, ...) batch; only
     # the recurrent state carries the beam axis (Bs = Bc * nb)
     bs = h.shape[0]
@@ -364,8 +385,8 @@ def step_with_core(params: Params, cfg, state: StepState, sc: StepContext,
     alpha_s = None
     if cfg.use_spatial:
         spat, alpha_s = spatial_core(
-            hp[:, attn + 1:], sc.pregion, sc.regions, params["Us_att"],
-            params["cs_att"], cdtype)
+            hp[:, off + attn + 1:], sc.pregion, sc.regions,
+            params["Us_att"], params["cs_att"], cdtype)
         # the fused context differs per beam: (Bs, K, .) from here on,
         # and the attention core runs with nb = 1 on Bs rows
         k_f = ctx_k.shape[1]
@@ -377,8 +398,13 @@ def step_with_core(params: Params, cfg, state: StepState, sc: StepContext,
         if nb > 1:
             ctx_mask = ctx_mask.repeat_interleave(nb, dim=0)
     ctx_t, alpha = attention_core(
-        hp[:, :attn], hp[:, attn], pctx_k, ctx_k, ctx_mask,
+        hp[:, off:off + attn], hp[:, off + attn], pctx_k, ctx_k, ctx_mask,
         params["U_att"], params["c_att"], params["b_sel"], cfg.selector)
+    if x_pre is not None:
+        preact = x_pre + hp[:, :off] + _dot(ctx_t, params["Wc"], cdtype)
+        h_t, c_t = lstm_update(preact, c)
+        return StepOut(h=h_t, c=c_t, ctx_t=ctx_t, alpha=alpha,
+                       alpha_s=alpha_s)
     x_cat = torch.cat([emb_t.to(cdtype), h.to(cdtype), ctx_t.to(cdtype)],
                       dim=1)
     if sc.gates_w_q is not None:
@@ -393,9 +419,10 @@ def step_with_core(params: Params, cfg, state: StepState, sc: StepContext,
 
 
 def step(params: Params, cfg, state: StepState, sc: StepContext,
-         emb_t: torch.Tensor) -> StepOut:
+         emb_t: torch.Tensor, x_pre: Optional[torch.Tensor] = None
+         ) -> StepOut:
     """The plain decoder step (the oracle of the kernel step)."""
-    return step_with_core(params, cfg, state, sc, emb_t)
+    return step_with_core(params, cfg, state, sc, emb_t, x_pre)
 
 
 def topk_rows(x: torch.Tensor, k: int
@@ -406,16 +433,25 @@ def topk_rows(x: torch.Tensor, k: int
     return vals[..., :k], idx[..., :k]
 
 
+def dropout_keep(cfg, shape, generator: torch.Generator, device
+                 ) -> torch.Tensor:
+    """The train dropout's keep mask (True = kept, with probability
+    ``1 - cfg.dropout_rate``), drawn from ``generator``."""
+    return (torch.rand(shape, generator=generator, device=device)
+            < 1.0 - cfg.dropout_rate)
+
+
 def logit_activation(params: Params, cfg, h: torch.Tensor,
                      ctx_t: torch.Tensor, emb: torch.Tensor,
                      generator: Optional[torch.Generator] = None,
-                     train: bool = False) -> torch.Tensor:
+                     train: bool = False,
+                     keep: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The (.., dim_word) pre-vocab activation:
     tanh(h W_lstm + b + ctx_t W_ctx [+ emb]), then, in training with
-    ``cfg.use_dropout``, inverted dropout with keep-mask bits drawn from
-    ``generator`` (which must live on the activation's device).  ``emb``
-    is added raw: a bf16 embedding promotes to float32 in the sum, as in
-    JAX."""
+    ``cfg.use_dropout``, inverted dropout with the keep mask ``keep`` or,
+    without one, a mask drawn from ``generator`` (which must live on the
+    activation's device).  ``emb`` is added raw: a bf16 embedding
+    promotes to float32 in the sum, as in JAX."""
     cdtype = compute_dtype(cfg)
     logit = (_dot(h, params["ff_logit_lstm_W"], cdtype)
              + params["ff_logit_lstm_b"]
@@ -424,21 +460,23 @@ def logit_activation(params: Params, cfg, h: torch.Tensor,
         logit = logit + emb
     logit = torch.tanh(logit)
     if cfg.use_dropout and train:
-        if generator is None:
-            raise ValueError("train dropout requires a generator")
-        keep = 1.0 - cfg.dropout_rate
-        mask = torch.rand(logit.shape, generator=generator,
-                          device=logit.device) < keep
-        logit = torch.where(mask, logit / keep, torch.zeros_like(logit))
+        if keep is None:
+            if generator is None:
+                raise ValueError("train dropout requires a generator")
+            keep = dropout_keep(cfg, logit.shape, generator, logit.device)
+        logit = torch.where(keep, logit / (1.0 - cfg.dropout_rate),
+                            torch.zeros_like(logit))
     return logit
 
 
 def logits_from_states(params: Params, cfg, h: torch.Tensor,
                        ctx_t: torch.Tensor, emb: torch.Tensor,
                        generator: Optional[torch.Generator] = None,
-                       train: bool = False) -> torch.Tensor:
+                       train: bool = False,
+                       keep: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Vocab logits (float32) from the decoder state; leading axes are
     free, so the train path projects all (B, T) states in one product."""
     cdtype = compute_dtype(cfg)
-    act = logit_activation(params, cfg, h, ctx_t, emb, generator, train)
+    act = logit_activation(params, cfg, h, ctx_t, emb, generator, train,
+                           keep)
     return _dot(act, params["ff_logit_W"], cdtype) + params["ff_logit_b"]

@@ -29,8 +29,9 @@ from ..decode.greedy import greedy_decode
 from ..model.decoder import init_params
 from ..model.kernel import get_step_fn
 from ..model.step import Params, compute_dtype
+from ..utils.debug import enable_nan_debug, grad_stats, report_bad_grads
 from ..utils.logging import MetricsLogger
-from ..utils.profiling import StepTimer
+from ..utils.profiling import StepTimer, start_trace
 from .evaluate import evaluate_split
 from .loss import loss_from_terms, loss_terms
 
@@ -217,22 +218,41 @@ def _grads(obj: torch.Tensor, params: Params) -> Tensors:
             for k, g in zip(keys, gs)}
 
 
-def make_train_step(mcfg, tcfg
+def _check_finite(loss: torch.Tensor, grads: Tensors) -> None:
+    """``debug_nans``: raise FloatingPointError (as ``jax_debug_nans``
+    does) when the loss or a gradient is not finite, after printing the
+    parameters whose gradients are not."""
+    if bool(torch.isfinite(loss)) and not any(
+            bool(v["nan"]) for v in grad_stats(grads).values()):
+        return
+    report_bad_grads(grads)
+    raise FloatingPointError("debug_nans: non-finite loss or gradient "
+                             f"(loss {float(loss.detach())})")
+
+
+def make_train_step(mcfg, tcfg, step_fn=None
                     ) -> Callable[[TrainState, Dict[str, torch.Tensor]],
                                   Tuple[TrainState, Dict[str, torch.Tensor]]]:
     """``train_step(state, batch) -> (state, metrics)``: loss and
-    gradients through the hand-derived sequence VJP, one optimizer
-    update.  With ``grad_accum > 1`` the batch runs as that many
-    microbatches, summing the gradients of the summed objective and the
-    loss terms before one weighted-mean divide (the full-batch gradient,
-    with one microbatch's activations alive at a time).  Metrics stay on
-    the device: loss, nll, nll_per_token, grad_norm (before clipping)."""
+    gradients, one optimizer update.  The teacher-forced scan runs the
+    hand-derived sequence VJP by default; ``step_fn`` (default the plain
+    step) is the step of the autograd scans (``tcfg.ss_prob > 0``, or
+    ``mcfg.fused_seq_grad=False``; see ``forward_train``).  With
+    ``grad_accum > 1`` the batch runs as that many microbatches, summing
+    the gradients of the summed objective and the loss terms before one
+    weighted-mean divide (the full-batch gradient, with one microbatch's
+    activations alive at a time).  With ``tcfg.debug_nans`` a non-finite
+    loss or gradient raises FloatingPointError.  Metrics stay on the
+    device: loss, nll, nll_per_token, grad_norm (before clipping)."""
     opt = make_optimizer(tcfg)
     n_acc = tcfg.grad_accum
 
+    def terms_of(params, batch, gen):
+        return loss_terms(params, mcfg, batch, generator=gen, train=True,
+                          ss_prob=tcfg.ss_prob, step_fn=step_fn)
+
     def objective(params, batch, gen):
-        t = loss_terms(params, mcfg, batch, generator=gen, train=True,
-                       ss_prob=tcfg.ss_prob)
+        t = terms_of(params, batch, gen)
         return t["nll_num"] + mcfg.alpha_c * t["reg_num"], t
 
     def train_step(state: TrainState, batch):
@@ -257,10 +277,10 @@ def make_train_step(mcfg, tcfg
             grads = {k: g / den for k, g in grads.items()}
             loss, aux = loss_from_terms(terms, mcfg)
         else:
-            t = loss_terms(params, mcfg, batch, generator=gen, train=True,
-                           ss_prob=tcfg.ss_prob)
-            loss, aux = loss_from_terms(t, mcfg)
+            loss, aux = loss_from_terms(terms_of(params, batch, gen), mcfg)
             grads = _grads(loss, params)
+        if tcfg.debug_nans:
+            _check_finite(loss, grads)
         gnorm = global_norm(grads)
         updates, opt_state = opt.update(grads, state["opt_state"])
         apply_updates(params, updates)
@@ -280,9 +300,9 @@ def evaluate_nll_stats(params: Params, mcfg, ds: Dataset, batch_size: int,
                        ) -> Tuple[float, float, float]:
     """(NLL numerator, example count, token count) over a split, without
     dropout, in fixed-shape batches (the wrapped tail weighs 0).  The
-    positional parameters are the JAX package's; ``step_fn`` is not read,
-    since the teacher-forced scan runs its own step body (as in the JAX
-    package)."""
+    positional parameters are the JAX package's; ``step_fn`` is the step
+    of the autodiff scan (``fused_seq_grad=False``), while the default
+    scan runs its own step body (as in the JAX package)."""
     dev = to_device(ds.bank, device, compute_dtype(mcfg))
     it = BatchIterator(ds.captions.n, min(batch_size, ds.captions.n),
                        shuffle=False)
@@ -290,7 +310,7 @@ def evaluate_nll_stats(params: Params, mcfg, ds: Dataset, batch_size: int,
     for idx, w in it.epoch():
         batch = gather_batch(dev, ds.captions, idx)
         batch["weight"] = torch.from_numpy(w).to(device)
-        t = loss_terms(params, mcfg, batch, train=False)
+        t = loss_terms(params, mcfg, batch, train=False, step_fn=step_fn)
         num += float(t["nll_num"])
         ex += float(t["ex_den"])
         tok += float(t["tok_den"])
@@ -418,8 +438,10 @@ def fit(cfg, train_ds: Dataset, valid_ds: Optional[Dataset] = None,
     ROUGE-L from decoded captions, bigger is better; or NLL), as the JAX
     package's ``fit`` does.  The positional parameters are the JAX
     package's: ``step_fn`` is the decode step of validation and samples
-    (``None``: ``get_step_fn(None, device)``, the kernel step on a CUDA
-    device); training takes its kernels from the model config.
+    and the step of the autograd train scans (scheduled sampling, or
+    ``fused_seq_grad=False``) and of their NLL pass (``None``:
+    ``get_step_fn(None, device)``, the kernel step on a CUDA device); the
+    default teacher-forced scan takes its kernels from the model config.
 
     Every ``disp_freq`` updates a ``train`` record (loss, grad norm and,
     once a window of ``max(disp_freq, 10)`` updates has passed, their
@@ -438,14 +460,18 @@ def fit(cfg, train_ds: Dataset, valid_ds: Optional[Dataset] = None,
     updates and at the end; ``reload_`` resumes from it, keeping the
     early-stop state only if it was saved under the same metric.  An
     interrupt (``KeyboardInterrupt``) ends the run with an ``interrupt``
-    record and the same final ``ckpt.pt``."""
+    record and the same final ``ckpt.pt``.
+
+    ``train.profile_dir`` traces updates ``profile_start + 1`` to
+    ``profile_start + profile_steps`` with ``torch.profiler`` into that
+    directory and then writes a ``profile`` record, as the JAX package's
+    ``fit`` does.  ``train.debug_nans`` switches on autograd's anomaly
+    detection (``utils.debug.enable_nan_debug``) and checks every
+    update's loss and gradients, so a NaN in training raises.  Unlike
+    ``jax_debug_nans``, which the JAX package leaves on for the process,
+    the switch holds for this call only: ``fit`` restores the anomaly
+    mode it found."""
     tcfg, mcfg = cfg.train, cfg.model
-    if tcfg.debug_nans:
-        raise NotImplementedError("debug_nans is not ported yet")
-    if tcfg.profile_dir:
-        raise NotImplementedError(
-            "train.profile_dir is not ported yet (ROADMAP.md Queue 1 "
-            "item 10)")
     if step_fn is None:
         step_fn = get_step_fn(None, device)
     os.makedirs(tcfg.save_dir, exist_ok=True)
@@ -471,7 +497,7 @@ def fit(cfg, train_ds: Dataset, valid_ds: Optional[Dataset] = None,
     if reload:
         _emit(logger, {"kind": "reload", "step": state["step"],
                        "best": float(best), "bad_rounds": fs["bad_rounds"]})
-    train_step = make_train_step(mcfg, tcfg)
+    train_step = make_train_step(mcfg, tcfg, step_fn)
     dev = to_device(train_ds.bank, device, compute_dtype(mcfg))
     if tcfg.length_buckets:
         buckets = parse_buckets(tcfg.length_buckets)
@@ -487,6 +513,8 @@ def fit(cfg, train_ds: Dataset, valid_ds: Optional[Dataset] = None,
     log: List[Dict] = []
     stop = update >= (max_updates if max_updates is not None else math.inf)
     timer = StepTimer(window=max(tcfg.disp_freq, 10))
+    prof = None
+    nan_debug = enable_nan_debug() if tcfg.debug_nans else None
     try:
         for epoch in range(tcfg.max_epochs):
             if stop:
@@ -498,8 +526,20 @@ def fit(cfg, train_ds: Dataset, valid_ds: Optional[Dataset] = None,
                 batch = gather_batch(dev, train_ds.captions, idx,
                                      seq_len=t_b)
                 batch["weight"] = torch.from_numpy(w).to(device)
+                if tcfg.profile_dir and update == tcfg.profile_start:
+                    # trace the next profile_steps updates
+                    prof = start_trace(tcfg.profile_dir)
                 state, m = train_step(state, batch)
                 update += 1
+                if prof is not None and update >= (tcfg.profile_start
+                                                   + tcfg.profile_steps):
+                    float(m["loss"])           # the card has finished
+                    prof.stop()
+                    prof = None
+                    _emit(logger, {"kind": "profile",
+                                   "dir": tcfg.profile_dir,
+                                   "first_update": tcfg.profile_start + 1,
+                                   "steps": tcfg.profile_steps})
                 rate = timer.tick()
                 if update % tcfg.disp_freq == 0:
                     rec = {"kind": "train", "epoch": epoch,
@@ -543,6 +583,11 @@ def fit(cfg, train_ds: Dataset, valid_ds: Optional[Dataset] = None,
     except KeyboardInterrupt:
         # keep the progress: the checkpoint below holds the last update
         _emit(logger, {"kind": "interrupt", "update": update})
+    finally:
+        if prof is not None:    # the run ended inside the profile window
+            prof.stop()
+        if nan_debug is not None:
+            nan_debug.__exit__()
     save_checkpoint(ckpt, state, fs)
     if own_logger:
         logger.close()

@@ -8,20 +8,22 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from ..model.decoder import forward_train
+from ..model.decoder import StepFn, forward_train
 
 
 def loss_terms(params, cfg, batch: Dict[str, torch.Tensor],
                generator: Optional[torch.Generator] = None,
-               train: bool = True, ss_prob: float = 0.0
+               train: bool = True, ss_prob: float = 0.0,
+               step_fn: Optional[StepFn] = None
                ) -> Dict[str, torch.Tensor]:
     """Unreduced loss terms (weighted sums): ``nll_num``, ``ex_den``,
     ``tok_den``, ``reg_num``.  Kept apart from the final ratios so
     microbatches can sum numerators and denominators before one divide.
     ``batch['weight']`` (B,), if present, weighs each example (0 for the
-    batch iterator's wrapped padding)."""
+    batch iterator's wrapped padding).  ``step_fn`` is the step of the
+    autograd scans (``forward_train``)."""
     out = forward_train(params, cfg, batch, generator=generator,
-                        train=train, ss_prob=ss_prob)
+                        train=train, ss_prob=ss_prob, step_fn=step_fn)
     w = batch.get("weight")
     if w is None:
         w = torch.ones_like(out.nll_per_example)
@@ -55,9 +57,9 @@ def loss_from_terms(terms: Dict[str, torch.Tensor], cfg
 
 def loss_fn(params, cfg, batch: Dict[str, torch.Tensor],
             generator: Optional[torch.Generator] = None, train: bool = True,
-            ss_prob: float = 0.0
+            ss_prob: float = 0.0, step_fn: Optional[StepFn] = None
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Scalar loss and an aux dict (``nll``, ``nll_per_token``)."""
     terms = loss_terms(params, cfg, batch, generator=generator, train=train,
-                       ss_prob=ss_prob)
+                       ss_prob=ss_prob, step_fn=step_fn)
     return loss_from_terms(terms, cfg)

@@ -1,13 +1,43 @@
-"""Step timing (counterpart of ``StepTimer`` in stvd/utils/profiling.py).
+"""Profiling helpers (counterpart of stvd/utils/profiling.py): device
+traces through ``torch.profiler`` and a step timer for the train log's
+steps/sec.
 
-The JAX module's trace helpers become ``torch.profiler`` with ROADMAP.md
-Queue 1 item 10; ``fit`` raises for ``train.profile_dir`` until then.
+``trace(logdir)`` (or ``start_trace``) records the host
+and, on a CUDA device, the card's activity, and writes a Chrome trace
+(``*.pt.trace.json``) into ``logdir``; view it with ui.perfetto.dev or
+TensorBoard's profiler plugin.
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
-from typing import Optional
+from typing import Iterator, Optional
+
+import torch
+
+def start_trace(logdir: str) -> "torch.profiler.profile":
+    """Start recording a trace; the returned profiler's ``stop()`` ends it
+    and writes it to ``logdir``."""
+    from torch.profiler import (ProfilerActivity, profile,
+                                tensorboard_trace_handler)
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    prof = profile(activities=acts,
+                   on_trace_ready=tensorboard_trace_handler(logdir))
+    prof.start()
+    return prof
+
+
+@contextlib.contextmanager
+def trace(logdir: str) -> Iterator[None]:
+    """Capture a trace of the enclosed block into ``logdir``."""
+    prof = start_trace(logdir)
+    try:
+        yield
+    finally:
+        prof.stop()
 
 
 class StepTimer:

@@ -852,3 +852,127 @@ def test_preset3_scan_at_a_bucket_length_matches_the_plain_tail(cuda):
     for k in gp:
         err = float((gk[k] - gp[k]).abs().max())
         assert err <= 1e-3 * top, (k, err, top)
+
+
+# ---------------------------------------------------------------------------
+# Kernels 1 and 4 under a gradient; kernel 3 refuses one
+# ---------------------------------------------------------------------------
+
+def grads_of(fn, args, diff, cot):
+    """Outputs of ``fn(*args)`` and the gradients of ``args[i]`` for i in
+    ``diff`` against the cotangents ``cot``."""
+    leaves = [a.detach().clone().requires_grad_(i in diff)
+              if torch.is_tensor(a) else a for i, a in enumerate(args)]
+    out = fn(*leaves)
+    torch.autograd.backward(out, cot)
+    return out, [leaves[i].grad for i in diff]
+
+
+@pytest.mark.parametrize("bc,nb,k,a,dc", [(64, 1, 28, 1024, 1024),
+                                          (5, 3, 37, 72, 40)])
+def test_attention_core_function_carries_the_plain_vjp(cuda, bc, nb, k, a,
+                                                       dc):
+    """Under a gradient kernel 1 runs forward (one launch) and its
+    Function's backward is the plain core's VJP: the outputs within the
+    kernel's tolerance, every cotangent within 1e-5 of its largest
+    entry (the backward runs the same plain math on the same inputs)."""
+    args = attention_inputs(bc, nb, k, a, dc, torch.float32, cuda, seed=3)
+    g = torch.Generator(device=cuda).manual_seed(4)
+    cot = (torch.randn(bc * nb, dc, generator=g, device=cuda),
+           torch.randn(bc * nb, k, generator=g, device=cuda))
+    diff = (0, 1, 2, 3, 5, 6, 7)
+    before = tkernel.attention_core.launches
+    got, g_k = grads_of(lambda *x: tkernel.attention_core(*x, True), args,
+                        diff, cot)
+    assert tkernel.attention_core.launches == before + 1
+    assert got[0].grad_fn.name().startswith("AttentionCore")
+    ref, g_p = grads_of(lambda *x: tstep._attention_core(*x, True), args,
+                        diff, cot)
+    torch.cuda.synchronize()
+    assert tkernel.attention_core.launches == before + 1
+    for x, y in zip(got, ref):
+        torch.testing.assert_close(x, y, rtol=0, atol=1e-4)
+    for i, x, y in zip(diff, g_k, g_p):
+        assert rel_err(x, y) <= 1e-5, i
+
+
+@pytest.mark.parametrize("bc,nb,k,r,s,dr", [(4, 1, 28, 49, 1024, 1024),
+                                            (3, 2, 5, 7, 12, 10)])
+def test_spatial_core_function_carries_the_plain_vjp(cuda, bc, nb, k, r, s,
+                                                     dr):
+    """Kernel 4 under a gradient: one forward launch, the plain core's
+    float32 VJP backward."""
+    args = spatial_inputs(bc, nb, k, r, s, dr, torch.float32, cuda, seed=5)
+    g = torch.Generator(device=cuda).manual_seed(6)
+    cot = (torch.randn(bc, nb, k, dr, generator=g, device=cuda),
+           torch.randn(bc, nb, k, r, generator=g, device=cuda))
+    diff = (0, 1, 2, 3, 4)
+    before = tkernel.spatial_core.launches
+    got, g_k = grads_of(lambda *x: tkernel.spatial_core(*x, torch.float32),
+                        args, diff, cot)
+    assert tkernel.spatial_core.launches == before + 1
+    assert got[0].grad_fn.name().startswith("SpatialCore")
+    ref, g_p = grads_of(lambda *x: tstep._spatial_core(*x, torch.float32),
+                        args, diff, cot)
+    torch.cuda.synchronize()
+    for x, y in zip(got, ref):
+        torch.testing.assert_close(x, y, rtol=1e-4, atol=1e-5)
+    for i, x, y in zip(diff, g_k, g_p):
+        assert rel_err(x, y) <= 1e-5, i
+
+
+@pytest.mark.parametrize("switch", ["on", "auto"])
+def test_gates_kernel_under_a_gradient_raises_on_the_card(cuda, switch):
+    """The gates+LSTM kernel has no backward: the scheduled-sampling scan
+    through the kernel step raises for 'on' and for 'auto' on CUDA
+    tensors, and launches no gates kernel."""
+    from stvd_torch.train.loss import loss_fn
+    cfg, batch, params = tiny_train(cuda, False, gates_kernel=switch)
+    leaves = {k: v.requires_grad_(True) for k, v in params.items()}
+    before = tkernel.gates_lstm.launches
+    with pytest.raises(ValueError, match="gates_kernel"):
+        loss_fn(leaves, cfg, batch, train=False, ss_prob=0.5,
+                step_fn=tkernel.step_kernels)
+    assert tkernel.gates_lstm.launches == before
+
+
+@pytest.mark.parametrize("scan", ["autodiff", "sampled"])
+@pytest.mark.parametrize("remat", [False, True])
+@pytest.mark.parametrize("spatial", [False, True])
+def test_autograd_scans_launch_kernels_1_and_4(cuda, spatial, remat, scan):
+    """The autodiff and scheduled-sampling scans through the kernel step
+    on the card: kernel 1 (and kernel 4 on the spatial model) launch once
+    a step, twice with remat (the backward runs each step's forward
+    again), the dWs_att GEMM once in the region projection's backward;
+    the loss and every gradient against the plain step's (the same coins
+    on both sides)."""
+    from stvd_torch.train.loss import loss_fn
+    extra = dict(fused_seq_grad=False) if scan == "autodiff" else {}
+    ss = 0.5 if scan == "sampled" else 0.0
+    out = {}
+    for name, step_fn in (("kernel", tkernel.step_kernels),
+                          ("plain", tstep.step)):
+        cfg, batch, params = tiny_train(cuda, spatial, remat=remat, **extra)
+        leaves = {k: v.requires_grad_(True) for k, v in params.items()}
+        fns = (tkernel.attention_core, tkernel.spatial_core, tkernel.dws_gemm)
+        counts = [f.launches for f in fns]
+        loss, _ = loss_fn(leaves, cfg, batch,
+                          torch.Generator(device=cuda).manual_seed(1),
+                          train=True, ss_prob=ss, step_fn=step_fn)
+        loss.backward()
+        torch.cuda.synchronize()
+        launched = [f.launches - c for f, c in zip(fns, counts)]
+        steps = batch["tokens"].shape[1] * (2 if remat else 1)
+        want = ([steps, steps if spatial else 0, 1 if spatial else 0]
+                if name == "kernel" else [0, 0, 1 if spatial else 0])
+        assert launched == want, (name, launched, want)
+        out[name] = (float(loss.detach()),
+                     {k: v.grad for k, v in leaves.items() if v.grad is not
+                      None})
+    (lk, gk), (lp, gp) = out["kernel"], out["plain"]
+    assert sorted(gk) == sorted(gp)
+    assert abs(lk - lp) <= 1e-5 * abs(lp)
+    top = max(float(v.abs().max()) for v in gp.values())
+    for k in gp:
+        scale = top if k in ("c_att", "cs_att") else float(gp[k].abs().max())
+        assert float((gk[k] - gp[k]).abs().max()) <= 1e-3 * scale, k

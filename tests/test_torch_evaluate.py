@@ -242,8 +242,8 @@ def test_fit_uses_length_buckets(tmp_path, monkeypatch):
     lengths = []
     real = tloop.make_train_step
 
-    def spy(mcfg, tcfg):
-        step = real(mcfg, tcfg)
+    def spy(mcfg, tcfg, step_fn=None):
+        step = real(mcfg, tcfg, step_fn)
 
         def train_step(state, batch):
             lengths.append(batch["tokens"].shape[1])

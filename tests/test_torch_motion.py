@@ -301,6 +301,37 @@ def test_loss_and_grads_match_jax(name):
         assert float(np.abs(got[k]).max()) > 0.0, k
 
 
+@pytest.mark.parametrize("mode", ["ss_0.25", "ss_1.0", "autodiff"])
+@pytest.mark.parametrize("name", sorted(CONFIGS))
+def test_autograd_scans_match_jax(monkeypatch, name, mode):
+    """The scheduled-sampling scan (with JAX's coins) and the autodiff
+    scan (``fused_seq_grad=False``) through the kernel step: the loss and
+    every leaf's gradient, the fusion's and the frame LSTM's included,
+    against ``jax.grad`` of the JAX package's loss within 1e-5."""
+    from test_torch_train import use_jax_coins
+    ss = float(mode[3:]) if mode.startswith("ss") else 0.0
+    cfg = cfg_of(name, **({} if ss else {"fused_seq_grad": False}))
+    p = numpy_params(cfg)
+    jb, tb = train_batches(cfg)
+    if ss:
+        use_jax_coins(monkeypatch, ss, tb)
+    (jl, _), jg = jax.value_and_grad(
+        lambda q: jloss_fn(q, cfg, jb, train=False, ss_prob=ss),
+        has_aux=True)({k: jnp.asarray(v) for k, v in p.items()})
+    tp = params_from_numpy(p, "cpu")
+    for v in tp.values():
+        v.requires_grad_(True)
+    tl, _ = loss_fn(tp, cfg, tb, train=False, ss_prob=ss,
+                    step_fn=tkernel.step_kernels)
+    tl.backward()
+    assert abs(float(tl.detach()) - float(jl)) <= 1e-5 * abs(float(jl))
+    got = {k: v.grad.numpy() for k, v in tp.items()}
+    assert_grads_close(got, {k: np.asarray(v) for k, v in jg.items()}, 1e-5)
+    for k in ["W_app", "W_mot", "b_fuse"] + (
+            ["enc_W", "enc_U", "enc_b"] if cfg.encoder == "lstm" else []):
+        assert float(np.abs(got[k]).max()) > 0.0, k
+
+
 def test_fit_trains_a_dual_stream_split(tmp_path):
     """Three updates of ``fit`` on a dual-stream synthetic split: finite
     losses, and the fusion and encoder weights move."""

@@ -15,6 +15,7 @@ interpret mode (the dWs_att GEMM against ``jnp.dot``, see its test).
 """
 
 import dataclasses
+import os
 
 import jax
 import jax.numpy as jnp
@@ -342,7 +343,7 @@ def test_region_projection_backward_matches_autograd():
 
 
 # ---------------------------------------------------------------------------
-# Train step, dropout, and what is not ported
+# Train step and dropout
 # ---------------------------------------------------------------------------
 
 def train_configs(**kw):
@@ -417,17 +418,6 @@ def test_train_dropout_draws_from_the_generator():
     assert bool(torch.isfinite(out.nll_per_example).all())
 
 
-def test_unported_training_options_raise():
-    jcfg, tcfg = configs()
-    p = params_from_numpy(numpy_params(jcfg), "cpu")
-    _, tb = batches(jcfg)
-    with pytest.raises(NotImplementedError):
-        forward_train(p, tcfg, tb, train=False, ss_prob=0.25)
-    with pytest.raises(NotImplementedError):
-        forward_train(p, dataclasses.replace(tcfg, fused_seq_grad=False),
-                      tb, train=False)
-
-
 def tiny_config(save_dir, **train):
     model = tconfig.ModelConfig(n_words=48, dim_word=16, dim=24,
                                 ctx_dim=32, n_frames=6,
@@ -456,20 +446,6 @@ def test_fit_checkpoints_and_resumes(tmp_path):
     assert [r["update"] for r in resumed.log] == [4, 5]
     for k, v in first.state["params"].items():
         assert v.shape == resumed.state["params"][k].shape
-
-
-@pytest.mark.parametrize("train", [dict(ss_prob=0.25),
-                                   dict(debug_nans=True),
-                                   dict(profile_dir="trace")])
-def test_fit_rejects_what_is_not_ported(tmp_path, train):
-    """Scheduled sampling, NaN debugging and the profiler window are
-    still to be ported, and ``fit`` says so rather than training without
-    them (caption metrics and length buckets, which it rejected before,
-    now run: tests/test_torch_evaluate.py)."""
-    cfg = tiny_config(tmp_path, **train)
-    ds = synthetic_dataset(n_videos=2, k=6, d=32, maxlen=MAXLEN, seed=0)
-    with pytest.raises(NotImplementedError):
-        tloop.fit(cfg, ds, max_updates=1, device="cpu")
 
 
 def test_to_device_caches_per_device_and_dtype():
@@ -513,8 +489,8 @@ def test_interrupted_fit_keeps_its_progress(tmp_path, monkeypatch):
     ds = synthetic_dataset(n_videos=6, k=6, d=32, maxlen=MAXLEN, seed=0)
     real = tloop.make_train_step
 
-    def interrupted(mcfg, tcfg):
-        step = real(mcfg, tcfg)
+    def interrupted(mcfg, tcfg, step_fn=None):
+        step = real(mcfg, tcfg, step_fn)
 
         def train_step(state, batch):
             if state["step"] == 3:
@@ -622,3 +598,456 @@ def test_fit_without_a_logger_writes_the_jax_records(tmp_path, capsys):
                 if ln.startswith("[")]
 
     assert kinds(tout) == kinds(jout) == [k for k, _ in want]
+
+
+# ---------------------------------------------------------------------------
+# Scheduled sampling, the autodiff scan and remat
+# ---------------------------------------------------------------------------
+
+STEPS = {"plain": tstep.step, "kernels": tkernel.step_kernels}
+SCAN_VARIANTS = ("temporal", "spatial", "spatial_no_selector_alpha_c")
+
+
+def jax_coins(ss_prob, b, t, rng=None):
+    """The JAX scan's coins for the loss key ``rng`` (None: its
+    PRNGKey(0)): split into (dropout, sampling) keys, one sampling key a
+    step, ``bernoulli`` over the batch; (T, B) bool."""
+    if rng is None:
+        rng = jax.random.PRNGKey(0)
+    _, rng_ss = jax.random.split(rng)
+    keys = jax.random.split(rng_ss, t)
+    return np.stack([np.asarray(jax.random.bernoulli(keys[i], ss_prob, (b,)))
+                     for i in range(t)])
+
+
+def use_jax_coins(monkeypatch, ss_prob, batch, rng=None):
+    """Make the port's scan draw JAX's coins (the two RNGs differ)."""
+    from stvd_torch.model import decoder as tdecoder
+    b, t = batch["tokens"].shape
+    coins = torch.from_numpy(jax_coins(ss_prob, b, t, rng))
+
+    def fake(generator, p, b_, t_, device):
+        assert (p, b_, t_) == (ss_prob, b, t)
+        return coins.to(device)
+
+    monkeypatch.setattr(tdecoder, "_ss_coins", fake)
+    return coins
+
+
+_jax_grads = {}
+
+
+def jax_loss_and_grads(name, jcfg, p, jb, ss_prob):
+    """``jax.value_and_grad(loss_fn)`` with the oracle step, cached: the
+    port's plain and kernel steps are both held against it."""
+    key = (name, ss_prob)
+    if key not in _jax_grads:
+        (jl, aux), jg = jax.value_and_grad(
+            lambda q: jloss_fn(q, jcfg, jb, train=False, ss_prob=ss_prob),
+            has_aux=True)(jax_params(p))
+        logits = jforward_train(jax_params(p), jcfg, jb, train=False,
+                                ss_prob=ss_prob).logits
+        _jax_grads[key] = (float(jl), {k: float(v) for k, v in aux.items()},
+                           {k: np.asarray(v) for k, v in jg.items()},
+                           np.asarray(logits))
+    return _jax_grads[key]
+
+
+def torch_loss_and_grads(tcfg, p, tb, ss_prob, step_fn, **kw):
+    tp = leaf_params(p)
+    tl, taux = loss_fn(tp, tcfg, tb, train=False, ss_prob=ss_prob,
+                       step_fn=step_fn, **kw)
+    tl.backward()
+    # a leaf the loss does not reach (W_sel without the selector) has a
+    # zero gradient in JAX and none in torch
+    return (float(tl.detach()), {k: float(v.detach()) for k, v in
+                                 taux.items()},
+            {k: (np.zeros(v.shape, np.float32) if v.grad is None
+                 else v.grad.numpy()) for k, v in tp.items()})
+
+
+def assert_matches_jax(got, ref):
+    tl, taux, tg = got
+    jl, jaux, jg = ref[:3]
+    assert abs(tl - jl) <= 1e-5 * abs(jl), (tl, jl)
+    for k in ("nll", "nll_per_token"):
+        assert abs(taux[k] - jaux[k]) <= 1e-5 * abs(jaux[k]), k
+    assert_grads_close(tg, jg, 1e-5)
+
+
+@pytest.mark.parametrize("step", sorted(STEPS))
+@pytest.mark.parametrize("ss_prob", [0.25, 1.0])
+@pytest.mark.parametrize("variant", SCAN_VARIANTS)
+def test_scheduled_sampling_matches_jax(monkeypatch, variant, ss_prob, step):
+    """The scheduled-sampling scan with JAX's coins: each step feeds the
+    previous step's argmax where a coin says so (t > 0), takes its own
+    logits, and autograd differentiates it; the loss and every gradient
+    against ``jax.grad(loss_fn)`` within 1e-5, through the plain step
+    and through the kernel step (on the CPU its autograd Functions run
+    the plain cores forward and their VJP backward)."""
+    jcfg, tcfg = configs(**VARIANTS[variant])
+    p = numpy_params(jcfg)
+    jb, tb = batches(jcfg)
+    coins = use_jax_coins(monkeypatch, ss_prob, tb)
+    assert bool(coins[1:].any()) and (ss_prob < 1.0) == (not coins.all())
+    ref = jax_loss_and_grads(variant, jcfg, p, jb, ss_prob)
+    got = torch_loss_and_grads(tcfg, p, tb, ss_prob, STEPS[step])
+    assert_matches_jax(got, ref)
+    logits = forward_train(params_from_numpy(p, "cpu"), tcfg, tb,
+                           train=False, ss_prob=ss_prob,
+                           step_fn=STEPS[step]).logits.detach().numpy()
+    np.testing.assert_allclose(logits, ref[3], rtol=1e-5, atol=1e-5)
+    np.testing.assert_array_equal(logits.argmax(-1), ref[3].argmax(-1))
+
+
+@pytest.mark.parametrize("step", sorted(STEPS))
+@pytest.mark.parametrize("variant", sorted(VARIANTS))
+def test_autodiff_scan_matches_jax(variant, step):
+    """``fused_seq_grad=False``: the teacher-forced scan calls the step
+    with each step's ``x_pre`` and autograd differentiates it; the loss
+    and every gradient against ``jax.grad`` of the same JAX scan."""
+    jcfg, tcfg = configs(fused_seq_grad=False, **VARIANTS[variant])
+    p = numpy_params(jcfg)
+    jb, tb = batches(jcfg)
+    ref = jax_loss_and_grads("autodiff_" + variant, jcfg, p, jb, 0.0)
+    assert_matches_jax(torch_loss_and_grads(tcfg, p, tb, 0.0, STEPS[step]),
+                       ref)
+
+
+@pytest.mark.parametrize("remat", [False, True])
+@pytest.mark.parametrize("variant", sorted(VARIANTS))
+def test_autodiff_scan_matches_the_hand_vjp(variant, remat):
+    """The port's autodiff scan (kernel step, with and without remat)
+    against its hand-derived sequence VJP: the same loss and gradients."""
+    _, tcfg = configs(**VARIANTS[variant])
+    p = numpy_params(configs(**VARIANTS[variant])[0])
+    _, tb = batches(configs(**VARIANTS[variant])[0])
+    hand = torch_loss_and_grads(tcfg, p, tb, 0.0, None)
+    auto = torch_loss_and_grads(
+        dataclasses.replace(tcfg, fused_seq_grad=False, remat=remat), p, tb,
+        0.0, tkernel.step_kernels)
+    assert_matches_jax(auto, hand)
+
+
+@pytest.mark.parametrize("scan", ["autodiff", "sampled"])
+@pytest.mark.parametrize("variant", ["temporal", "spatial"])
+def test_remat_matches_no_remat_with_dropout(variant, scan):
+    """``model.remat`` recomputes each step's forward in the backward;
+    with dropout on and an explicit generator the loss and every
+    gradient equal the run without remat, since the coins and dropout
+    masks are drawn before the scan (a recomputed step would otherwise
+    draw new masks: checkpointing restores no explicit generator)."""
+    _, tcfg = configs(**VARIANTS[variant])
+    kw = dict(use_dropout=True, dropout_rate=0.5)
+    if scan == "autodiff":
+        kw["fused_seq_grad"] = False
+    ss_prob = 0.5 if scan == "sampled" else 0.0
+    p = numpy_params(configs(**VARIANTS[variant])[0])
+    _, tb = batches(configs(**VARIANTS[variant])[0])
+    out = {}
+    for remat in (False, True):
+        tp = leaf_params(p)
+        gen = torch.Generator().manual_seed(7)
+        cfg = dataclasses.replace(tcfg, remat=remat, **kw)
+        loss, _ = loss_fn(tp, cfg, tb, generator=gen, train=True,
+                          ss_prob=ss_prob, step_fn=tkernel.step_kernels)
+        loss.backward()
+        out[remat] = (float(loss.detach()),
+                      {k: v.grad.clone() for k, v in tp.items()},
+                      gen.get_state())
+    assert out[True][0] == out[False][0]
+    assert torch.equal(out[True][2], out[False][2])
+    for k, g in out[False][1].items():
+        torch.testing.assert_close(out[True][1][k], g, rtol=0, atol=1e-7,
+                                   msg=k)
+    # dropout is live: another seed gives another loss
+    tp = leaf_params(p)
+    other, _ = loss_fn(tp, dataclasses.replace(tcfg, **kw), tb,
+                       generator=torch.Generator().manual_seed(8),
+                       train=True, ss_prob=ss_prob)
+    assert float(other.detach()) != out[False][0]
+
+
+@pytest.mark.parametrize("spatial", [False, True])
+def test_step_with_x_pre_matches_jax(spatial):
+    """The step's teacher-forced branch: ``h @ [U | Wd_att | W_sel (|
+    Wsd_att)]`` gives the recurrent term and the attention inputs, and
+    the preactivation is ``x_pre + h @ U + ctx_t @ Wc``."""
+    jcfg, tcfg = configs(**(SPATIAL if spatial else {}))
+    p = numpy_params(jcfg)
+    jb, tb = batches(jcfg)
+    jp, tp = jax_params(p), params_from_numpy(p, "cpu")
+    rng = np.random.RandomState(4)
+    b = tb["tokens"].shape[0]
+    h, c = (rng.randn(b, jcfg.dim).astype(np.float32) for _ in range(2))
+    emb = rng.randn(b, jcfg.dim_word).astype(np.float32)
+    x_pre = rng.randn(b, 4 * jcfg.dim).astype(np.float32)
+    jsc = jstep.precompute(jp, jcfg, jb["frames"], jb["frame_mask"],
+                           jb.get("regions"))
+    ref = jstep.step(jp, jcfg, jstep.StepState(jnp.asarray(h), jnp.asarray(c)),
+                     jsc, jnp.asarray(emb), jnp.asarray(x_pre))
+    tsc = tstep.precompute(tp, tcfg, tb["frames"], tb["frame_mask"],
+                           tb.get("regions"), train=True)
+    state = tstep.StepState(torch.from_numpy(h), torch.from_numpy(c))
+    for fn in STEPS.values():
+        got = fn(tp, tcfg, state, tsc, torch.from_numpy(emb),
+                 torch.from_numpy(x_pre))
+        for name in ("h", "c", "ctx_t", "alpha") + (
+                ("alpha_s",) if spatial else ()):
+            np.testing.assert_allclose(
+                getattr(got, name).numpy(), np.asarray(getattr(ref, name)),
+                rtol=1e-5, atol=1e-5, err_msg=name)
+
+
+def attention_core_inputs(bc=3, nb=2, k=5, a=12, dc=10, seed=0):
+    rng = np.random.RandomState(seed)
+    mask = (rng.rand(bc, k) > 0.3).astype(np.float32)
+    mask[:, 0] = 1.0
+    hp = rng.randn(bc * nb, a + 2).astype(np.float32)
+    return (hp[:, :a], hp[:, a], rng.randn(bc, k, a).astype(np.float32),
+            rng.randn(bc, k, dc).astype(np.float32), mask,
+            rng.randn(a).astype(np.float32), np.float32(0.3),
+            np.float32(-0.2))
+
+
+def jax_vjp(fn, args, diff, cot):
+    """Outputs and the VJP of ``fn`` over the arguments at ``diff``."""
+    def f(*xs):
+        full = list(args)
+        for i, x in zip(diff, xs):
+            full[i] = x
+        return fn(*full)
+
+    out, vjp = jax.vjp(f, *[args[i] for i in diff])
+    return out, vjp(cot)
+
+
+@pytest.mark.parametrize("selector", [True, False])
+@pytest.mark.parametrize("nb", [1, 2])
+def test_attention_core_function_matches_jax_vjp(nb, selector):
+    """Kernel 1's autograd Function (CPU: the plain core forward, its VJP
+    backward) against the JAX package's ``_core_diff`` custom VJP, the
+    Pallas kernel in interpret mode forward and the oracle's VJP
+    backward: outputs and the cotangents of h_att, beta_logit, pctx,
+    ctx, U_att, c_att and b_sel; ctx_mask gets none."""
+    arrs = attention_core_inputs(nb=nb)
+    rng = np.random.RandomState(9)
+    cot = (rng.randn(arrs[0].shape[0], arrs[3].shape[-1]).astype(np.float32),
+           rng.randn(arrs[0].shape[0], arrs[2].shape[1]).astype(np.float32))
+    diff = (0, 1, 2, 3, 5, 6, 7)
+    jargs = [jnp.asarray(x) for x in arrs]
+    jout, jgrads = jax_vjp(
+        lambda *xs: jkernel._core_diff(*xs, selector), jargs, diff,
+        tuple(jnp.asarray(c) for c in cot))
+    targs = [torch.tensor(np.asarray(x)) for x in arrs]
+    for i in diff:
+        targs[i].requires_grad_(True)
+    out = tkernel.attention_core(*targs, selector)
+    assert out[0].grad_fn.name().startswith("AttentionCore")
+    torch.autograd.backward(out, [torch.from_numpy(c) for c in cot])
+    for g, r in zip(out, jout):
+        np.testing.assert_allclose(g.detach().numpy(), np.asarray(r),
+                                   rtol=1e-5, atol=1e-5)
+    for i, r in zip(diff, jgrads):
+        np.testing.assert_allclose(targs[i].grad.numpy(), np.asarray(r),
+                                   rtol=1e-5, atol=1e-5, err_msg=str(i))
+    assert targs[4].grad is None
+
+
+@pytest.mark.parametrize("nb", [1, 3])
+def test_spatial_core_function_matches_jax_vjp(nb):
+    """Kernel 4's autograd Function against the JAX package's
+    ``_spatial_diff`` custom VJP (interpret-mode kernel forward, the
+    float32 oracle's VJP backward): outputs and the cotangents of h_satt,
+    pregion, regions, Us_att and cs_att."""
+    bc, k, r, s, dr = 2, 3, 5, 12, 10
+    rng = np.random.RandomState(2)
+    hp = rng.randn(bc * nb, s + 3).astype(np.float32)
+    arrs = [hp[:, 3:], rng.randn(bc, k, r, s).astype(np.float32),
+            rng.randn(bc, k, r, dr).astype(np.float32),
+            rng.randn(s).astype(np.float32), np.float32(0.4)]
+    cot = (rng.randn(bc * nb, k, dr).astype(np.float32),
+           rng.randn(bc * nb, k, r).astype(np.float32))
+    diff = tuple(range(5))
+    jout, jgrads = jax_vjp(jkernel._spatial_diff,
+                           [jnp.asarray(x) for x in arrs], diff,
+                           tuple(jnp.asarray(c) for c in cot))
+    targs = [torch.tensor(np.asarray(x), requires_grad=True) for x in arrs]
+    spat, alpha = tkernel.spatial_core(*targs, torch.float32)
+    assert spat.grad_fn.name().startswith("SpatialCore")
+    torch.autograd.backward(
+        (spat, alpha), [torch.from_numpy(c).reshape(o.shape)
+                        for c, o in zip(cot, (spat, alpha))])
+    for g, ref in zip((spat, alpha), jout):
+        np.testing.assert_allclose(g.detach().numpy().reshape(ref.shape),
+                                   np.asarray(ref), rtol=1e-5, atol=1e-5)
+    for i, ref in zip(diff, jgrads):
+        np.testing.assert_allclose(targs[i].grad.numpy(), np.asarray(ref),
+                                   rtol=1e-5, atol=1e-5, err_msg=str(i))
+
+
+def test_kernel_functions_only_under_a_gradient():
+    """Without a gradient to carry (decoding, ``no_grad``) the wrappers
+    call the core directly: no autograd Function, no saved inputs."""
+    targs = [torch.from_numpy(np.asarray(x)) for x in
+             attention_core_inputs()]
+    targs[0].requires_grad_(True)
+    with torch.no_grad():
+        out = tkernel.attention_core(*targs, True)
+    assert out[0].grad_fn is None
+    out = tkernel.attention_core(*[t.detach() for t in targs], True)
+    assert out[0].grad_fn is None
+
+
+def test_unported_training_options_raise_on_the_gates_kernel():
+    """The gates+LSTM kernel has no backward, as the JAX package's cannot
+    be differentiated: a gradient through it raises a ValueError naming
+    ``gates_kernel`` ('on' on any device; 'auto' on CUDA tensors), never
+    a silent swap to the plain gates.  'auto' on CPU tensors keeps the
+    plain gates (JAX's 'auto' declines off the TPU), and without a
+    gradient 'on' runs (decoding)."""
+    jcfg, tcfg = configs()
+    p = numpy_params(jcfg)
+    _, tb = batches(jcfg)
+    on = dataclasses.replace(tcfg, gates_kernel="on")
+    with pytest.raises(ValueError, match="gates_kernel"):
+        loss_fn(leaf_params(p), on, tb, train=False, ss_prob=0.25,
+                step_fn=tkernel.step_kernels)
+    ref = torch_loss_and_grads(tcfg, p, tb, 0.25, tstep.step)
+    auto = torch_loss_and_grads(dataclasses.replace(tcfg,
+                                                    gates_kernel="auto"),
+                                p, tb, 0.25, tkernel.step_kernels)
+    assert auto[0] == ref[0]
+    with torch.no_grad():
+        nll = loss_fn(params_from_numpy(p, "cpu"), on, tb, train=False,
+                      ss_prob=0.25, step_fn=tkernel.step_kernels)[0]
+    assert float(nll) == ref[0]
+    # the teacher-forced autodiff scan never reaches the gates hook
+    auto_tf = torch_loss_and_grads(
+        dataclasses.replace(on, fused_seq_grad=False), p, tb, 0.0,
+        tkernel.step_kernels)
+    assert np.isfinite(auto_tf[0])
+
+
+@pytest.mark.parametrize("mode", ["ss", "autodiff"])
+def test_train_step_with_step_fn_matches_jax(monkeypatch, mode):
+    """``make_train_step(mcfg, tcfg, step_fn)`` (the JAX positional
+    order) on the autograd scans: one adadelta update from the same
+    weights, with the step function passed through to the loss."""
+    jcfg, tcfg = configs(**({"fused_seq_grad": False}
+                            if mode == "autodiff" else {}))
+    ss = dict(ss_prob=0.25) if mode == "ss" else {}
+    jtc, ttc = train_configs(**ss)
+    p = numpy_params(jcfg)
+    jb, tb = batches(jcfg)
+    jp = jax_params(p)
+    jstate = {"params": jp, "opt_state": jloop.make_optimizer(jtc).init(jp),
+              "step": jnp.zeros((), jnp.int32),
+              "rng": jax.random.PRNGKey(0)}
+    jnew, jm = jloop.make_train_step(jcfg, jtc, jstep.step)(jstate, jb)
+    tp = leaf_params(p)
+    tstate = {"params": tp, "opt_state": tloop.make_optimizer(ttc).init(tp),
+              "step": 0, "generator": torch.Generator().manual_seed(0)}
+    calls = []
+
+    def counted(*args):
+        calls.append(1)
+        return tkernel.step_kernels(*args)
+
+    if mode == "ss":
+        # the JAX step draws the loss key as split(state rng)[1]
+        use_jax_coins(monkeypatch, 0.25, tb,
+                      jax.random.split(jax.random.PRNGKey(0))[1])
+    tnew, tm = tloop.make_train_step(tcfg, ttc, counted)(tstate, tb)
+    assert len(calls) == tb["tokens"].shape[1]
+    for k in ("loss", "nll", "nll_per_token", "grad_norm"):
+        assert abs(float(tm[k]) - float(jm[k])) <= 1e-5 * abs(float(jm[k])), k
+    for k, v in jnew["params"].items():
+        step = np.abs(np.asarray(v) - p[k]).max()
+        ulp = np.spacing(np.abs(p[k]).max().astype(np.float32))
+        err = np.abs(tnew["params"][k].detach().numpy() - np.asarray(v)).max()
+        assert err <= 1e-4 * step + 2 * ulp, (k, err, step)
+
+
+def test_evaluate_nll_reads_step_fn_on_the_autodiff_scan():
+    """``evaluate_nll_stats`` passes ``step_fn`` to the autodiff scan
+    (JAX's ``make_eval_nll``): the same sums as the JAX package's."""
+    jcfg, tcfg = configs(fused_seq_grad=False)
+    kw = dict(n_videos=5, k=jcfg.n_frames, d=jcfg.ctx_dim, maxlen=MAXLEN,
+              seed=2)
+    npp = numpy_params(jcfg)
+    calls = []
+
+    def counted(*args):
+        calls.append(1)
+        return tstep.step(*args)
+
+    got = tloop.evaluate_nll_stats(params_from_numpy(npp, "cpu"), tcfg,
+                                   synthetic_dataset(**kw), 3, counted,
+                                   device="cpu")
+    ref = jloop.evaluate_nll_stats(jax_params(npp), jcfg,
+                                   jsynthetic_dataset(**kw), 3, jstep.step)
+    assert calls
+    np.testing.assert_allclose(got, ref, rtol=1e-5)
+
+
+@pytest.mark.parametrize("train", [
+    dict(ss_prob=0.25), dict(debug_nans=True),
+    dict(profile_dir="trace", profile_start=0, profile_steps=1)],
+    ids=["ss_prob", "debug_nans", "profile_dir"])
+def test_fit_runs_the_ported_training_options(tmp_path, train):
+    """``fit`` runs an update with scheduled sampling, with NaN debugging
+    (scoped to the call: the anomaly mode is restored) and with the
+    profiler window (a trace file and a ``profile`` record, as in the
+    JAX package)."""
+    import json
+    if "profile_dir" in train:
+        train["profile_dir"] = str(tmp_path / "trace")
+    cfg = tiny_config(tmp_path, **train)
+    ds = synthetic_dataset(n_videos=2, k=6, d=32, maxlen=MAXLEN, seed=0)
+    was = torch.is_anomaly_enabled()
+    res = tloop.fit(cfg, ds, max_updates=2, device="cpu")
+    assert torch.is_anomaly_enabled() == was
+    assert [r["update"] for r in res.log] == [1, 2]
+    assert all(np.isfinite(r["loss"]) for r in res.log)
+    recs = [json.loads(ln) for ln in
+            (tmp_path / "metrics.jsonl").read_text().splitlines()]
+    prof = [r for r in recs if r["kind"] == "profile"]
+    if "profile_dir" in train:
+        assert prof == [{"kind": "profile", "elapsed_s": prof[0]["elapsed_s"],
+                         "dir": train["profile_dir"], "first_update": 1,
+                         "steps": 1}]
+        assert [f for f in os.listdir(train["profile_dir"])
+                if f.endswith(".pt.trace.json")]
+    else:
+        assert not prof
+
+
+def test_fit_with_debug_nans_raises_on_a_nan(tmp_path):
+    """A NaN in training: with ``debug_nans`` ``fit`` raises (autograd's
+    anomaly check or the update's finite check), and restores the
+    anomaly mode; without it the run goes on with a NaN loss."""
+    ds = synthetic_dataset(n_videos=2, k=6, d=32, maxlen=MAXLEN, seed=0)
+    ds.bank.frames[:] = np.nan
+    with pytest.raises((RuntimeError, FloatingPointError)):
+        tloop.fit(tiny_config(tmp_path / "a", debug_nans=True), ds,
+                  max_updates=1, device="cpu")
+    assert not torch.is_anomaly_enabled()
+    res = tloop.fit(tiny_config(tmp_path / "b"), ds, max_updates=1,
+                    device="cpu")
+    assert not np.isfinite(res.log[0]["loss"])
+
+
+def test_train_step_with_debug_nans_reports_the_bad_leaves(capsys):
+    """With ``debug_nans`` a non-finite gradient raises FloatingPointError
+    after ``report_bad_grads`` names the parameters."""
+    jcfg, tcfg = configs()
+    _, tb = batches(jcfg)
+    tb["frames"] = torch.full_like(tb["frames"], float("nan"))
+    ttc = tconfig.TrainConfig(batch_size=N_VIDEOS, debug_nans=True)
+    tp = leaf_params(numpy_params(jcfg))
+    state = {"params": tp, "opt_state": tloop.make_optimizer(ttc).init(tp),
+             "step": 0, "generator": torch.Generator().manual_seed(0)}
+    with pytest.raises(FloatingPointError):
+        tloop.make_train_step(tcfg, ttc)(state, tb)
+    assert "[grad-nan] ff_state_W:" in capsys.readouterr().out
