@@ -19,6 +19,15 @@ vocab 13056, bf16):
 * training through ``stvd_torch.train.loop.make_train_step`` (batch 64,
   T 30, adadelta, clip 10): preset 2 (spatial backward step and dWs_att
   GEMM) and preset 3 with ``train_tail_kernel='on'`` (train-scan tail);
+* the autograd train scans (``train_autodiff``): preset 3 with
+  scheduled sampling (``ss_prob=0.25``) and preset 2's autodiff scan
+  with remat through ``make_train_step(mcfg, tcfg,
+  kernel.step_kernels)``, kernels 1 and 4 carrying gradients through
+  their autograd Functions; float32 gradients of the kernel step
+  against the plain step and of the autodiff scan against the hand VJP;
+  the sampled tokens of kernel and plain steps on the same coins; a
+  3-update ``fit`` with scheduled sampling, the profiler window and
+  ``debug_nans``;
 * model selection through ``stvd_torch.train.loop.fit`` (``eval_fit``):
   a corpus written to disk and read back by ``load_splits``, preset 3
   trained at bucketed lengths with the train-scan tail, valid and test
@@ -1148,17 +1157,19 @@ def train_setup(cfg, dev, seed, batch):
 
 
 def phase_train(kernel, dev, seed, cfg, phase, expect, updates=5,
-                routes=None) -> dict:
-    """``make_train_step`` at full width, batch 64, T 30, adadelta with
-    global-norm clip 10: one warm-up update, then ``updates`` updates on
-    one batch with every kernel's launches counted from zero.  Each
-    update ends in a host read of its loss (synced wall time).  Those
-    in ``expect`` must launch T times an update (``dws_gemm`` once), the
-    others not at all, each of ``routes`` (kernel -> route) all of its
-    launches on that route; the loss must stay finite and fall."""
+                routes=None, step_fn=None, per_step=1) -> dict:
+    """``make_train_step`` (with ``step_fn``, the step of the autograd
+    scans) at full width, batch 64, T 30, adadelta with global-norm clip
+    10: one warm-up update, then ``updates`` updates on one batch with
+    every kernel's launches counted from zero.  Each update ends in a
+    host read of its loss (synced wall time).  Those in ``expect`` must
+    launch ``per_step`` times a step, T ``per_step`` times an update
+    (``dws_gemm`` once), the others not at all, each of ``routes``
+    (kernel -> route) all of its launches on that route; the loss must
+    stay finite and fall."""
     from stvd_torch.train.loop import make_train_step
     state, batch = train_setup(cfg, dev, seed, cfg.train.batch_size)
-    train_step = make_train_step(cfg.model, cfg.train)
+    train_step = make_train_step(cfg.model, cfg.train, step_fn)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     state, m = train_step(state, batch)
@@ -1177,7 +1188,8 @@ def phase_train(kernel, dev, seed, cfg, phase, expect, updates=5,
     steps = batch["tokens"].shape[1]
     want = {k: 0 for k in KERNELS}
     for name in expect:
-        want[name] = updates * (1 if name == "dws_gemm" else steps)
+        want[name] = updates * (1 if name == "dws_gemm"
+                                else steps * per_step)
     require(launches == want, f"{phase}: kernel launches {launches} != "
                               f"{want}")
     for name, route in (routes or {}).items():
@@ -1192,7 +1204,9 @@ def phase_train(kernel, dev, seed, cfg, phase, expect, updates=5,
                "use_spatial", "use_motion", "encoder", "compute_dtype",
                "spatial_bwd_kernel",
                "train_tail_kernel", "train_fwd_kernel",
-               "spatial_wgrad_dtype")},
+               "spatial_wgrad_dtype", "fused_seq_grad", "remat")},
+           "ss_prob": cfg.train.ss_prob,
+           "step_fn": getattr(step_fn, "__name__", None),
            "batch": cfg.train.batch_size, "steps_T": steps,
            "optimizer": cfg.train.optimizer, "clip_c": cfg.train.clip_c,
            "warmup_update_s": warm_s, "loss_warmup": first,
@@ -2009,65 +2023,247 @@ def phase_msrvtt(api, kernel, step_mod, dev, seed, info, profile) -> dict:
             "serving": serving, "train": train}
 
 
-def phase_train_kernel_vs_plain(kernel, dev, seed, cfg, batch=16,
-                                phase="train_kernel_vs_plain_f32") -> None:
-    """One train step's loss and gradients at float32, full width, batch
-    16: every training kernel on against every one off, on the same
-    weights and batch.  Per parameter, max|g_kernel - g_plain| must stay
-    within GRAD_TOL of max|g_plain|; c_att and cs_att shift every score
-    of a softmax alike, so their gradient is zero up to rounding and is
-    held to GRAD_TOL of the largest gradient entry of the model.  Frames,
-    regions and motion are drawn i.i.d. normal: the synthetic dataset's frames
-    of a video differ by 0.1-scale noise, so the attention weights are
-    near uniform and the softmax backwards subtract near-equal terms,
-    which magnifies float32 rounding of any summation order."""
-    from stvd_torch.train.loss import loss_fn
-    cfg = with_model(cfg, compute_dtype="float32", use_dropout=False)
-    state, b = train_setup(cfg, dev, seed, batch)
+def iid_features(b, dev, seed) -> None:
+    """Frames, regions and motion of batch ``b`` redrawn i.i.d. normal (in
+    place): the synthetic dataset's frames of a video differ by 0.1-scale
+    noise, so the attention weights are near uniform and the softmax
+    backwards subtract near-equal terms, which magnifies float32
+    rounding of any summation order."""
     gen = torch.Generator(device=dev).manual_seed(seed + 3)
     for key in ("frames", "regions", "motion"):
         if key in b:
             b[key] = torch.randn(b[key].shape, generator=gen, device=dev)
+
+
+def loss_grads(params, mcfg, b, step_fn=None, ss_prob=0.0, seed=0):
+    """(loss, {name: gradient}, seconds) of one loss at train=False; the
+    scheduled-sampling coins come from a generator seeded ``seed``."""
+    from stvd_torch.train.loss import loss_fn
+    gen = torch.Generator(device=b["tokens"].device).manual_seed(seed)
+    t0 = time.perf_counter()
+    loss, _ = loss_fn(params, mcfg, b, gen, train=False, ss_prob=ss_prob,
+                      step_fn=step_fn)
+    grads = [torch.zeros_like(p) if gr is None else gr
+             for p, gr in zip(params.values(), torch.autograd.grad(
+                 loss, list(params.values()), allow_unused=True))]
+    torch.cuda.synchronize()
+    return (float(loss.detach()), dict(zip(params, grads)),
+            time.perf_counter() - t0)
+
+
+def grad_gap(got, ref) -> dict:
+    """``got`` against ``ref`` (each ``loss_grads``'s result): the loss's
+    relative difference and, per parameter, max|g - g_ref| over
+    max|g_ref|; c_att and cs_att shift every score of a softmax alike, so
+    their gradient is zero up to rounding and is held to the largest
+    gradient entry of the model."""
+    (lg, gg, _), (lr, gr, _) = got, ref
+    top = max(float(v.abs().max()) for v in gr.values())
+    worst = {}
+    for k in gr:
+        scale = top if k in ("c_att", "cs_att") else max(
+            float(gr[k].abs().max()), 1e-30)
+        worst[k] = float((gg[k] - gr[k]).abs().max()) / scale
+    return {"loss_rel_diff": abs(lg - lr) / abs(lr),
+            "worst_leaf": max(worst, key=worst.get),
+            "worst_rel": max(worst.values()),
+            "bad": {k: v for k, v in worst.items() if not v <= GRAD_TOL}}
+
+
+def phase_train_kernel_vs_plain(kernel, dev, seed, cfg, batch=16,
+                                phase="train_kernel_vs_plain_f32") -> None:
+    """One train step's loss and gradients at float32, full width, batch
+    16: every training kernel on against every one off, on the same
+    weights and batch (features i.i.d., ``iid_features``).  Per
+    parameter, max|g_kernel - g_plain| must stay within GRAD_TOL of
+    max|g_plain| (``grad_gap``), the loss within 1e-5 relative."""
+    cfg = with_model(cfg, compute_dtype="float32", use_dropout=False)
+    state, b = train_setup(cfg, dev, seed, batch)
+    iid_features(b, dev, seed)
     params = state["params"]
     out = {}
     for name, switch in (("kernels", "on"), ("plain", "off")):
         mcfg = dataclasses.replace(cfg.model, spatial_bwd_kernel=switch,
                                    train_tail_kernel=switch,
                                    train_fwd_kernel=switch)
-        t0 = time.perf_counter()
-        loss, _ = loss_fn(params, mcfg, b, train=False)
-        grads = [torch.zeros_like(p) if gr is None else gr
-                 for p, gr in zip(params.values(), torch.autograd.grad(
-                     loss, list(params.values()), allow_unused=True))]
-        torch.cuda.synchronize()
-        out[name] = (float(loss.detach()), dict(zip(params, grads)),
-                     time.perf_counter() - t0)
-    (lk, gk, sk), (lp, gp, sp) = out["kernels"], out["plain"]
-    top = max(float(v.abs().max()) for v in gp.values())
-    worst = {}
-    for k in gp:
-        scale = top if k in ("c_att", "cs_att") else max(
-            float(gp[k].abs().max()), 1e-30)
-        worst[k] = float((gk[k] - gp[k]).abs().max()) / scale
-    bad = {k: v for k, v in worst.items() if not v <= GRAD_TOL}
-    loss_rel = abs(lk - lp) / abs(lp)
+        out[name] = loss_grads(params, mcfg, b)
+    gap = grad_gap(out["kernels"], out["plain"])
     emit({"phase": phase, "batch": batch,
-          "loss_kernels": lk, "loss_plain": lp, "loss_rel_diff": loss_rel,
-          "worst_leaf": max(worst, key=worst.get),
-          "worst_rel": max(worst.values()), "bar": GRAD_TOL,
-          "kernels_seconds": sk, "plain_seconds": sp})
-    require(loss_rel <= 1e-5, f"train kernel vs plain loss: {lk} vs {lp}")
-    require(not bad, f"train kernel vs plain gradients: {bad}")
-    del state, b, out, gk, gp
+          "loss_kernels": out["kernels"][0], "loss_plain": out["plain"][0],
+          "loss_rel_diff": gap["loss_rel_diff"],
+          "worst_leaf": gap["worst_leaf"], "worst_rel": gap["worst_rel"],
+          "bar": GRAD_TOL, "kernels_seconds": out["kernels"][2],
+          "plain_seconds": out["plain"][2]})
+    require(gap["loss_rel_diff"] <= 1e-5,
+            f"train kernel vs plain loss: {out['kernels'][0]} vs "
+            f"{out['plain'][0]}")
+    require(not gap["bad"], f"train kernel vs plain gradients: {gap['bad']}")
+    del state, b, out
     torch.cuda.empty_cache()
 
 
-def phase_train_profile(dev, seed, cfg, phase) -> None:
+def phase_train_autodiff(kernel, step_mod, dev, seed, cfg, cfg_sp) -> dict:
+    """The autograd train scans at full width (PR 12): scheduled sampling
+    and the autodiff scan, with kernels 1 and 4 carrying gradients
+    through their autograd Functions.
+
+    1. preset 3, bf16, ``ss_prob=0.25`` through ``make_train_step(mcfg,
+       tcfg, kernel.step_kernels)``: warm-up, 5 updates, kernel 1 30
+       launches an update, all on route cluster, the rest 0;
+    2. preset 2, bf16, ``fused_seq_grad=False``, ``remat=True``: 2
+       updates; kernels 1 and 4 launch twice a step (remat runs each
+       step's forward again in the backward), the dWs_att GEMM once an
+       update (the region projection's backward), the rest 0;
+    3. float32, batch 16, preset 3 autodiff scan: kernel step against
+       plain step, and the plain autodiff scan against the hand VJP,
+       each leaf within GRAD_TOL of its largest entry, loss within 1e-5;
+    4. float32, ``ss_prob=0.25``, the same coins on both sides: the share
+       of the (B, T) predicted tokens on which the kernel step and the
+       plain step agree (>= 0.95) and the loss difference;
+    5. a 3-update ``fit`` on synthetic data with ``ss_prob=0.25``, the
+       profiler window on update 2 and ``debug_nans``: a trace file, a
+       ``profile`` record, finite losses, kernel 1 at 30 an update."""
+    import tempfile
+    from stvd_torch.data.batching import synthetic_dataset
+    from stvd_torch.model.decoder import forward_train
+    from stvd_torch.train.loop import fit
+    ks = kernel.step_kernels
+    res = {}
+    res["ss"] = phase_train(
+        kernel, dev, seed,
+        cfg.replace(train=dataclasses.replace(cfg.train, ss_prob=0.25)),
+        "train_autodiff_ss", ("attention_core",),
+        routes={"attention_core": "cluster"}, step_fn=ks)
+    res["spatial_remat"] = phase_train(
+        kernel, dev, seed, with_model(cfg_sp, fused_seq_grad=False,
+                                      remat=True),
+        "train_autodiff_spatial_remat",
+        ("attention_core", "spatial_core", "dws_gemm"), updates=2,
+        routes={"attention_core": "cluster", "spatial_core": "tma",
+                "dws_gemm": "wgmma"}, step_fn=ks, per_step=2)
+
+    # 3. float32 gradients
+    cfg32 = with_model(cfg, compute_dtype="float32", use_dropout=False)
+    state, b = train_setup(cfg32, dev, seed, 16)
+    iid_features(b, dev, seed)
+    params = state["params"]
+    auto = dataclasses.replace(cfg32.model, fused_seq_grad=False)
+    reset_launches(kernel)
+    kern = loss_grads(params, auto, b, ks)
+    grads_launches = read_launches(kernel)
+    plain = loss_grads(params, auto, b, step_mod.step)
+    hand = loss_grads(params, cfg32.model, b)
+    steps = b["tokens"].shape[1]
+    require(grads_launches == {**dict.fromkeys(KERNELS, 0),
+                               "attention_core": steps},
+            f"train_autodiff_grads_f32: launches {grads_launches}")
+    gaps = {"kernel_vs_plain": grad_gap(kern, plain),
+            "autodiff_vs_hand_vjp": grad_gap(plain, hand)}
+    emit({"phase": "train_autodiff_grads_f32", "batch": 16,
+          "loss_kernel": kern[0], "loss_plain": plain[0],
+          "loss_hand_vjp": hand[0], "bar": GRAD_TOL,
+          "kernel_seconds": kern[2], "plain_seconds": plain[2],
+          "hand_vjp_seconds": hand[2], "launches": grads_launches,
+          **{name: {k: v for k, v in g.items() if k != "bad"}
+             for name, g in gaps.items()}})
+    for name, g in gaps.items():
+        require(g["loss_rel_diff"] <= 1e-5, f"{name}: loss {g}")
+        require(not g["bad"], f"{name}: gradients {g['bad']}")
+    del state, b, params, kern, plain, hand
+    torch.cuda.empty_cache()
+
+    # 4. float32 scheduled sampling, kernel step against plain step
+    state, b = train_setup(cfg32, dev, seed, cfg.train.batch_size)
+    iid_features(b, dev, seed)
+    toks, losses = {}, {}
+    with torch.no_grad():
+        for name, fn in (("kernel", ks), ("plain", step_mod.step)):
+            gen = torch.Generator(device=dev).manual_seed(seed + 5)
+            out = forward_train(state["params"], cfg32.model, b, gen,
+                                train=False, ss_prob=0.25, step_fn=fn)
+            toks[name] = out.logits.argmax(dim=-1)
+            w = b["weight"]
+            losses[name] = float((out.nll_per_example * w).sum()
+                                 / w.sum().clamp_min(1.0))
+    agree = float((toks["kernel"] == toks["plain"]).float().mean())
+    emit({"phase": "train_autodiff_ss_f32", "batch": cfg.train.batch_size,
+          "token_share": agree, "bar": 0.95, "loss_kernel": losses["kernel"],
+          "loss_plain": losses["plain"],
+          "loss_diff": losses["kernel"] - losses["plain"]})
+    require(agree >= 0.95, f"scheduled sampling kernel vs plain: {agree}")
+    del state, b, toks
+    torch.cuda.empty_cache()
+
+    # 5. fit with scheduled sampling, the profiler window and debug_nans
+    m = cfg.model
+    ds = synthetic_dataset(n_videos=cfg.train.batch_size,
+                           captions_per_video=2, k=m.n_frames, d=m.ctx_dim,
+                           maxlen=cfg.train.maxlen, seed=seed)
+    base = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(base, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=base) as root:
+        trace_dir = os.path.join(root, "trace")
+        fcfg = cfg.replace(train=dataclasses.replace(
+            cfg.train, ss_prob=0.25, profile_dir=trace_dir,
+            profile_start=1, profile_steps=1, debug_nans=True,
+            save_dir=root, valid_freq=0, sample_freq=0, save_freq=0,
+            disp_freq=1, length_buckets=""))
+        reset_launches(kernel)
+        t0 = time.perf_counter()
+        result = fit(fcfg, ds, max_updates=3, device=dev)
+        fit_s = time.perf_counter() - t0
+        launches = read_launches(kernel)
+        recs = [json.loads(ln) for ln in open(os.path.join(
+            root, "metrics.jsonl")).read().splitlines()]
+        traces = [f for f in os.listdir(trace_dir)
+                  if f.endswith(".pt.trace.json")]
+        events = (json.load(open(os.path.join(trace_dir, traces[0])))
+                  ["traceEvents"] if traces else [])
+        trace_mb = sum(os.path.getsize(os.path.join(trace_dir, f))
+                       for f in traces) / 2 ** 20
+    prof = [r for r in recs if r["kind"] == "profile"]
+    losses = [r["loss"] for r in result.log]
+    kernels_traced = sum(1 for e in events if e.get("cat") == "kernel")
+    emit({"phase": "train_autodiff_fit", "updates": len(losses),
+          "losses": losses, "fit_seconds": fit_s, "launches": launches,
+          "profile_records": prof, "trace_files": len(traces),
+          "trace_mb": trace_mb, "trace_events": len(events),
+          "trace_device_kernels": kernels_traced,
+          "anomaly_mode_after": torch.is_anomaly_enabled()})
+    require(len(losses) == 3 and all(np.isfinite(losses)),
+            f"train_autodiff_fit: losses {losses}")
+    require(traces and len(prof) == 1 and prof[0]["first_update"] == 2,
+            f"train_autodiff_fit: trace {traces}, records {prof}")
+    require(launches == {**dict.fromkeys(KERNELS, 0),
+                         "attention_core": 3 * cfg.train.maxlen},
+            f"train_autodiff_fit: launches {launches}")
+    require(not torch.is_anomaly_enabled(),
+            "train_autodiff_fit: fit left the anomaly mode on")
+    del result
+    torch.cuda.empty_cache()
+    out = {"phase": "train_autodiff",
+           "ss_median_step_s": res["ss"]["median_step_s"],
+           "ss_peak_mem_gib": res["ss"]["peak_mem_gib"],
+           "spatial_remat_median_step_s":
+               res["spatial_remat"]["median_step_s"],
+           "spatial_remat_peak_mem_gib":
+               res["spatial_remat"]["peak_mem_gib"],
+           "ss_launches_per_update":
+               res["ss"]["launches"]["attention_core"]
+               / len(res["ss"]["loss_per_update"]),
+           "spatial_remat_launches": res["spatial_remat"]["launches"],
+           "grads_worst_rel": {k: g["worst_rel"] for k, g in gaps.items()},
+           "ss_token_share": agree}
+    emit(out)
+    return out
+
+
+def phase_train_profile(dev, seed, cfg, phase, step_fn=None) -> None:
     """Device time by kernel over one train step."""
     from torch.profiler import ProfilerActivity, profile
     from stvd_torch.train.loop import make_train_step
     state, batch = train_setup(cfg, dev, seed, cfg.train.batch_size)
-    train_step = make_train_step(cfg.model, cfg.train)
+    train_step = make_train_step(cfg.model, cfg.train, step_fn)
     state, m = train_step(state, batch)
     float(m["loss"])
     with profile(activities=[ProfilerActivity.CPU,
@@ -2368,6 +2564,7 @@ def main() -> int:
                           "train_temporal_tail", ("train_tail",),
                           routes={"train_tail": "wgmma"})
     phase_train_kernel_vs_plain(kernel, dev, args.seed, cfg_sp)
+    phase_train_autodiff(kernel, step_mod, dev, args.seed, cfg, cfg_sp)
     phase_eval_fit(kernel, step_mod, dev, args.seed, cfg)
     phase_cli(kernel, dev, args.seed, cfg, info)
     msrvtt = phase_msrvtt(api, kernel, step_mod, dev, args.seed, info,
@@ -2377,6 +2574,10 @@ def main() -> int:
         phase_train_profile(dev, args.seed,
                             with_model(cfg, train_tail_kernel="on"),
                             "profile_train_temporal_tail")
+        phase_train_profile(
+            dev, args.seed, cfg.replace(train=dataclasses.replace(
+                cfg.train, ss_prob=0.25)), "profile_train_autodiff_ss",
+            step_fn=kernel.step_kernels)
     require("jax" not in sys.modules, "the port imported jax")
     require(not any(m == "stvd" or m.startswith("stvd.")
                     for m in sys.modules),
