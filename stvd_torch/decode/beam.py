@@ -126,8 +126,11 @@ def beam_decode(params, cfg, batch: Dict[str, torch.Tensor],
         buf = buf.reshape(B * k, maxlen)[rows].reshape(B, k, maxlen)
         buf[:, :, t] = torch.where(par_finished, EOS_ID, word)
         prev = word
-        # early exit: one host sync per step reads the finished flags
-        if bool(finished.all()):
+        # early exit: one host sync per step reads the finished flags;
+        # an exported graph runs all maxlen steps (a finished row only
+        # extends with EOS at no cost, so its result is the same)
+        if (not torch.compiler.is_exporting()
+                and bool(finished.all())):
             break
 
     lp = _length_penalty(lengths, length_norm, norm_mode)

@@ -75,7 +75,10 @@ def greedy_decode(params, cfg, batch: Dict[str, torch.Tensor],
             abuf[:, t] = out.alpha.to(torch.float32)
         state = StepState(out.h, out.c)
         prev = emit
-        # early exit: one host sync per step reads the finished flags
-        if bool(finished.all()):
+        # early exit: one host sync per step reads the finished flags;
+        # an exported graph runs all maxlen steps (a finished row only
+        # extends with EOS at no cost, so its result is the same)
+        if (not torch.compiler.is_exporting()
+                and bool(finished.all())):
             break
     return GreedyOut(tokens=buf, scores=score, lengths=length, alphas=abuf)

@@ -21,6 +21,16 @@ the train-scan tail and the dWs_att GEMM: wgmma, wmma or float32; the
 spatial backward step: 16-byte or element loads) pick it from shapes,
 dtype and alignment in a pure function and also count launches by route
 in ``launches_by_route``.
+
+Kernels 1-4, the serving kernels, are also custom ops
+(``stvd_torch::attention_core``, ``::logit_tail``, ``::spatial_core``,
+``::gates_lstm``; CUDA only): while a graph is exported
+(``torch.compiler.is_exporting()``, see ``export_aot.py``) their wrappers
+call the op instead of launching directly.  The op's implementation is
+the wrapper's launch, with its route and its counts, and its fake checks
+the shapes and dtypes the kernel takes, so an exported graph holds the
+op, an export at shapes the kernel refuses fails at export time, and
+every call of the loaded graph launches and counts the kernel.
 """
 
 from __future__ import annotations
@@ -43,6 +53,9 @@ def _require(cond: bool, msg: str) -> None:
 
 
 _SMEM_LIMIT = 232448     # 227 KB: the most shared memory a block may use
+# beams a context row the attention and spatial cores take (csrc:
+# kMaxBeams); the custom ops' fakes check it without the library
+MAX_BEAMS = 8
 
 
 def score_chunks(width: int) -> int:
@@ -120,23 +133,19 @@ def attention_core_route(rows: int, nb: int, k: int, a: int, dc: int,
             else "simple")
 
 
-def _attention_core_cuda(h_att, beta_logit, pctx, ctx, ctx_mask, u_att,
-                         c_att, b_sel, selector: bool, route=None,
-                         splits=None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The kernel on ``attention_core_route``'s route, or on ``route``
-    when given, and route 'cluster' with ``attention_core_split``'s CTAs
-    a row or ``splits`` of them (to time one plan against another on the
-    same operands)."""
+def _attention_core_check(h_att, beta_logit, pctx, ctx, ctx_mask, u_att,
+                          c_att, b_sel, max_beams: int) -> None:
+    """What the attention-core kernel takes: shapes, dtypes, strides and
+    one CUDA device (the kernel's wrapper and its custom op's fake both
+    check it)."""
     f32 = torch.float32
     bs, a = h_att.shape
     bc, k, a2 = pctx.shape
-    dc = ctx.shape[-1]
-    lib = _build.lib()
     _require(a2 == a and ctx.shape[:2] == (bc, k)
              and tuple(ctx_mask.shape) == (bc, k)
              and tuple(u_att.shape) == (a,) and beta_logit.shape == (bs,),
              "attention_core: inconsistent shapes")
-    _require(bs % bc == 0 and bs // bc <= lib.stvd_attn_core_max_beams(),
+    _require(bs % bc == 0 and bs // bc <= max_beams,
              f"attention_core: state batch {bs} is not 1..8 beams of {bc}")
     _require(h_att.dtype == f32 and beta_logit.dtype == f32
              and h_att.stride(1) == 1,
@@ -146,6 +155,22 @@ def _attention_core_cuda(h_att, beta_logit, pctx, ctx, ctx_mask, u_att,
     tensors = (h_att, beta_logit, pctx, ctx, ctx_mask, u_att, c_att, b_sel)
     _require(h_att.is_cuda and all(t.device == h_att.device for t in tensors),
              "attention_core: all operands must be on one CUDA device")
+
+
+def _attention_core_cuda(h_att, beta_logit, pctx, ctx, ctx_mask, u_att,
+                         c_att, b_sel, selector: bool, route=None,
+                         splits=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel on ``attention_core_route``'s route, or on ``route``
+    when given, and route 'cluster' with ``attention_core_split``'s CTAs
+    a row or ``splits`` of them (to time one plan against another on the
+    same operands)."""
+    f32 = torch.float32
+    bs, a = h_att.shape
+    bc, k, _ = pctx.shape
+    dc = ctx.shape[-1]
+    lib = _build.lib()
+    _attention_core_check(h_att, beta_logit, pctx, ctx, ctx_mask, u_att,
+                          c_att, b_sel, lib.stvd_attn_core_max_beams())
     pctx = pctx.contiguous()
     ctx = ctx.contiguous()
     mask = ctx_mask.to(f32).contiguous()
@@ -173,12 +198,36 @@ def _attention_core_cuda(h_att, beta_logit, pctx, ctx, ctx_mask, u_att,
     return ctx_t, alpha
 
 
+@torch.library.custom_op("stvd_torch::attention_core", mutates_args=(),
+                         device_types="cuda")
+def _attention_core_op(h_att: torch.Tensor, beta_logit: torch.Tensor,
+                       pctx: torch.Tensor, ctx: torch.Tensor,
+                       ctx_mask: torch.Tensor, u_att: torch.Tensor,
+                       c_att: torch.Tensor, b_sel: torch.Tensor,
+                       selector: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel 1 as an opaque op of an exported graph: the graph holds
+    the op, and each call of the loaded graph runs the kernel."""
+    return _attention_core_cuda(h_att, beta_logit, pctx, ctx, ctx_mask,
+                                u_att, c_att, b_sel, selector)
+
+
+@_attention_core_op.register_fake
+def _(h_att, beta_logit, pctx, ctx, ctx_mask, u_att, c_att, b_sel, selector):
+    _attention_core_check(h_att, beta_logit, pctx, ctx, ctx_mask, u_att,
+                          c_att, b_sel, MAX_BEAMS)
+    bs, k = h_att.shape[0], pctx.shape[1]
+    return h_att.new_empty((bs, ctx.shape[-1])), h_att.new_empty((bs, k))
+
+
 def _attention_core_fwd(h_att, beta_logit, pctx, ctx, ctx_mask, u_att,
                         c_att, b_sel, selector: bool):
     if h_att.device.type == "cpu":
         return step_mod._attention_core(h_att, beta_logit, pctx, ctx,
                                         ctx_mask, u_att, c_att, b_sel,
                                         selector)
+    if torch.compiler.is_exporting():
+        return _attention_core_op(h_att, beta_logit, pctx, ctx, ctx_mask,
+                                  u_att, c_att, b_sel, selector)
     return _attention_core_cuda(h_att, beta_logit, pctx, ctx, ctx_mask,
                                 u_att, c_att, b_sel, selector)
 
@@ -289,12 +338,12 @@ def logit_tail_route(rows: int, dw: int, v: int, dtype, x_ptr: int,
     return "wmma"
 
 
-def _logit_tail_cuda(x, w, b, k_sel: int, route=None):
-    """The kernel on ``logit_tail_route``'s route, or on ``route`` when
-    given (to time one route against another on the same operands)."""
-    rows, dw = x.shape
+def _logit_tail_check(x, w, b, k_sel: int) -> None:
+    """What the logit-tail kernel takes (checked by its wrapper and by
+    its custom op's fake)."""
+    dw = x.shape[1]
     v = w.shape[1]
-    lib = _build.lib()
+    _require(1 <= k_sel <= 8, f"logit_tail: k_sel={k_sel} outside 1..8")
     _require(w.shape[0] == dw and tuple(b.shape) == (v,),
              "logit_tail: inconsistent shapes")
     _require(w.dtype in (torch.float32, torch.bfloat16),
@@ -302,6 +351,15 @@ def _logit_tail_cuda(x, w, b, k_sel: int, route=None):
     _require(x.is_cuda and x.device == w.device == b.device,
              "logit_tail: all operands must be on one CUDA device")
     _require(v >= k_sel, f"logit_tail: vocab {v} smaller than k={k_sel}")
+
+
+def _logit_tail_cuda(x, w, b, k_sel: int, route=None):
+    """The kernel on ``logit_tail_route``'s route, or on ``route`` when
+    given (to time one route against another on the same operands)."""
+    rows, dw = x.shape
+    v = w.shape[1]
+    lib = _build.lib()
+    _logit_tail_check(x, w, b, k_sel)
     x = x.to(w.dtype).contiguous()
     w = w.contiguous()
     b = b.to(torch.float32).contiguous()
@@ -330,15 +388,37 @@ def _logit_tail_cuda(x, w, b, k_sel: int, route=None):
     return vals, idx, lse
 
 
+@torch.library.custom_op("stvd_torch::logit_tail", mutates_args=(),
+                         device_types="cuda")
+def _logit_tail_op(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                   k_sel: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Kernel 2 as an opaque op of an exported graph."""
+    return _logit_tail_cuda(x, w, b, k_sel)
+
+
+@_logit_tail_op.register_fake
+def _(x, w, b, k_sel):
+    _logit_tail_check(x, w, b, k_sel)
+    rows = x.shape[0]
+    f32 = torch.float32
+    return (x.new_empty((rows, k_sel), dtype=f32),
+            x.new_empty((rows, k_sel), dtype=torch.int64),
+            x.new_empty((rows,), dtype=f32))
+
+
 def logit_tail(x, w, b, k_sel: int):
     """Activation (rows, dw) -> (top-k raw logits, their vocab ids,
     logsumexp per row); top-k log-probs are ``vals - lse[:, None]``.
     CPU tensors take the plain version; CUDA tensors take the kernel on
-    the route ``logit_tail_route`` picks."""
+    the route ``logit_tail_route`` picks, through its custom op while a
+    graph is exported."""
     if k_sel < 1 or k_sel > 8:
         raise ValueError(f"logit_tail: k_sel={k_sel} outside 1..8")
     if x.device.type == "cpu":
         return _logit_tail_plain(x, w, b, k_sel)
+    if torch.compiler.is_exporting():
+        return _logit_tail_op(x, w, b, k_sel)
     return _logit_tail_cuda(x, w, b, k_sel)
 
 
@@ -392,19 +472,17 @@ def spatial_core_route(nb: int, r: int, s: int, dr: int, regions_dtype,
     return "tma" if smem <= _SMEM_LIMIT else "simple"
 
 
-def _spatial_core_cuda(h_satt, pregion, regions, u_s, c_s, route=None
-                       ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The kernel on ``spatial_core_route``'s route, or on ``route`` when
-    given (to time one route against another on the same operands)."""
+def _spatial_core_check(h_satt, pregion, regions, u_s, c_s,
+                        max_beams: int) -> None:
+    """What the spatial-core kernel takes (checked by its wrapper and by
+    its custom op's fake)."""
     f32 = torch.float32
     bs, s = h_satt.shape
     bc, k, r, s2 = pregion.shape
-    dr = regions.shape[-1]
-    lib = _build.lib()
     _require(s2 == s and tuple(regions.shape[:3]) == (bc, k, r)
              and tuple(u_s.shape) == (s,),
              "spatial_core: inconsistent shapes")
-    _require(bs % bc == 0 and bs // bc <= lib.stvd_spatial_core_max_beams(),
+    _require(bs % bc == 0 and bs // bc <= max_beams,
              f"spatial_core: state batch {bs} is not 1..8 beams of {bc}")
     _require(h_satt.dtype == f32 and h_satt.stride(1) == 1,
              "spatial_core: h_satt must be float32 rows")
@@ -415,6 +493,19 @@ def _spatial_core_cuda(h_satt, pregion, regions, u_s, c_s, route=None
     _require(h_satt.is_cuda and all(t.device == h_satt.device
                                     for t in tensors),
              "spatial_core: all operands must be on one CUDA device")
+
+
+def _spatial_core_cuda(h_satt, pregion, regions, u_s, c_s, route=None
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel on ``spatial_core_route``'s route, or on ``route`` when
+    given (to time one route against another on the same operands)."""
+    f32 = torch.float32
+    bs, s = h_satt.shape
+    bc, k, r, _ = pregion.shape
+    dr = regions.shape[-1]
+    lib = _build.lib()
+    _spatial_core_check(h_satt, pregion, regions, u_s, c_s,
+                        lib.stvd_spatial_core_max_beams())
     nb = bs // bc
     pregion = pregion.contiguous()
     regions = regions.contiguous()
@@ -437,10 +528,30 @@ def _spatial_core_cuda(h_satt, pregion, regions, u_s, c_s, route=None
     return spat, alpha
 
 
+@torch.library.custom_op("stvd_torch::spatial_core", mutates_args=(),
+                         device_types="cuda")
+def _spatial_core_op(h_satt: torch.Tensor, pregion: torch.Tensor,
+                     regions: torch.Tensor, u_s: torch.Tensor,
+                     c_s: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel 4 as an opaque op of an exported graph."""
+    return _spatial_core_cuda(h_satt, pregion, regions, u_s, c_s)
+
+
+@_spatial_core_op.register_fake
+def _(h_satt, pregion, regions, u_s, c_s):
+    _spatial_core_check(h_satt, pregion, regions, u_s, c_s, MAX_BEAMS)
+    bc, k, r, _ = pregion.shape
+    nb = h_satt.shape[0] // bc
+    return (h_satt.new_empty((bc, nb, k, regions.shape[-1])),
+            h_satt.new_empty((bc, nb, k, r)))
+
+
 def _spatial_core_fwd(h_satt, pregion, regions, u_s, c_s, cdtype):
     if h_satt.device.type == "cpu":
         return step_mod._spatial_core(h_satt, pregion, regions, u_s, c_s,
                                       cdtype)
+    if torch.compiler.is_exporting():
+        return _spatial_core_op(h_satt, pregion, regions, u_s, c_s)
     return _spatial_core_cuda(h_satt, pregion, regions, u_s, c_s)
 
 
@@ -516,15 +627,12 @@ def gates_route(rows: int, kx: int, dim: int, dtype, x_ptr: int,
     return "wgmma" if kx % 8 == 0 and dim % 8 == 0 else "wmma"
 
 
-def _gates_lstm_cuda(x, w, b, c, s_r=None, scale=None, route=None
-                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The kernel on ``gates_route``'s route, or on ``route`` when given
-    (to time one route against another on the same operands)."""
-    f32 = torch.float32
+def _gates_lstm_check(x, w, b, c, s_r, scale) -> None:
+    """What the gates+LSTM kernel takes (checked by its wrapper and by
+    its custom op's fake)."""
     rows, kx = x.shape
     n4 = w.shape[1]
     dim = n4 // 4
-    lib = _build.lib()
     _require(w.shape[0] == kx and n4 == 4 * dim and dim > 0
              and tuple(b.shape) == (n4,) and tuple(c.shape) == (rows, dim),
              "gates_lstm: inconsistent shapes")
@@ -538,6 +646,19 @@ def _gates_lstm_cuda(x, w, b, c, s_r=None, scale=None, route=None
     tensors = [x, w, b, c] + ([s_r, scale] if quant else [])
     _require(x.is_cuda and all(t.device == x.device for t in tensors),
              "gates_lstm: all operands must be on one CUDA device")
+
+
+def _gates_lstm_cuda(x, w, b, c, s_r=None, scale=None, route=None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel on ``gates_route``'s route, or on ``route`` when given
+    (to time one route against another on the same operands)."""
+    f32 = torch.float32
+    rows, kx = x.shape
+    n4 = w.shape[1]
+    dim = n4 // 4
+    lib = _build.lib()
+    _gates_lstm_check(x, w, b, c, s_r, scale)
+    quant = w.dtype == torch.int8
     x = x.contiguous()
     # int8 wgmma reads the K-major grid (step.quantize_weights stores it
     # so: then this is a view); the other routes the (Kx, 4 dim) stack
@@ -568,6 +689,24 @@ def _gates_lstm_cuda(x, w, b, c, s_r=None, scale=None, route=None
     return h_t, c_t
 
 
+@torch.library.custom_op("stvd_torch::gates_lstm", mutates_args=(),
+                         device_types="cuda")
+def _gates_lstm_op(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                   c: torch.Tensor, s_r: Optional[torch.Tensor],
+                   scale: Optional[torch.Tensor]
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel 3 as an opaque op of an exported graph."""
+    return _gates_lstm_cuda(x, w, b, c, s_r, scale)
+
+
+@_gates_lstm_op.register_fake
+def _(x, w, b, c, s_r, scale):
+    _gates_lstm_check(x, w, b, c, s_r, scale)
+    shape = (x.shape[0], w.shape[1] // 4)
+    f32 = torch.float32
+    return x.new_empty(shape, dtype=f32), x.new_empty(shape, dtype=f32)
+
+
 def gates_lstm(x, w, b, c, s_r=None, scale=None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Drop-in for ``step._gates_lstm``: (h_t, c_t) from the row block
@@ -575,9 +714,12 @@ def gates_lstm(x, w, b, c, s_r=None, scale=None
     and column scales), the (rows, 4 dim) preactivation never leaving the
     kernel.  CPU tensors take the plain version; CUDA tensors take the
     kernel on the route ``gates_route`` picks, which masks ragged rows,
-    depths and dims itself."""
+    depths and dims itself (through its custom op while a graph is
+    exported)."""
     if x.device.type == "cpu":
         return step_mod._gates_lstm(x, w, b, c, s_r, scale)
+    if torch.compiler.is_exporting():
+        return _gates_lstm_op(x, w, b, c, s_r, scale)
     return _gates_lstm_cuda(x, w, b, c, s_r, scale)
 
 

@@ -446,3 +446,12 @@ def test_route_counters_start_at_zero_on_the_cpu():
     assert set(before[5]) == set(tkernel.TRAIN_TAIL_ROUTES)
     assert set(tkernel.spatial_bwd.launches_by_route) == set(
         tkernel.SPATIAL_BWD_ROUTES)
+
+
+@pytest.mark.parametrize("source", ["attn_core.cu", "spatial_core.cu"])
+def test_custom_op_fakes_take_the_kernels_beam_limit(source):
+    """The custom ops' fakes check the beams a context row without the
+    library: their limit is the kernels' kMaxBeams."""
+    text = (_build._CSRC / source).read_text()
+    limit = int(re.search(r"constexpr int kMaxBeams = (\d+);", text).group(1))
+    assert tkernel.MAX_BEAMS == limit
