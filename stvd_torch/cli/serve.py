@@ -1,15 +1,18 @@
-"""Local captioning server over a live run directory (counterpart of
-stvd/cli/serve.py in live mode, with its routes, status codes and JSON
-keys).
+"""Local captioning server over an exported artifact or a live run
+directory (counterpart of stvd/cli/serve.py, with its routes, status
+codes and JSON keys).
 
+    python -m stvd_torch.cli.serve --artifact artifacts/msvd \
+        [--params weights.npz] [--bank bank.npz] [--device cpu]
     python -m stvd_torch.cli.serve --run-dir runs/msvd [--quant int8]
         [--bank bank.npz] [--coalesce-wait-ms W] [--device cpu]
 
 Endpoints (all JSON responses):
 
-    GET  /healthz    {"status": "ok", "mode": "live",
+    GET  /healthz    {"status": "ok", "mode": "aot" | "live",
                       "requests_served": N}
-    GET  /manifest   config summary (and the resident bank's ids)
+    GET  /manifest   the artifact's manifest, or a config summary (and
+                     the resident bank's ids)
     GET  /stats      per-route serving stats over a sliding window:
                      {route: {count, videos, min_ms, p50_ms, p95_ms}, ...}
     POST /caption    body is ONE OF
@@ -24,6 +27,8 @@ Endpoints (all JSON responses):
     POST /nbest      same body (+ optional ``?n=K`` query) -> ranked
                      hypothesis lists per video:
                      {"nbest": [[[text, logprob], ...], ...], ...}
+                     (an artifact serves it from its n-best graphs, and
+                     answers 400 without them)
     POST /caption_ids  (with ``--bank``) body {"ids": [video_id, ...]}
                      -> captions of videos whose features are resident on
                      the device: the request carries ids, not features.
@@ -46,9 +51,11 @@ separate groups, so a malformed group never poisons another.  The
 kernels build at first use, so ``warmup`` runs before the listener
 accepts requests.
 
-Not ported: serving an exported artifact (``--artifact``) and a bank
-sharded over several devices (``--bank-shards`` above 1) raise
-``NotImplementedError``.
+``--artifact`` serves the graphs of ``stvd_torch.cli.export`` (mode
+"aot"): weights are call-time inputs, so ``--params`` and /swap_params
+change them without re-export; quantization is baked in at export time
+(``--quant`` is refused).  Not ported: a bank sharded over several
+devices (``--bank-shards`` above 1) raises ``NotImplementedError``.
 
 ``request_captions`` is the matching client helper (raw wire format by
 default; ``wire='npz'`` for the portable container).
@@ -624,12 +631,30 @@ def _attach_bank(cap, bank_path: str, manifest: Dict,
 def build_server(args) -> CaptionServer:
     if bool(getattr(args, "artifact", None)) == bool(args.run_dir):
         raise ValueError("exactly one of --artifact / --run-dir required")
-    if args.artifact:
-        raise NotImplementedError(
-            "serving an exported artifact (--artifact) is not ported yet "
-            "(ROADMAP.md Queue 1 item 7); serve a run dir (--run-dir)")
     wait_ms = float(getattr(args, "coalesce_wait_ms", 0) or 0)
     cls = ThreadedCaptionServer if wait_ms > 0 else CaptionServer
+    if args.artifact:
+        if getattr(args, "quant", None) not in (None, "none"):
+            raise ValueError(
+                "--quant applies to live mode only; quantization is "
+                "baked into an artifact at export time (cli.export "
+                "--quant int8)")
+        from ..export_aot import load_artifact
+        params = None
+        if getattr(args, "params", None):
+            with np.load(args.params) as z:
+                params = {k: z[k] for k in z.files}
+        cap = load_artifact(args.artifact, params=params,
+                            device=getattr(args, "device", "cuda"))
+        manifest = dict(cap.manifest)
+        if getattr(args, "bank", None):
+            _attach_bank(cap, args.bank, manifest,
+                         shards=getattr(args, "bank_shards", 0))
+        return cls(cap, args.host, args.port, mode="aot",
+                   manifest=manifest, verbose=args.verbose,
+                   allow_shutdown=getattr(args, "allow_shutdown", False),
+                   coalesce_wait_ms=wait_ms,
+                   allow_swap=getattr(args, "allow_swap", False))
     from ..api import Captioner
     cap = Captioner.from_run_dir(args.run_dir, quant=args.quant,
                                  device=getattr(args, "device", "cuda"))
@@ -651,7 +676,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__)
     src = ap.add_mutually_exclusive_group(required=True)
     src.add_argument("--artifact",
-                     help="exported artifact dir (not ported yet: raises)")
+                     help="exported artifact dir (stvd_torch.cli.export)")
     src.add_argument("--run-dir", help="live mode: training run dir")
     ap.add_argument("--bank", default=None, metavar="BANK.npz",
                     help="make a packed feature bank device-resident "
@@ -661,6 +686,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     ap.add_argument("--bank-shards", type=int, default=0, metavar="N",
                     help="shard the resident bank over N devices (not "
                          "ported yet: N above 1 raises)")
+    ap.add_argument("--params", default=None,
+                    help="override weights: an .npz of same-architecture "
+                         "params (aot mode; no re-export needed)")
     ap.add_argument("--quant", default=None, choices=["none", "int8"],
                     help="live mode: override model.decode_quant")
     ap.add_argument("--device", default="cuda",
@@ -687,7 +715,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     server = build_server(args)
     if not args.no_warmup:
         secs = server.warmup()
-        print(f"warmup: {secs:.1f}s (live)")
+        print(f"warmup: {secs:.1f}s "
+              f"(sizes {server.manifest.get('batch_sizes') or 'live'})")
     print(f"serving {server.mode} on http://{args.host}:"
           f"{server.server_port}  (POST /caption, GET /healthz)")
     try:

@@ -463,3 +463,51 @@ def test_clis_default_to_the_card(run_dirs, tmp_path, monkeypatch):
         tserve.build_server(argparse.Namespace(
             artifact=None, run_dir=tdir, quant=None, host="127.0.0.1",
             port=0, verbose=False))
+
+
+def test_export_cli_check_exits_0(run_dirs, tmp_path, capsys):
+    """cli.export on the port's run dir: a CPU artifact of sizes 1 and 3
+    with n-best graphs, held to the live Captioner by --check (4 random
+    videos, a padded chunk); it serves the JAX Captioner's captions."""
+    from stvd.api import Captioner as JCaptioner
+    from stvd_torch.cli import export as texport
+    from stvd_torch.export_aot import load_artifact
+    jdir, tdir = run_dirs
+    out = str(tmp_path / "artifact")
+    assert texport.main(["--run-dir", tdir, "--out", out, "--platforms",
+                         "cpu", "--batch", "1,3", "--nbest", "--check",
+                         "--device", "cpu"]) == 0
+    text = capsys.readouterr().out
+    assert "check: OK" in text and "(4/4 equal" in text
+    assert sorted(os.listdir(out)) == [
+        "config.json", "decode_b1_cpu.pt2", "decode_b3_cpu.pt2",
+        "manifest.json", "nbest_b1_cpu.pt2", "nbest_b3_cpu.pt2",
+        "params.npz", "vocab.pkl"]
+    feats = np.random.RandomState(2).randn(
+        4, MCFG.n_frames, MCFG.ctx_dim).astype(np.float32)
+    assert (load_artifact(out, device="cpu").caption(feats)
+            == JCaptioner.from_run_dir(jdir).caption(feats))
+
+
+def test_export_cli_cuda_platform_and_unported_flags(run_dirs, tmp_path,
+                                                     capsys, monkeypatch):
+    """--platforms cuda exports the kernel step's graph on a host without
+    a card (the check is skipped on a CPU --device); sharded exports
+    raise; without --device the CLI wants the card."""
+    from stvd_torch.cli import export as texport
+    _, tdir = run_dirs
+    out = str(tmp_path / "cuda")
+    assert texport.main(["--run-dir", tdir, "--out", out, "--platforms",
+                         "cuda", "--check", "--device", "cpu"]) == 0
+    text = capsys.readouterr().out
+    assert "kernel=True" in text and "check skipped" in text
+    assert read_json(os.path.join(out, "manifest.json"))["custom_ops"] == [
+        "stvd_torch::attention_core", "stvd_torch::logit_tail"]
+    for flag in ("--data-parallel", "--model-parallel"):
+        with pytest.raises(NotImplementedError, match="item 8"):
+            texport.main(["--run-dir", tdir, "--out", str(tmp_path / "x"),
+                          "--platforms", "cpu", "--device", "cpu", flag,
+                          "2"])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        texport.main(["--run-dir", tdir, "--out", str(tmp_path / "y")])

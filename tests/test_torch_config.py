@@ -42,7 +42,8 @@ def test_port_imports_neither_jax_nor_stvd():
         "    assert 'stvd_torch.metrics.' + n in names, n\n"
         "for n in ('cli.train', 'cli.sample', 'cli.score', 'cli.convert',\n"
         "          'cli.serve', 'utils.logging', 'utils.profiling',\n"
-        "          'utils.debug', 'decode.sample', 'model.importer'):\n"
+        "          'utils.debug', 'decode.sample', 'model.importer',\n"
+        "          'export_aot', 'cli.export'):\n"
         "    assert 'stvd_torch.' + n in names, n\n"
         "from stvd_torch.metrics.scorer import score_all\n"
         "s = score_all({'a': ['a man is running']}, {'a': ['men run']},\n"

@@ -976,3 +976,65 @@ def test_autograd_scans_launch_kernels_1_and_4(cuda, spatial, remat, scan):
     for k in gp:
         scale = top if k in ("c_att", "cs_att") else float(gp[k].abs().max())
         assert float((gk[k] - gp[k]).abs().max()) <= 1e-3 * scale, k
+
+
+ARTIFACT_KERNELS = ("attention_core", "logit_tail", "spatial_core",
+                    "gates_lstm")
+
+
+@pytest.mark.parametrize("model,engaged", [
+    ({}, ("attention_core", "logit_tail")),
+    ({"decode_quant": "int8", "gates_kernel": "on"},
+     ("attention_core", "logit_tail", "gates_lstm")),
+    ({"use_spatial": True, "n_regions": 7, "region_dim": 64},
+     ("attention_core", "logit_tail", "spatial_core")),
+])
+def test_artifact_equals_live_on_the_kernels(cuda, tmp_path, model,
+                                             engaged):
+    """A CUDA artifact (bf16, beam 3, sizes 2 and 4) captions 7 videos
+    as the live Captioner does; inside the loaded graph each engaged
+    kernel launches maxlen times a chunk (4 on b=4, then 3 on b=4), on
+    the route the live path takes, and the others not at all."""
+    from stvd_torch.api import Captioner
+    from stvd_torch.config import Config, DecodeConfig, ModelConfig
+    from stvd_torch.data.text import Vocab
+    from stvd_torch.export_aot import load_artifact, save_artifact
+    from stvd_torch.model.decoder import init_params
+    m = ModelConfig(n_words=1000, dim_word=64, dim=128, ctx_dim=128,
+                    n_frames=8, compute_dtype="bfloat16", **model)
+    cfg = Config(model=m, decode=DecodeConfig(beam_size=3, maxlen=6,
+                                              decode_batch=4))
+    params = init_params(m, torch.Generator(device=cuda).manual_seed(0),
+                         cuda)
+    for p in params.values():
+        p.mul_(30.0)                # larger than the 0.01 init scale
+    vocab = Vocab({f"w{i}": i for i in range(2, m.n_words)})
+    out = str(tmp_path / "artifact")
+    manifest = save_artifact(out, params, cfg, vocab, batch_sizes=(2, 4))
+    assert manifest["custom_ops"] == sorted("stvd_torch::" + k
+                                            for k in engaged)
+    served = load_artifact(out, device=cuda)
+    cap = Captioner(params, cfg, vocab, device=cuda)
+    rng = np.random.RandomState(0)
+    feats = [rng.randn(int(f), m.ctx_dim).astype(np.float32)
+             for f in rng.randint(3, 12, size=7)]
+    regs = ([rng.randn(f.shape[0], m.n_regions, m.region_dim)
+             .astype(np.float32) for f in feats] if m.use_spatial else None)
+    fns = [getattr(tkernel, k) for k in ARTIFACT_KERNELS]
+    runs = {}
+    for name, c in (("aot", served), ("live", cap)):
+        before = [(f.launches, dict(f.launches_by_route)) for f in fns]
+        caps = c.caption(feats, regs)
+        torch.cuda.synchronize()
+        runs[name] = (caps, [
+            (f.launches - n, {r: f.launches_by_route[r] - by[r] for r in by})
+            for f, (n, by) in zip(fns, before)])
+    assert runs["aot"][0] == runs["live"][0]
+    for k, (n, by) in zip(ARTIFACT_KERNELS, runs["aot"][1]):
+        assert n == (2 * cfg.decode.maxlen if k in engaged else 0), k
+    live_steps = runs["live"][1][0][0]
+    for (n, by), (ln, lby) in zip(runs["aot"][1], runs["live"][1]):
+        # the live loop may exit early: the same routes, at most as often
+        assert {r for r in by if by[r]} == {r for r in lby if lby[r]}
+        assert ln <= n and (ln == 0) == (n == 0)
+    assert live_steps <= 2 * cfg.decode.maxlen

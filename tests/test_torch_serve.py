@@ -49,6 +49,21 @@ def jax_cap(run_dirs):
     return JCaptioner.from_run_dir(run_dirs[0])
 
 
+@pytest.fixture(scope="module")
+def artifact(run_dirs, tmp_path_factory):
+    """CPU artifacts of the port's run dir, exported with and without the
+    n-best graphs, and the live Captioner they are held to."""
+    from stvd_torch.export_aot import save_artifact
+    cap = Captioner.from_run_dir(run_dirs[1], device="cpu")
+    root = tmp_path_factory.mktemp("artifacts")
+    paths = []
+    for name, nbest in (("nbest", True), ("plain", False)):
+        paths.append(str(root / name))
+        save_artifact(paths[-1], cap.params, cap.cfg, cap.vocab,
+                      platforms=("cpu",), batch_sizes=(1, 3), nbest=nbest)
+    return paths[0], paths[1], cap
+
+
 def features(n, seed=0):
     return np.random.RandomState(seed).randn(
         n, MCFG.n_frames, MCFG.ctx_dim).astype(np.float32)
@@ -56,7 +71,7 @@ def features(n, seed=0):
 
 def server_args(run_dir, **kw):
     base = dict(artifact=None, run_dir=run_dir, bank=None, bank_shards=0,
-                quant=None, device="cpu", host="127.0.0.1",
+                params=None, quant=None, device="cpu", host="127.0.0.1",
                 port=0, no_warmup=True, coalesce_wait_ms=0.0,
                 allow_swap=False, allow_shutdown=False, verbose=False)
     base.update(kw)
@@ -307,10 +322,14 @@ def test_shutdown_endpoint(run_dirs):
 
 
 @pytest.mark.parametrize("kw,what", [
-    ({"artifact": "a", "run_dir": None}, "item 7"),
+    ({"artifact": True, "run_dir": None, "bank_shards": 2}, "item 8"),
     ({"bank_shards": 2}, "item 8")])
-def test_unported_modes_raise(run_dirs, kw, what):
+def test_unported_modes_raise(run_dirs, artifact, kw, what):
+    """A bank sharded over several devices is not ported, over an
+    artifact or a run dir."""
     _, tdir, bank, _ = run_dirs
+    if kw.get("artifact"):
+        kw = dict(kw, artifact=artifact[0])
     with pytest.raises(NotImplementedError, match=what):
         build_server(server_args(**{"run_dir": tdir, "bank": bank, **kw}))
 
@@ -447,3 +466,112 @@ def test_coalescer_batches_id_requests_and_rejects_unknown_ids_alone():
 def test_single_threaded_server_has_no_coalescer():
     assert CaptionServer(StubCaptioner(), port=0,
                          coalesce_wait_ms=50.0).coalescer is None
+
+
+# ---- artifact mode (mirrors tests/test_serve.py) ---------------------------
+
+def artifact_args(path, **kw):
+    return server_args(None, **{"artifact": path, **kw})
+
+
+def test_artifact_health_and_manifest(artifact):
+    with Srv(build_server(artifact_args(artifact[0]))) as s:
+        st, h = get(s.port, "/healthz")
+        st_man, man = get(s.port, "/manifest")
+    assert (st, h) == (200, {"status": "ok", "mode": "aot",
+                             "requests_served": 0})
+    assert st_man == 200 and man["format"] == "stvd-torch-aot-decode-v1"
+    assert man["batch_sizes"] == [1, 3] and man["nbest"] is True
+    assert man["platforms"] == ["cpu"] and man["custom_ops"] == []
+
+
+def test_artifact_caption_and_nbest_match_live(artifact, jax_cap):
+    """/caption over every wire and /nbest from an artifact equal the
+    live Captioner's (and the JAX Captioner's captions), through a
+    bucketed request of 5 videos (3 on b=3, then 2 on b=3)."""
+    cap = artifact[2]
+    feats = features(5, seed=7)
+    with Srv(build_server(artifact_args(artifact[0]))) as s:
+        raw = request_captions("127.0.0.1", s.port, feats, timeout=TIMEOUT)
+        npz = request_captions("127.0.0.1", s.port, feats, wire="npz",
+                               timeout=TIMEOUT)
+        st, obj = post(s.port, "/caption",
+                       json.dumps({"features": feats.tolist()}))
+        got = request_nbest("127.0.0.1", s.port, feats, n=2,
+                            timeout=TIMEOUT)
+    assert raw == npz == obj["captions"] == cap.caption(feats)
+    assert raw == jax_cap.caption(feats)
+    assert got == cap.nbest(feats, n=2)
+    assert [v[0][0] for v in got] == raw
+
+
+def test_artifact_without_nbest_graphs_is_400(artifact):
+    with Srv(build_server(artifact_args(artifact[1]))) as s:
+        st, err = post(s.port, "/nbest",
+                       json.dumps({"features": features(2).tolist()}))
+        assert request_captions("127.0.0.1", s.port, features(1),
+                                timeout=TIMEOUT)
+    assert st == 400 and "no n-best graphs" in err["error"]
+
+
+def test_artifact_caption_ids_with_a_bank(run_dirs, artifact):
+    from stvd_torch.data.bank import FeatureBank
+    bank_path = run_dirs[2]
+    bank = FeatureBank.load(bank_path)
+    ids = ["vid5", "vid0", "vid3", "vid6"]
+    feats = [bank.frames[int(v[3:])][bank.frame_mask[int(v[3:])] > 0]
+             for v in ids]
+    with Srv(build_server(artifact_args(artifact[0],
+                                        bank=bank_path))) as s:
+        got = request_caption_ids("127.0.0.1", s.port, ids, timeout=TIMEOUT)
+        st, nb = post(s.port, "/nbest_ids?n=2", json.dumps({"ids": ids}))
+        _, man = get(s.port, "/manifest")
+    assert got == artifact[2].caption(feats)
+    assert st == 200 and [v[0][0] for v in nb["nbest"]] == got
+    assert man["bank_videos"] == 7 and man["bank_ids"] == bank.ids
+
+
+def test_artifact_swap_and_params_override(run_dirs, artifact):
+    """/swap_params and --params give the captions of the live Captioner
+    on the new weights, with no re-export."""
+    _, _, _, swap = run_dirs
+    cap = artifact[2]
+    feats = features(4, seed=3)
+    fresh = Captioner(dict(np.load(swap)), cap.cfg, cap.vocab,
+                      device="cpu").caption(feats)
+    with Srv(build_server(artifact_args(artifact[0],
+                                        allow_swap=True))) as s:
+        before = request_captions("127.0.0.1", s.port, feats,
+                                  timeout=TIMEOUT)
+        st, obj = post(s.port, "/swap_params", json.dumps({"path": swap}))
+        after = request_captions("127.0.0.1", s.port, feats, timeout=TIMEOUT)
+    assert before == cap.caption(feats) and st == 200
+    assert obj["status"] == "swapped" and after == fresh != before
+    with Srv(build_server(artifact_args(artifact[0], params=swap))) as s:
+        assert request_captions("127.0.0.1", s.port, feats,
+                                timeout=TIMEOUT) == fresh
+
+
+def test_artifact_refuses_quant_and_warms_every_size(artifact):
+    with pytest.raises(ValueError, match="baked into an artifact"):
+        build_server(artifact_args(artifact[0], quant="int8"))
+    srv = build_server(artifact_args(artifact[0], quant="none"))
+    try:
+        assert srv.mode == "aot" and srv.warmup() > 0
+    finally:
+        srv.server_close()
+
+
+def test_main_parses_the_artifact_flags(artifact, monkeypatch):
+    seen = {}
+
+    def fake_build(args):
+        seen.update(vars(args))
+        raise SystemExit(0)
+
+    monkeypatch.setattr(serve, "build_server", fake_build)
+    with pytest.raises(SystemExit):
+        serve.main(["--artifact", artifact[0], "--params", "w.npz",
+                    "--device", "cpu", "--port", "0"])
+    assert seen["artifact"] == artifact[0] and seen["params"] == "w.npz"
+    assert seen["run_dir"] is None
