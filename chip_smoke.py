@@ -38,6 +38,15 @@ vocab 13056, bf16):
   ``cli.convert`` of the bank, and ``cli.serve`` over the run dir with
   the bank resident (feature, n-best, id and concurrent requests, and a
   weight swap), each request's captions held to ``Captioner``'s;
+* AOT serving artifacts (``aot``): preset 3 exported by
+  ``stvd_torch.export_aot.save_artifact`` at batch sizes 1 and 256 with
+  n-best graphs, ``cli.export --check`` in a subprocess, 257 videos
+  through the loaded graphs held to the live ``Captioner`` (every
+  caption equal; kernels 1 and 2 launched as custom ops from inside the
+  graph, 30 a chunk on their fast routes), artifact against live
+  captions/s and one-video latency, ``cli.serve --artifact`` over HTTP
+  with the bank resident (caption, ids, n-best, swap); path B and
+  preset 2 (decode batch 64) as one export each;
 * preset 4 (``msrvtt``: appearance and motion streams fused to a
   2048-wide float32 context, vocab 20096): kernels 1, 2 and 6 at its
   shapes (kernel 1 on its eight-warp cluster route), serving with and
@@ -83,6 +92,7 @@ import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -800,6 +810,313 @@ def phase_serving(api, kernel, dev, seed, params, vocab, cfg, phase,
            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
     emit(out)
     return out
+
+
+# the route every launch inside an exported graph must take
+AOT_ROUTES = {"attention_core": "cluster", "logit_tail": "wgmma",
+              "gates_lstm": "wgmma", "spatial_core": "tma"}
+
+
+def aot_counted(kernel, fn, engaged, chunks, maxlen, what):
+    """``fn()`` with every kernel's launches counted from zero: each of
+    ``engaged`` must launch maxlen times a decode chunk, all on its
+    ``AOT_ROUTES`` route, and the others not at all.  Returns fn's
+    result and the launches."""
+    reset_launches(kernel)
+    out = fn()
+    torch.cuda.synchronize()
+    launches = read_launches(kernel)
+    want = {k: (chunks * maxlen if k in engaged else 0) for k in KERNELS}
+    require(launches == want, f"{what}: launches {launches} != {want}")
+    by_route = read_routes(kernel)
+    for k in engaged:
+        require(by_route[k][AOT_ROUTES[k]] == want[k],
+                f"{what}: {k} launches by route {by_route[k]}, want all "
+                f"{want[k]} on {AOT_ROUTES[k]}")
+    return out, launches
+
+
+def dir_bytes(path) -> dict:
+    return {f: os.path.getsize(os.path.join(path, f))
+            for f in sorted(os.listdir(path))}
+
+
+def ab_seconds(fns: dict, reps: int = 7) -> dict:
+    """Wall seconds of each of ``fns`` (synced), the calls interleaved
+    rep by rep so that drift of the host hits every one alike: {name:
+    (median, min, max)}."""
+    times = {k: [] for k in fns}
+    for _ in range(reps):
+        for k, fn in fns.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times[k].append(time.perf_counter() - t0)
+    return {k: (float(np.median(v)), min(v), max(v))
+            for k, v in times.items()}
+
+
+def eos_weights(params, mode: str) -> dict:
+    """The weights of a throughput mode: as they are (``natural_eos``:
+    random weights seldom emit EOS, so captions run all 30 steps), EOS
+    suppressed, or EOS favoured after any word (``eos_after_one_word``,
+    so the live loop exits after about two steps while a graph runs all
+    30): the zero embedding of step 0 leaves activation 0 near -1,
+    every word's embedding lifts it to near 0, and only EOS reads it."""
+    if mode == "natural_eos":
+        return params
+    p = dict(params)
+    b = p["ff_logit_b"].clone()
+    if mode == "eos_suppressed":
+        b[0] = -1e9
+        return dict(p, ff_logit_b=b)
+    emb, lstm_b, w = (p[k].clone() for k in ("Wemb", "ff_logit_lstm_b",
+                                             "ff_logit_W"))
+    emb[:, 0] = 3.0
+    lstm_b[0] = -3.0
+    w[0, :] = 0.0
+    w[0, 0] = 10.0
+    b[0] = 2.5
+    return dict(p, Wemb=emb, ff_logit_lstm_b=lstm_b, ff_logit_W=w,
+                ff_logit_b=b)
+
+
+def op_dispatch_us(kernel, dev, cfg) -> dict:
+    """Host microseconds a call of kernels 1 and 2 at the preset-3
+    serving shapes, through the wrapper's direct launch and through the
+    custom op an exported graph calls (the dispatcher's cost)."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    m = cfg.model
+    bc, nb, k, a, dc = (cfg.decode.decode_batch, cfg.decode.beam_size,
+                        m.n_frames, m.attn_dim, m.ctx_dim)
+    hp = torch.randn(bc * nb, a + 1, generator=g, device=dev)
+    attn = (hp[:, :a], hp[:, a],
+            0.5 * torch.randn(bc, k, a, generator=g, device=dev),
+            torch.randn(bc, k, dc, generator=g, device=dev).bfloat16(),
+            torch.ones(bc, k, device=dev),
+            torch.randn(a, generator=g, device=dev) / a ** 0.5,
+            torch.tensor(0.1, device=dev), torch.tensor(-0.2, device=dev),
+            True)
+    tail = (torch.randn(bc * nb, m.dim_word, generator=g,
+                        device=dev).bfloat16(),
+            torch.randn(m.dim_word, m.n_words, generator=g,
+                        device=dev).bfloat16(),
+            torch.randn(m.n_words, generator=g, device=dev),
+            cfg.decode.beam_size)
+    ops = torch.ops.stvd_torch
+    return {
+        "attention_core_direct_us": host_us(
+            lambda: kernel._attention_core_cuda(*attn)),
+        "attention_core_op_us": host_us(lambda: ops.attention_core(*attn)),
+        "logit_tail_direct_us": host_us(
+            lambda: kernel._logit_tail_cuda(*tail)),
+        "logit_tail_op_us": host_us(lambda: ops.logit_tail(*tail))}
+
+
+def aot_export_check(api, kernel, dev, seed, params, vocab, cfg, root,
+                     phase, engaged) -> dict:
+    """One export of ``cfg`` at its decode batch held to the live
+    ``Captioner``: a decode batch of videos (natural EOS) through the
+    loaded graph, every caption equal, the engaged kernels maxlen
+    launches each on their fast routes."""
+    from stvd_torch.export_aot import load_artifact, save_artifact
+    out = os.path.join(root, phase)
+    b = cfg.decode.decode_batch
+    manifest = save_artifact(out, params, cfg, vocab)
+    t0 = time.perf_counter()
+    served = load_artifact(out, device=dev)
+    load_s = time.perf_counter() - t0
+    feats = request(np.random.RandomState(seed + 3), b, cfg.model)
+    regs, mots = streams(feats, cfg.model, seed + 3)
+    got, launches = aot_counted(
+        kernel, lambda: served.caption(feats, regs, mots), engaged, 1,
+        cfg.decode.maxlen, phase)
+    want = api.Captioner(params, cfg, vocab, device=dev).caption(
+        feats, regs, mots)
+    diff = [i for i, (x, y) in enumerate(zip(got, want)) if x != y]
+    require(not diff, f"{phase}: artifact != live for videos {diff[:8]}")
+    res = {"phase": phase, "videos": b, "equal": len(got),
+           "custom_ops": manifest["custom_ops"],
+           "export_seconds": manifest["export_seconds"],
+           "load_seconds": load_s, "bytes": dir_bytes(out),
+           "launches": launches}
+    emit(res)
+    return res
+
+
+def phase_aot(api, kernel, dev, seed, params, vocab, cfg, cfg_q, root
+              ) -> dict:
+    """The AOT serving path at preset 3 (the serving phase's weights):
+    ``save_artifact`` of the b=1 and b=256 decode and n-best graphs,
+    ``cli.export --check`` in a subprocess, 257 videos through the loaded
+    graphs against the live ``Captioner`` (every caption equal; kernels 1
+    and 2 30 launches a chunk from inside the graph, on cluster / wgmma),
+    n-best entry 0 against ``caption``, worst-case (EOS suppressed) and
+    natural-EOS captions/s and one-video latency of artifact and live,
+    ``cli.serve --artifact`` over HTTP with the bank resident; then path
+    B (int8 gates kernel) as one export at batch 256."""
+    import argparse
+    import threading
+    from stvd_torch import export_aot
+    from stvd_torch.cli import serve
+    from stvd_torch.data.bank import pack_bank
+    maxlen = cfg.decode.maxlen
+    engaged = ("attention_core", "logit_tail")
+    out = os.path.join(root, "preset3")
+    torch.cuda.reset_peak_memory_stats()
+    manifest = export_aot.save_artifact(out, params, cfg, vocab,
+                                        batch_sizes=(1, 256), nbest=True)
+    require(manifest["custom_ops"] == ["stvd_torch::attention_core",
+                                       "stvd_torch::logit_tail"],
+            f"aot: graph ops {manifest['custom_ops']}")
+    t0 = time.perf_counter()
+    served = export_aot.load_artifact(out, device=dev)
+    load_s = time.perf_counter() - t0
+    res = {"phase": "aot", "export_seconds": manifest["export_seconds"],
+           "bytes": dir_bytes(out), "load_seconds": load_s}
+    live = api.Captioner(params, cfg, vocab, device=dev)
+    rng = np.random.RandomState(seed + 5)
+    feats = request(rng, 257, cfg.model)
+    t0 = time.perf_counter()
+    first = served.caption(feats[:1])
+    torch.cuda.synchronize()
+    res["first_call_b1_seconds"] = time.perf_counter() - t0
+    got, res["launches"] = aot_counted(
+        kernel, lambda: served.caption(feats), engaged, 2, maxlen,
+        "aot 257 videos")
+    want = live.caption(feats)
+    diff = [i for i, (x, y) in enumerate(zip(got, want)) if x != y]
+    require(not diff, f"aot: artifact != live for videos {diff[:8]}")
+    require(first == got[:1], "aot: b=1 graph != the b=256 chunk")
+    res["videos_equal"] = len(got)
+    nb = served.nbest(feats[:16])
+    require([v[0][0] for v in nb] == got[:16],
+            "aot: n-best entry 0 != caption")
+
+    # throughput and latency; weights are call-time inputs, so EOS is
+    # suppressed in the artifact's weights as in the live Captioner's
+    batch = feats[:256]
+    for mode in ("natural_eos", "eos_suppressed", "eos_after_one_word"):
+        w = eos_weights(params, mode)
+        for c in (served, live):
+            c.swap_params(w)
+        secs = ab_seconds({"aot": lambda: served.caption(batch),
+                           "live": lambda: live.caption(batch)})
+        for name, (med, lo, hi) in secs.items():
+            res[f"{name}_{mode}_captions_per_s"] = 256 / med
+            res[f"{name}_{mode}_seconds_min_max"] = [lo, hi]
+        words = [len(c.split()) for c in served.caption(batch)]
+        require(words == [len(c.split()) for c in live.caption(batch)],
+                f"aot: {mode} caption lengths differ from live")
+        res[f"{mode}_mean_words"] = float(np.mean(words))
+    for c in (served, live):
+        c.swap_params(params)
+    secs = ab_seconds({"aot_b1": lambda: served.caption(feats[:1]),
+                       "live_b256_chunk": lambda: live.caption(feats[:1])})
+    for name, (med, lo, hi) in secs.items():
+        res[f"{name}_1_video_seconds"] = med
+        res[f"{name}_1_video_seconds_min_max"] = [lo, hi]
+    res["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    res["op_dispatch"] = op_dispatch_us(kernel, dev, cfg)
+
+    # cli.export --check in its own process, on a run dir of the weights
+    run = os.path.join(root, "run")
+    os.makedirs(run)
+    with open(os.path.join(run, "config.json"), "w") as f:
+        f.write(cfg.to_json())
+    vocab.save_pickle(os.path.join(run, "vocab.pkl"))
+    torch.save({"params": {k: v.detach().cpu() for k, v in params.items()}},
+               os.path.join(run, "ckpt.pt"))
+    pkg_root = os.path.dirname(os.path.dirname(
+        os.path.abspath(export_aot.__file__)))
+    env = dict(os.environ, PYTHONPATH=pkg_root + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "stvd_torch.cli.export", "--run-dir", run,
+         "--out", os.path.join(root, "cli"), "--check"],
+        capture_output=True, text=True, timeout=600, env=env)
+    res["cli_export_seconds"] = time.perf_counter() - t0
+    check = [ln for ln in proc.stdout.splitlines()
+             if ln.startswith("check:")]
+    require(proc.returncode == 0 and check and "OK" in check[0],
+            f"aot: cli.export --check rc {proc.returncode}: "
+            f"{proc.stdout[-500:]} {proc.stderr[-1500:]}")
+    res["cli_export_check"] = check[0]
+    res["cli_export_load_seconds"] = float(
+        re.search(r"load ([0-9.e+-]+) s", check[0]).group(1))
+
+    # cli.serve --artifact over HTTP, the bank resident
+    bank = pack_bank({f"v{i:03d}": f for i, f in enumerate(batch)},
+                     cfg.model.n_frames)
+    bank_path = os.path.join(root, "bank.npz")
+    bank.save(bank_path)
+    arr = bank.frames
+    videos = [bank.frames[i][bank.frame_mask[i] > 0]
+              for i in range(len(bank.ids))]
+    new = {k: v.detach().float().cpu().numpy() for k, v in params.items()}
+    new["ff_logit_b"] = new["ff_logit_b"] + 2.0 * np.random.RandomState(
+        seed).randn(*new["ff_logit_b"].shape).astype(np.float32)
+    swap_path = os.path.join(root, "swap.npz")
+    np.savez(swap_path, **new)
+    args = argparse.Namespace(
+        artifact=out, run_dir=None, bank=bank_path, bank_shards=0,
+        params=None, quant=None, device=str(dev), host="127.0.0.1",
+        port=0, no_warmup=False, coalesce_wait_ms=0.0, allow_swap=True,
+        allow_shutdown=False, verbose=False)
+    server, build_s = quiet(serve.build_server, args)
+    require(server.mode == "aot", "aot serve: mode")
+    srv = {"build_server_s": build_s, "warmup_s": server.warmup()}
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    host, port = "127.0.0.1", server.server_port
+    try:
+        t0 = time.perf_counter()
+        caps = serve.request_captions(host, port, arr, timeout=300.0)
+        srv["caption_256_s"] = time.perf_counter() - t0
+        require(caps == live.caption(arr), "aot serve: /caption != live")
+        by_id, srv["caption_ids_launches"] = aot_counted(
+            kernel, lambda: serve.request_caption_ids(host, port, bank.ids,
+                                                      timeout=300.0),
+            engaged, 1, maxlen, "aot serve /caption_ids")
+        require(by_id == live.caption(videos),
+                "aot serve: /caption_ids != live")
+        nbs = serve.request_nbest(host, port, arr[:16], timeout=300.0)
+        require([v[0][0] for v in nbs] == caps[:16],
+                "aot serve: /nbest entry 0 != /caption")
+        require([[t for t, _ in v] for v in nbs]
+                == [[t for t, _ in v] for v in live.nbest(arr[:16])],
+                "aot serve: /nbest != live n-best")
+        import http.client
+        conn = http.client.HTTPConnection(host, port, timeout=300)
+        conn.request("POST", "/swap_params",
+                     body=json.dumps({"path": swap_path}),
+                     headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        st, body = resp.status, json.loads(resp.read())
+        conn.close()
+        require(st == 200 and body["status"] == "swapped",
+                f"aot serve: /swap_params {st} {body}")
+        swapped = serve.request_captions(host, port, arr[:32],
+                                         timeout=300.0)
+        fresh = api.Captioner(new, cfg, vocab, device=dev)
+        require(swapped == fresh.caption(arr[:32]),
+                "aot serve: after the swap != a fresh Captioner")
+        require(swapped != caps[:32], "aot serve: the swap changed nothing")
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+    res["serve"] = srv
+    emit(res)
+    del served, server, live
+    torch.cuda.empty_cache()
+    res["path_b"] = aot_export_check(
+        api, kernel, dev, seed, params, vocab, cfg_q, root, "aot_int8_gates",
+        ("attention_core", "gates_lstm", "logit_tail"))
+    torch.cuda.empty_cache()
+    return res
 
 
 def simple_attention_step(kernel, step_mod):
@@ -2526,6 +2843,11 @@ def main() -> int:
         phase_profile(api, dev, params, vocab, args.seed, cfg, "profile")
         phase_profile(api, dev, params, vocab, args.seed, cfg_q,
                       "profile_int8_gates")
+    base = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(base, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=base) as root:
+        aot = phase_aot(api, kernel, dev, args.seed, params, vocab, cfg,
+                        cfg_q, root)
     del params
     torch.cuda.empty_cache()
 
@@ -2544,6 +2866,14 @@ def main() -> int:
         decode=dataclasses.replace(cfg_sp.decode, decode_batch=64))
     phase_kernel_vs_plain(api, kernel, step_mod, dev, args.seed, params_sp,
                           vocab, cfg_sp32, "kernel_vs_plain_spatial_f32")
+    # preset 2's artifact at decode batch 64 (cut for time)
+    with tempfile.TemporaryDirectory(dir=base) as root:
+        aot["spatial"] = aot_export_check(
+            api, kernel, dev, args.seed, params_sp, vocab,
+            cfg_sp.replace(decode=dataclasses.replace(cfg_sp.decode,
+                                                      decode_batch=64)),
+            root, "aot_spatial",
+            ("attention_core", "spatial_core", "logit_tail"))
     if args.profile:
         phase_profile(api, dev, params_sp, vocab, args.seed, cfg_sp,
                       "profile_spatial")
@@ -2623,6 +2953,16 @@ def main() -> int:
             "stvd/model/kernel.py:1032",
             msrvtt["train"]["launches"]["train_tail"],
             msrvtt["train_tail"]),
+        # kernels 1-4 as custom ops inside the loaded AOT graphs: 257
+        # videos at preset 3 (two chunks), path B and preset 2 (one each)
+        row("attention_core_aot", "attn_core.cu", "stvd/model/kernel.py:45",
+            aot["launches"]["attention_core"], attn),
+        row("logit_tail_aot", "logit_tail.cu", "stvd/model/kernel.py:593",
+            aot["launches"]["logit_tail"], tail),
+        row("gates_lstm_aot", "gates_lstm.cu", "stvd/model/kernel.py:854",
+            aot["path_b"]["launches"]["gates_lstm"], gates),
+        row("spatial_core_aot", "spatial_core.cu", "stvd/model/kernel.py:204",
+            aot["spatial"]["launches"]["spatial_core"], spatial),
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": info["name"],
                                  "count": info["count"]}})
