@@ -18,9 +18,11 @@ and id-addressed requests against a feature bank resident on the device
 ``cli.convert`` or of the port's ``cli.train`` (``from_run_dir``) and
 swaps in new weights of the same shapes between requests
 (``swap_params``).  The weights are an input of every decode call, so a
-swap is the assignment of a new dict.  Not ported: a bank sharded over
-several devices (``attach_bank(mesh=...)`` raises
-``NotImplementedError``).
+swap is the assignment of a new dict.  A bank too large for one device
+is sharded over a 1-D ``('data',)`` mesh of ranks
+(``attach_bank(bank, mesh=mesh)``, ``train.parallel``): every rank holds
+its share of the videos and calls each id request with the same
+arguments, and every rank gets every caption.
 """
 
 from __future__ import annotations
@@ -33,7 +35,7 @@ import numpy as np
 import torch
 
 from .config import Config, preset, validate
-from .data.bank import pack_bank, to_device
+from .data.bank import pack_bank, to_device, to_device_sharded
 from .data.text import Vocab
 from .decode.beam import beam_decode
 from .decode.greedy import greedy_decode
@@ -41,6 +43,7 @@ from .decode.sample import sample_decode
 from .model.decoder import StepFn
 from .model.kernel import get_step_fn
 from .model.step import compute_dtype
+from .train import parallel
 
 # the config and vocabulary a caller needs
 __all__ = ["BankResident", "Captioner", "Config", "Vocab",
@@ -158,6 +161,28 @@ def _check_swap_compatible(cur, new) -> None:
                 f"{tuple(cur[k].shape)} -> {tuple(new[k].shape)}")
 
 
+def _bank_local_gather(bank: Dict[str, torch.Tensor], rows: torch.Tensor,
+                       mesh, scatter: bool) -> Dict[str, torch.Tensor]:
+    """The row gather of a bank sharded over the data axis
+    (``to_device_sharded``; every rank calls it with the same global
+    ``rows``): each rank looks up the rows it owns, the others clamped to
+    a valid index and set to zero, and one sum over the axis a stream
+    assembles the chunk, only this rank's contiguous slice of it with
+    ``scatter`` (the chunk divides the axis; the JAX package's
+    ``psum_scatter``), all of it otherwise (its ``psum``)."""
+    start = parallel.axis_rank(mesh)
+    out = {}
+    for k, leaf in bank.items():
+        sn = leaf.shape[0]
+        local = rows - start * sn
+        mine = (local >= 0) & (local < sn)
+        g = leaf.index_select(0, local.clamp(0, sn - 1))
+        g = torch.where(mine.view((-1,) + (1,) * (g.dim() - 1)), g,
+                        torch.zeros((), dtype=g.dtype, device=g.device))
+        out[k] = parallel.sum_rows(g, mesh, scatter)
+    return out
+
+
 class BankResident:
     """Mixin: a feature bank resident on the device and captions of its
     videos by id.  Features are offline artifacts, so the bank belongs
@@ -167,19 +192,31 @@ class BankResident:
 
     _bank_dev: Optional[Dict[str, torch.Tensor]] = None
     _bank_index: Optional[Dict[str, int]] = None
+    _bank_mesh = None
 
     def attach_bank(self, bank, dtype: Optional[torch.dtype] = None,
                     mesh=None) -> int:
         """Copy a ``FeatureBank`` to the device once, its features in
         ``dtype`` (default: the compute dtype); returns the number of
-        resident videos.  The copy is ``to_device``'s cached one."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "a bank sharded over several devices is not ported yet "
-                "(ROADMAP.md Queue 1 item 8)")
+        resident videos.  The copy is ``to_device``'s cached one.
+
+        ``mesh`` (a 1-D ``('data',)`` mesh, ``parallel.make_mesh``)
+        shards the video rows over the ranks, for a bank larger than one
+        device holds: each rank keeps ``ceil(N / n)`` of them
+        (``to_device_sharded``), and every rank calls this and each later
+        id request with the same arguments.  A chunk of ids is gathered
+        by one sum over the ranks; a chunk that divides the axis is then
+        decoded data-parallel (each rank its slice, the tokens gathered),
+        any other chunk whole on every rank."""
+        dtype = dtype or compute_dtype(self.cfg.model)
+        if mesh is None:
+            dev = to_device(bank, self.device, dtype)
+        else:
+            parallel.check_data_mesh(mesh)
+            dev = to_device_sharded(bank, mesh, self.device, dtype)
         self._bank_index = bank.index()
-        self._bank_dev = to_device(bank, self.device,
-                                   dtype or compute_dtype(self.cfg.model))
+        self._bank_dev = dev
+        self._bank_mesh = mesh
         return bank.n_videos
 
     @property
@@ -226,6 +263,8 @@ class BankResident:
     def nbest_ids(self, ids: Sequence[str], n: Optional[int] = None,
                   norm: bool = True) -> List[List[tuple]]:
         """``caption_nbest`` of resident-bank videos by id."""
+        if self._bank_mesh is not None:
+            return self._nbest_rows(self._rows_for(ids), n=n, norm=norm)
         rows = torch.from_numpy(self._rows_for(ids)).to(self.device)
         batch = {k: v.index_select(0, rows)
                  for k, v in self._resident().items()}
@@ -321,8 +360,24 @@ class Captioner(BankResident):
 
     def _run_ids(self, params, bank: Dict[str, torch.Tensor],
                  rows: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        return self._run(params, {k: v.index_select(0, rows)
-                                  for k, v in bank.items()})
+        if self._bank_mesh is None:
+            return self._run(params, {k: v.index_select(0, rows)
+                                      for k, v in bank.items()})
+        return self._on_shards(self._run, params, bank, rows)
+
+    def _on_shards(self, run: Callable, params,
+                   bank: Dict[str, torch.Tensor], rows: torch.Tensor):
+        """``run(params, batch)`` over ``rows`` of the sharded bank: the
+        chunk is gathered (``_bank_local_gather``); one that divides the
+        data axis is decoded a slice a rank and its outputs gathered, any
+        other whole on every rank."""
+        mesh = self._bank_mesh
+        scatter = rows.shape[0] % parallel.axis_size(mesh) == 0
+        with torch.inference_mode():
+            out = run(params, _bank_local_gather(bank, rows, mesh, scatter))
+            if scatter:
+                out = tuple(parallel.all_gather_rows(t, mesh) for t in out)
+        return out
 
     def caption_batch(self, batch: Dict[str, torch.Tensor]) -> List[str]:
         """Caption a prepared device batch in ``decode_batch`` chunks."""
@@ -343,26 +398,57 @@ class Captioner(BankResident):
         best-beam selection uses, so entry 0 is ``caption()``'s caption;
         ``norm=False`` ranks by the raw log-prob.  The score given is the
         one ranked by."""
-        cfg = self.cfg
-        if cfg.decode.beam_size <= 1:
+        if self.cfg.decode.beam_size <= 1:
             raise ValueError("n-best export requires beam_size > 1")
         params = self.params
         res: List[List[tuple]] = []
-        for count, chunk in padded_chunks(batch, cfg.decode.decode_batch):
-            with torch.inference_mode():
-                out = beam_decode(params, cfg.model, chunk,
-                                  beam_size=cfg.decode.beam_size,
-                                  maxlen=cfg.decode.maxlen,
-                                  length_norm=cfg.decode.length_norm,
-                                  step_fn=self.step_fn)
-            toks = out.all_tokens[:count].cpu().numpy()
-            scores = (out.all_norm_scores if norm
-                      else out.all_scores)[:count].cpu().numpy()
-            k = n or toks.shape[1]
-            for b in range(count):
-                order = np.argsort(-scores[b])[:k]
-                res.append([(" ".join(self.vocab.decode(toks[b, j])),
-                             float(scores[b, j])) for j in order])
+        for count, chunk in padded_chunks(batch, self.cfg.decode.decode_batch):
+            toks, scores = self._nbest_decode(params, chunk, norm)
+            res += self._nbest_lists(toks[:count], scores[:count], n)
+        return res
+
+    def _nbest_decode(self, params, batch: Dict[str, torch.Tensor],
+                      norm: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Every hypothesis's tokens (B, beam, maxlen) and its score."""
+        cfg = self.cfg
+        with torch.inference_mode():
+            out = beam_decode(params, cfg.model, batch,
+                              beam_size=cfg.decode.beam_size,
+                              maxlen=cfg.decode.maxlen,
+                              length_norm=cfg.decode.length_norm,
+                              step_fn=self.step_fn)
+        return out.all_tokens, (out.all_norm_scores if norm
+                                else out.all_scores)
+
+    def _nbest_lists(self, toks: torch.Tensor, scores: torch.Tensor,
+                     n: Optional[int]) -> List[List[tuple]]:
+        toks, scores = toks.cpu().numpy(), scores.cpu().numpy()
+        k = n or toks.shape[1]
+        res = []
+        for b in range(toks.shape[0]):
+            order = np.argsort(-scores[b])[:k]
+            res.append([(" ".join(self.vocab.decode(toks[b, j])),
+                         float(scores[b, j])) for j in order])
+        return res
+
+    def _nbest_rows(self, rows: np.ndarray, n: Optional[int] = None,
+                    norm: bool = True) -> List[List[tuple]]:
+        """``nbest_ids`` over a sharded bank, in ``decode_batch`` chunks
+        of bank rows (short chunks repeat row 0), each run ``_on_shards``:
+        feature bytes never leave the device."""
+        if self.cfg.decode.beam_size <= 1:
+            raise ValueError("n-best export requires beam_size > 1")
+        bank = self._resident()
+        bsz = self.cfg.decode.decode_batch
+        res: List[List[tuple]] = []
+        for s in range(0, int(rows.shape[0]), bsz):
+            part = rows[s:s + bsz]
+            chunk = np.zeros(bsz, np.int64)
+            chunk[:len(part)] = part
+            toks, scores = self._on_shards(
+                lambda p, b: self._nbest_decode(p, b, norm), self.params,
+                bank, torch.from_numpy(chunk).to(self.device))
+            res += self._nbest_lists(toks[:len(part)], scores[:len(part)], n)
         return res
 
     def caption_sample(self, batch: Dict[str, torch.Tensor],

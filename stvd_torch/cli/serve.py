@@ -55,7 +55,8 @@ accepts requests.
 "aot"): weights are call-time inputs, so ``--params`` and /swap_params
 change them without re-export; quantization is baked in at export time
 (``--quant`` is refused).  Not ported: a bank sharded over several
-devices (``--bank-shards`` above 1) raises ``NotImplementedError``.
+devices (``--bank-shards`` above 1; a multi-rank daemon) raises
+``NotImplementedError`` (ROADMAP.md Queue 1 item 8c).
 
 ``request_captions`` is the matching client helper (raw wire format by
 default; ``wire='npz'`` for the portable container).
@@ -619,7 +620,7 @@ def _attach_bank(cap, bank_path: str, manifest: Dict,
     if shards and shards > 1:
         raise NotImplementedError(
             "--bank-shards above 1 (a bank sharded over several devices) "
-            "is not ported yet (ROADMAP.md Queue 1 item 8)")
+            "is not ported yet (ROADMAP.md Queue 1 item 8c)")
     n = cap.attach_bank(FeatureBank.load(bank_path))
     manifest["bank_videos"] = n
     manifest["bank_ids"] = cap.bank_ids

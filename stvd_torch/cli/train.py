@@ -11,9 +11,21 @@ train scan ``--set model.fused_seq_grad=false`` (with ``--set
 model.remat=true`` to recompute each step in the backward); both run
 the kernel step on a CUDA device (``--no-kernel``: the plain step).
 
-Runs on the card unless ``--device cpu``.  Data parallelism on one
-visible device is a single-device run; more devices, and
-``--model-parallel`` above 1, raise ``NotImplementedError``.
+Runs on the card unless ``--device cpu``.  Data parallelism
+(``--data-parallel``, or a config with ``train.data_parallel`` such as
+preset 5, ``msvd-dp``) runs over every rank that ``torchrun`` starts:
+
+    torchrun --nproc-per-node N -m stvd_torch.cli.train --preset msvd-dp
+    torchrun --nproc-per-node 2 -m stvd_torch.cli.train --preset msvd-dp \
+        --device cpu --set ...          # gloo on the CPU
+
+Each rank joins the process group from ``RANK``, ``WORLD_SIZE`` and
+``LOCAL_RANK`` (NCCL on ``cuda:LOCAL_RANK``, gloo on the CPU), and
+``fit`` trains over the 1-D data mesh (``--shard-map`` /
+``--no-shard-map`` pick the spelling of the update); rank 0 writes the
+run directory.  One process (no ``WORLD_SIZE`` above 1) is a
+single-device run.  ``--model-parallel`` above 1 raises
+``NotImplementedError`` (ROADMAP.md Queue 1 item 8b).
 """
 
 from __future__ import annotations
@@ -29,6 +41,7 @@ from . import device as cli_device
 from ..config import Config, preset, validate
 from ..data.corpus import load_splits
 from ..model.kernel import get_step_fn
+from ..train import parallel
 from ..train.loop import fit
 from ..utils.logging import MetricsLogger
 
@@ -64,10 +77,6 @@ def build_config(args) -> Config:
     return validate(apply_overrides(cfg, args.set))
 
 
-def _visible_devices(device: torch.device) -> int:
-    return torch.cuda.device_count() if device.type == "cuda" else 1
-
-
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--config", help="config json path")
@@ -83,16 +92,20 @@ def main(argv=None) -> int:
     ap.add_argument("--no-kernel", dest="use_kernel",
                     action="store_false", help="force the plain step")
     ap.add_argument("--data-parallel", action="store_true", default=None,
-                    help="shard the batch over all visible devices "
-                         "(default: cfg.train.data_parallel; one device "
+                    help="shard the batch over the ranks torchrun starts "
+                         "(default: cfg.train.data_parallel; one process "
                          "is a single-device run)")
     ap.add_argument("--no-data-parallel", dest="data_parallel",
                     action="store_false", help="force single-device")
     ap.add_argument("--shard-map", action="store_true", default=None,
-                    help="accepted for the JAX package's flags; no "
-                         "effect on one device")
+                    help="with data parallelism: gradients of the summed "
+                         "objective reduced, then divided (the JAX "
+                         "package's shard_map spelling; default: "
+                         "cfg.train.use_shard_map)")
     ap.add_argument("--no-shard-map", dest="shard_map",
-                    action="store_false")
+                    action="store_false",
+                    help="force the pjit spelling: each rank's gradient "
+                         "of the global mean loss, reduced")
     ap.add_argument("--model-parallel", type=int, default=None,
                     metavar="N",
                     help="tensor parallelism over N devices (default: "
@@ -110,31 +123,40 @@ def main(argv=None) -> int:
     if mp > 1:
         raise NotImplementedError(
             "model parallelism is not ported yet (ROADMAP.md Queue 1 "
-            "item 8)")
-    if dp and _visible_devices(device) > 1:
-        raise NotImplementedError(
-            "data parallelism over several devices is not ported yet "
-            "(ROADMAP.md Queue 1 item 8); make one device visible")
+            "item 8b)")
+    mesh = None
+    if dp and int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        mesh = parallel.make_mesh(device.type)
+        if device.type == "cuda":
+            device = torch.device("cuda", torch.cuda.current_device())
+    writer = parallel.axis_rank(mesh) == 0
     os.makedirs(cfg.train.save_dir, exist_ok=True)
-    with open(os.path.join(cfg.train.save_dir, "config.json"), "w") as f:
-        f.write(cfg.to_json())
+    if writer:
+        with open(os.path.join(cfg.train.save_dir, "config.json"),
+                  "w") as f:
+            f.write(cfg.to_json())
 
     splits = load_splits(cfg)
-    # persist the vocab next to checkpoints (Captioner.from_run_dir)
-    splits["train"].vocab.save_pickle(
-        os.path.join(cfg.train.save_dir, "vocab.pkl"))
+    if writer:
+        # persist the vocab next to checkpoints (Captioner.from_run_dir)
+        splits["train"].vocab.save_pickle(
+            os.path.join(cfg.train.save_dir, "vocab.pkl"))
     step_fn = get_step_fn(args.use_kernel, device)
-    logger = MetricsLogger(cfg.train.save_dir,
-                           tensorboard=cfg.train.tensorboard)
+    logger = (MetricsLogger(cfg.train.save_dir,
+                            tensorboard=cfg.train.tensorboard)
+              if writer else None)
     try:
         result = fit(cfg, splits["train"], splits.get("valid"),
-                     step_fn=step_fn, logger=logger,
+                     step_fn=step_fn, mesh=mesh, logger=logger,
                      max_updates=args.max_updates,
+                     use_shard_map=args.shard_map,
                      test_ds=splits.get("test"), device=device)
-        logger.log("done", best_metric=result.best_metric,
-                   best_step=result.best_step)
+        if writer:
+            logger.log("done", best_metric=result.best_metric,
+                       best_step=result.best_step)
     finally:
-        logger.close()
+        if writer:
+            logger.close()
     return 0
 
 

@@ -10,7 +10,8 @@ packs per-video feature arrays once into dense arrays
 
 and ``to_device`` puts them on a torch device, once per (device, dtype),
 from which a training batch is an ``index_select`` gather
-(``batching.gather_batch``).
+(``batching.gather_batch``); ``to_device_sharded`` puts one rank's share
+of the video rows on its device, for a bank split over a data mesh.
 """
 
 from __future__ import annotations
@@ -180,4 +181,42 @@ def to_device(bank: FeatureBank, device: torch.device | str,
     if bank.motion is not None:
         out["motion"] = put(bank.motion, True)
     cache[key] = out
+    return out
+
+
+def to_device_sharded(bank: FeatureBank, mesh, device: torch.device | str,
+                      dtype: Optional[torch.dtype] = None
+                      ) -> Dict[str, torch.Tensor]:
+    """This rank's shard of the bank's video rows over the 1-D
+    ``('data',)`` mesh (``train.parallel``): with N videos over n ranks
+    and ``sn = ceil(N / n)``, rank r holds rows ``[r*sn, (r+1)*sn)`` of
+    the bank zero-padded to ``n*sn`` rows, so every shard has ``sn``
+    rows; padded rows are never addressed (ids are checked against the
+    real index).  Streams as in ``to_device``; cached on the bank per
+    (device, dtype, axis size, rank) like ``to_device``.  Every rank
+    calls this; nothing crosses between ranks."""
+    from ..train import parallel
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    n, r = parallel.axis_size(mesh), parallel.axis_rank(mesh)
+    key = ("sharded", dev, dtype, n, r)
+    if key in bank._dev_cache:
+        return bank._dev_cache[key]
+    sn = -(-bank.n_videos // n)
+    lo, hi = min(r * sn, bank.n_videos), min((r + 1) * sn, bank.n_videos)
+
+    def put(x, cast: bool):
+        part = np.zeros((sn,) + x.shape[1:], x.dtype)
+        part[:hi - lo] = x[lo:hi]
+        return torch.from_numpy(part).to(device=dev,
+                                         dtype=dtype if cast else None)
+
+    out = {"frames": put(bank.frames, True),
+           "frame_mask": put(bank.frame_mask, False)}
+    if bank.regions is not None:
+        out["regions"] = put(bank.regions, True)
+    if bank.motion is not None:
+        out["motion"] = put(bank.motion, True)
+    bank._dev_cache[key] = out
     return out

@@ -49,7 +49,9 @@ live ``Captioner``.  Unlike the live loop, the graph has no early exit:
 it runs all ``maxlen`` steps, which gives the same tokens and scores (a
 finished caption only extends with EOS, at no cost).  Not ported: graphs
 sharded over several devices (``data_parallel``, ``model_parallel``,
-``mesh=``) raise ``NotImplementedError``.
+``mesh=``) and a bank sharded under an artifact
+(``ExportedCaptioner.attach_bank(mesh=...)``) raise
+``NotImplementedError`` (ROADMAP.md Queue 1 item 8c).
 """
 
 from __future__ import annotations
@@ -74,7 +76,7 @@ FORMAT = "stvd-torch-aot-decode-v1"
 JAX_FORMAT = "stvd-aot-decode-v1"
 PLATFORMS = ("cuda", "cpu")
 _PARALLEL = ("graphs sharded over several devices are not ported yet "
-             "(ROADMAP.md Queue 1 item 8)")
+             "(ROADMAP.md Queue 1 item 8c)")
 
 
 def _decode_run_fn(cfg: Config, step_fn):
@@ -410,6 +412,14 @@ class ExportedCaptioner(_api.BankResident):
         self.vocab = vocab
         self.manifest = manifest or {}
         self.params = self._on_device(params)
+
+    def attach_bank(self, bank, dtype: Optional[torch.dtype] = None,
+                    mesh=None) -> int:
+        """``BankResident.attach_bank`` on one device: a bank sharded
+        under an artifact comes with sharded artifacts (item 8c)."""
+        if mesh is not None:
+            raise NotImplementedError(_PARALLEL)
+        return super().attach_bank(bank, dtype)
 
     def _on_device(self, params) -> Dict[str, torch.Tensor]:
         """float32 weights on the device, in key order: the graphs take

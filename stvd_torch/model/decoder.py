@@ -152,8 +152,8 @@ def _ss_coins(generator: torch.Generator, ss_prob: float, batch: int,
     b the model's own previous prediction where entry (t, b) is True (the
     counterpart of JAX's per-step ``bernoulli`` draws; the CPU tests
     replace this function with those draws)."""
-    return torch.rand((steps, batch), generator=generator,
-                      device=device) < ss_prob
+    return step_mod.rand_rows((steps, batch), 1, generator,
+                              device) < ss_prob
 
 
 def _scan(body, carry, xs, remat: bool):
@@ -252,7 +252,7 @@ def forward_train(params: Params, cfg, batch: Dict[str, torch.Tensor],
         coins = _ss_coins(generator, ss_prob, b, t_len, dev)
         use_model = coins & (torch.arange(t_len, device=dev) > 0)[:, None]
         keep = (step_mod.dropout_keep(cfg, (t_len, b, cfg.dim_word),
-                                      generator, dev)
+                                      generator, dev, batch_axis=1)
                 if cfg.use_dropout and train else None)
         wemb = params["Wemb"]
 

@@ -20,11 +20,18 @@ parameters as a dict keyed by the JAX names.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
 Params = Dict[str, torch.Tensor]
+
+# (global rows, this rank's first row) of a data-parallel batch while
+# ``global_rows`` holds; None on one device
+_GLOBAL_ROWS: contextvars.ContextVar = contextvars.ContextVar(
+    "global_rows", default=None)
 
 _NEG_INF = -1e30
 
@@ -433,11 +440,41 @@ def topk_rows(x: torch.Tensor, k: int
     return vals[..., :k], idx[..., :k]
 
 
-def dropout_keep(cfg, shape, generator: torch.Generator, device
-                 ) -> torch.Tensor:
+@contextlib.contextmanager
+def global_rows(total: int, start: int):
+    """Within the block, every random draw of the train forward (dropout
+    masks, scheduled-sampling coins) is made for a batch of ``total`` rows
+    and cut to this rank's rows from ``start``: a data-parallel rank then
+    draws what the single-device update over the global batch draws, and
+    the ranks' generators stay in step."""
+    token = _GLOBAL_ROWS.set((total, start))
+    try:
+        yield
+    finally:
+        _GLOBAL_ROWS.reset(token)
+
+
+def rand_rows(shape, batch_axis: int, generator: torch.Generator, device
+              ) -> torch.Tensor:
+    """``torch.rand(shape)`` from ``generator``, drawn for the global
+    batch along ``batch_axis`` inside ``global_rows`` and cut to this
+    rank's rows."""
+    rows = _GLOBAL_ROWS.get()
+    if rows is None:
+        return torch.rand(shape, generator=generator, device=device)
+    total, start = rows
+    full = list(shape)
+    full[batch_axis] = total
+    return torch.rand(full, generator=generator, device=device).narrow(
+        batch_axis, start, shape[batch_axis])
+
+
+def dropout_keep(cfg, shape, generator: torch.Generator, device,
+                 batch_axis: int = 0) -> torch.Tensor:
     """The train dropout's keep mask (True = kept, with probability
-    ``1 - cfg.dropout_rate``), drawn from ``generator``."""
-    return (torch.rand(shape, generator=generator, device=device)
+    ``1 - cfg.dropout_rate``), drawn from ``generator`` (``rand_rows``:
+    the batch on axis ``batch_axis``)."""
+    return (rand_rows(shape, batch_axis, generator, device)
             < 1.0 - cfg.dropout_rate)
 
 

@@ -1,6 +1,8 @@
 """The training loop (counterpart of stvd/train/loop.py): optimizers, the
 train step, validation by NLL and caption metrics, model selection,
-checkpointing and early stopping, on one device.
+checkpointing and early stopping, on one device or data-parallel over a
+1-D ``('data',)`` mesh (``train.parallel``; every rank calls ``fit`` and
+the train step with the same arguments).
 
 The optimizers follow the JAX package's ``make_optimizer``, which uses
 optax: each is a pair of functions ``init(params) -> state`` and
@@ -13,6 +15,7 @@ float32 master parameters in place.  Global-norm clipping is optax's
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 import os
@@ -28,10 +31,11 @@ from ..data.batching import (BatchIterator, BucketedBatchIterator, Dataset,
 from ..decode.greedy import greedy_decode
 from ..model.decoder import init_params
 from ..model.kernel import get_step_fn
-from ..model.step import Params, compute_dtype
+from ..model.step import Params, compute_dtype, global_rows
 from ..utils.debug import enable_nan_debug, grad_stats, report_bad_grads
 from ..utils.logging import MetricsLogger
 from ..utils.profiling import StepTimer, start_trace
+from . import parallel
 from .evaluate import evaluate_split
 from .loss import loss_from_terms, loss_terms
 
@@ -230,7 +234,11 @@ def _check_finite(loss: torch.Tensor, grads: Tensors) -> None:
                              f"(loss {float(loss.detach())})")
 
 
-def make_train_step(mcfg, tcfg, step_fn=None
+_TERMS = ("nll_num", "ex_den", "tok_den", "reg_num")
+
+
+def make_train_step(mcfg, tcfg, step_fn=None, mesh=None,
+                    use_shard_map: bool = False
                     ) -> Callable[[TrainState, Dict[str, torch.Tensor]],
                                   Tuple[TrainState, Dict[str, torch.Tensor]]]:
     """``train_step(state, batch) -> (state, metrics)``: loss and
@@ -243,24 +251,76 @@ def make_train_step(mcfg, tcfg, step_fn=None
     weighted-mean divide (the full-batch gradient, with one microbatch's
     activations alive at a time).  With ``tcfg.debug_nans`` a non-finite
     loss or gradient raises FloatingPointError.  Metrics stay on the
-    device: loss, nll, nll_per_token, grad_norm (before clipping)."""
+    device: loss, nll, nll_per_token, grad_norm (before clipping).
+
+    With a ``mesh`` (1-D ``('data',)``, ``parallel.make_mesh``) every rank
+    calls ``train_step`` with the replicated state and its own slice of
+    the global batch (``parallel.shard_batch``), and all ranks make the
+    same update, the single-device update over the global batch: each
+    rank's dropout masks and coins are the global batch's, cut to its
+    rows (``global_rows``), and one flat ``all_reduce`` sums the
+    gradients and the four loss terms before the optimizer, whose
+    clipping and ``grad_norm`` see the reduced gradient.
+    ``use_shard_map=True`` is the JAX package's explicit-collective
+    spelling: gradients of the summed objective, reduced, then divided by
+    the global example weight.  ``use_shard_map=False`` is its pjit
+    spelling: each rank's gradient of the global mean loss over its rows
+    (the global example weight is reduced first), then reduced.  Both
+    give the same update.  ``grad_accum > 1`` with a mesh raises, as in
+    the JAX package."""
     opt = make_optimizer(tcfg)
     n_acc = tcfg.grad_accum
+    if n_acc > 1 and mesh is not None:
+        raise ValueError("grad_accum is the single-device memory lever; "
+                         "with a mesh, shard the batch instead")
+    if mesh is not None:
+        parallel.check_data_mesh(mesh)
+    n_data, rank = parallel.axis_size(mesh), parallel.axis_rank(mesh)
 
     def terms_of(params, batch, gen):
-        return loss_terms(params, mcfg, batch, generator=gen, train=True,
-                          ss_prob=tcfg.ss_prob, step_fn=step_fn)
+        b = batch["tokens"].shape[0]
+        with (contextlib.nullcontext() if mesh is None
+              else global_rows(b * n_data, rank * b)):
+            return loss_terms(params, mcfg, batch, generator=gen,
+                              train=True, ss_prob=tcfg.ss_prob,
+                              step_fn=step_fn)
 
     def objective(params, batch, gen):
         t = terms_of(params, batch, gen)
         return t["nll_num"] + mcfg.alpha_c * t["reg_num"], t
+
+    def data_parallel(params, batch, gen):
+        """Reduced gradients, loss and aux of the global batch."""
+        if use_shard_map:
+            obj, t = objective(params, batch, gen)
+            grads = _grads(obj, params)
+        else:
+            w = batch.get("weight")
+            ex = (w.sum() if w is not None
+                  else torch.tensor(float(batch["tokens"].shape[0]),
+                                    device=batch["tokens"].device))
+            den = parallel.all_reduce_flat([ex], mesh)[0].clamp_min(1.0)
+            obj, t = objective(params, batch, gen)
+            grads = _grads(obj / den, params)
+        keys = sorted(grads)
+        summed = parallel.all_reduce_flat(
+            [grads[k] for k in keys] + [t[k] for k in _TERMS], mesh)
+        grads = dict(zip(keys, summed[:len(keys)]))
+        terms = dict(zip(_TERMS, summed[len(keys):]))
+        if use_shard_map:
+            den = terms["ex_den"].clamp_min(1.0)
+            grads = {k: g / den for k, g in grads.items()}
+        loss, aux = loss_from_terms(terms, mcfg)
+        return grads, loss, aux
 
     def train_step(state: TrainState, batch):
         params = state["params"]
         for p in params.values():
             p.requires_grad_(True)
         gen = state["generator"]
-        if n_acc > 1:
+        if mesh is not None:
+            grads, loss, aux = data_parallel(params, batch, gen)
+        elif n_acc > 1:
             mbs = batch["tokens"].shape[0] // n_acc
             grads = terms = None
             for i in range(n_acc):
@@ -379,9 +439,11 @@ class FitResult:
 
 
 def _emit(logger, record: Dict) -> Dict:
-    """One record through ``logger`` (a ``MetricsLogger``); returns it."""
-    logger.log(record["kind"],
-               **{k: v for k, v in record.items() if k != "kind"})
+    """One record through ``logger`` (a ``MetricsLogger``; None on a
+    data-parallel rank other than 0, which writes nothing); returns it."""
+    if logger is not None:
+        logger.log(record["kind"],
+                   **{k: v for k, v in record.items() if k != "kind"})
     return record
 
 
@@ -397,14 +459,16 @@ def perplexity(nll_per_token: float) -> float:
 
 
 def _validate(params: Params, cfg, ds: Dataset, step_fn, update: int,
-              split: str, device, logger) -> Dict[str, float]:
+              split: str, device, logger, mesh=None) -> Dict[str, float]:
     """NLL and the caption metrics of a split, as one record of kind
-    ``split``; the samples files go to ``save_dir``."""
+    ``split``; the samples files go to ``save_dir``.  With a mesh the
+    captions are decoded data-parallel; the NLL pass runs whole on every
+    rank, as in the JAX package."""
     nll = evaluate_nll(params, cfg.model, ds, cfg.train.valid_batch_size,
                        step_fn, device=device)
     scores = evaluate_split(params, cfg, ds, split=split,
                             save_dir=cfg.train.save_dir, step_fn=step_fn,
-                            device=device)
+                            mesh=mesh, device=device)
     scores["nll"] = nll
     _emit(logger, {"kind": split, "update": update, **scores})
     return scores
@@ -430,7 +494,9 @@ def _print_samples(params: Params, cfg, ds: Dataset, dev_bank, step_fn,
 
 
 def fit(cfg, train_ds: Dataset, valid_ds: Optional[Dataset] = None,
-        step_fn=None, *, logger=None, max_updates: Optional[int] = None,
+        step_fn=None, mesh=None, *, logger=None,
+        max_updates: Optional[int] = None,
+        use_shard_map: Optional[bool] = None,
         test_ds: Optional[Dataset] = None,
         device: torch.device | str = "cuda") -> FitResult:
     """Train until ``max_epochs``, ``max_updates`` or early stopping on
@@ -470,15 +536,43 @@ def fit(cfg, train_ds: Dataset, valid_ds: Optional[Dataset] = None,
     update's loss and gradients, so a NaN in training raises.  Unlike
     ``jax_debug_nans``, which the JAX package leaves on for the process,
     the switch holds for this call only: ``fit`` restores the anomaly
-    mode it found."""
+    mode it found.
+
+    With a ``mesh`` (1-D ``('data',)``) every rank calls ``fit`` with the
+    same arguments and ``device`` its own device.  ``per_device_batch``
+    > 0 sets the global batch to that times the data-axis size, which
+    must divide it.  The state is replicated from rank 0; every rank
+    walks the same seeded batch order and gathers only its rows, and the
+    update is ``make_train_step(..., mesh, use_shard_map)``'s (default
+    ``train.use_shard_map``).  Validation decodes data-parallel
+    (``evaluate_split(..., mesh)``) and every rank takes rank 0's metric,
+    so all reach the same decisions.  Rank 0 alone writes records,
+    samples, checkpoints and the profile; ``logger`` is used on rank 0
+    only."""
     tcfg, mcfg = cfg.train, cfg.model
+    if use_shard_map is None:
+        use_shard_map = tcfg.use_shard_map
+    n_data = parallel.axis_size(mesh)
+    if mesh is not None and tcfg.per_device_batch > 0:
+        # a per-device batch keeps one config valid on any mesh size
+        tcfg = dataclasses.replace(
+            tcfg, batch_size=tcfg.per_device_batch * n_data)
+    if mesh is not None and tcfg.batch_size % n_data:
+        raise ValueError(
+            f"batch_size {tcfg.batch_size} must be divisible by the mesh "
+            f"data-axis size {n_data} (static data-parallel sharding)")
+    writer = parallel.axis_rank(mesh) == 0
     if step_fn is None:
         step_fn = get_step_fn(None, device)
     os.makedirs(tcfg.save_dir, exist_ok=True)
-    own_logger = logger is None
+    own_logger = logger is None and writer
     if own_logger:
         logger = MetricsLogger(tcfg.save_dir, tensorboard=tcfg.tensorboard)
+    elif not writer:
+        logger = None
     state = init_train_state(tcfg.seed, mcfg, tcfg, device)
+    if mesh is not None:
+        parallel.replicate(state, mesh)
     metric_name = tcfg.metric
     key = _metric_key(metric_name)
     bigger_is_better = metric_name != "nll"
@@ -497,8 +591,9 @@ def fit(cfg, train_ds: Dataset, valid_ds: Optional[Dataset] = None,
     if reload:
         _emit(logger, {"kind": "reload", "step": state["step"],
                        "best": float(best), "bad_rounds": fs["bad_rounds"]})
-    train_step = make_train_step(mcfg, tcfg, step_fn)
+    train_step = make_train_step(mcfg, tcfg, step_fn, mesh, use_shard_map)
     dev = to_device(train_ds.bank, device, compute_dtype(mcfg))
+    rows = parallel.local_slice(tcfg.batch_size, mesh)
     if tcfg.length_buckets:
         buckets = parse_buckets(tcfg.length_buckets)
         if max(buckets) < tcfg.maxlen:
@@ -521,12 +616,14 @@ def fit(cfg, train_ds: Dataset, valid_ds: Optional[Dataset] = None,
                 break
             for item in it.epoch():
                 # a bucketed batch also gives its bucket's length
-                idx, w = item[0], item[1]
+                # every rank draws the same order, then takes its rows
+                idx, w = item[0][rows], item[1][rows]
                 t_b = item[2] if len(item) == 3 else 0
                 batch = gather_batch(dev, train_ds.captions, idx,
                                      seq_len=t_b)
                 batch["weight"] = torch.from_numpy(w).to(device)
-                if tcfg.profile_dir and update == tcfg.profile_start:
+                if (tcfg.profile_dir and update == tcfg.profile_start
+                        and writer):
                     # trace the next profile_steps updates
                     prof = start_trace(tcfg.profile_dir)
                 state, m = train_step(state, batch)
@@ -548,23 +645,27 @@ def fit(cfg, train_ds: Dataset, valid_ds: Optional[Dataset] = None,
                     if rate:
                         rec["steps_per_sec"] = round(rate, 2)
                     log.append(_emit(logger, rec))
-                if tcfg.sample_freq > 0 and update % tcfg.sample_freq == 0:
+                if (tcfg.sample_freq > 0 and update % tcfg.sample_freq == 0
+                        and writer):
                     _print_samples(state["params"], cfg, train_ds, dev,
                                    step_fn, update, logger)
                 if (tcfg.valid_freq > 0 and update % tcfg.valid_freq == 0
                         and valid_ds is not None):
                     scores = _validate(state["params"], cfg, valid_ds,
                                        step_fn, update, "valid", device,
-                                       logger)
+                                       logger, mesh)
                     if test_ds is not None:
                         _validate(state["params"], cfg, test_ds, step_fn,
-                                  update, "test", device, logger)
+                                  update, "test", device, logger, mesh)
                     val = scores[key]
+                    if mesh is not None:
+                        val = parallel.broadcast_value(val, mesh)
                     fs["history"].append({"update": update, **scores})
                     if (val > best) if bigger_is_better else (val < best):
                         best = val
                         fs.update(best=val, best_step=update, bad_rounds=0)
-                        save_checkpoint(best_ckpt, state, fs)
+                        if writer:
+                            save_checkpoint(best_ckpt, state, fs)
                         _emit(logger, {"kind": "best", "update": update,
                                        "metric": metric_name, "value": val})
                     else:
@@ -575,7 +676,8 @@ def fit(cfg, train_ds: Dataset, valid_ds: Optional[Dataset] = None,
                                 "bad_rounds": fs["bad_rounds"]})
                             stop = True
                             break
-                if tcfg.save_freq > 0 and update % tcfg.save_freq == 0:
+                if (tcfg.save_freq > 0 and update % tcfg.save_freq == 0
+                        and writer):
                     save_checkpoint(ckpt, state, fs)
                 if max_updates is not None and update >= max_updates:
                     stop = True
@@ -588,7 +690,8 @@ def fit(cfg, train_ds: Dataset, valid_ds: Optional[Dataset] = None,
             prof.stop()
         if nan_debug is not None:
             nan_debug.__exit__()
-    save_checkpoint(ckpt, state, fs)
+    if writer:
+        save_checkpoint(ckpt, state, fs)
     if own_logger:
         logger.close()
     return FitResult(best_metric=float(best), best_step=fs["best_step"],

@@ -317,8 +317,17 @@ def test_bank_errors_match_jax():
 
 
 def test_sharded_bank_is_not_ported():
-    with pytest.raises(NotImplementedError, match="item 8"):
-        port_captioner().attach_bank(bank_of(request(n=2)), mesh=object())
+    """A bank sharded over a 1-D ('data',) mesh is ported
+    (tests/test_torch_parallel.py); over any other mesh, such as a 2-D
+    (data x model) one, it comes with the model axis, item 8b."""
+    class Mesh2D:
+        mesh_dim_names = ("data", "model")
+
+    cap = port_captioner()
+    for mesh in (object(), Mesh2D()):
+        with pytest.raises(NotImplementedError, match="item 8b"):
+            cap.attach_bank(bank_of(request(n=2)), mesh=mesh)
+    assert cap.bank_ids == []
 
 
 def test_swap_params_matches_a_fresh_captioner():

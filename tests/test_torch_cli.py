@@ -30,6 +30,7 @@ from stvd_torch.cli import sample as tsample
 from stvd_torch.cli import score as tscore
 from stvd_torch.cli import train as ttrain
 from stvd_torch.config import Config, DecodeConfig
+from stvd_torch.train import loop as tloop
 
 from conftest import small_cfg
 from test_torch_step import numpy_params
@@ -399,8 +400,11 @@ def test_build_config_of_a_recipe_matches_jax():
     (["train.model_parallel=2"], "model parallelism"),
     ([], None)])
 def test_train_cli_parallel_flags(tmp_path, sets, what, monkeypatch):
-    """Data parallelism on one visible device is a single-device run;
-    tensor parallelism raises with the queue item that brings it."""
+    """Data parallelism in one process is a single-device run; under a
+    launcher (``WORLD_SIZE`` above 1) it trains over the data mesh, with
+    the spelling of ``--shard-map``; tensor parallelism raises with the
+    queue item that brings it (8b).  Runs over real ranks:
+    tests/test_torch_parallel.py."""
     d = str(tmp_path / "r")
     flags = TRAIN_FLAGS + ["--set", f"train.save_dir={d}",
                            "--set", "train.valid_freq=0",
@@ -410,13 +414,30 @@ def test_train_cli_parallel_flags(tmp_path, sets, what, monkeypatch):
     for s in sets:
         flags += ["--set", s]
     if what:
-        with pytest.raises(NotImplementedError, match="item 8"):
+        with pytest.raises(NotImplementedError, match="item 8b"):
             ttrain.main(flags)
         return
     assert ttrain.main(flags) == 0
-    monkeypatch.setattr(ttrain, "_visible_devices", lambda device: 2)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        ttrain.main(flags)
+
+    class Mesh:
+        mesh_dim_names = ("data",)
+
+        def get_local_rank(self, name):
+            return 0
+
+    seen = {}
+
+    def fit(cfg, train_ds, valid_ds=None, step_fn=None, mesh=None, **kw):
+        seen.update(mesh=mesh, **kw)
+        return tloop.FitResult(0.0, 0, [], {})
+
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    monkeypatch.setattr(ttrain.parallel, "make_mesh",
+                        lambda devices=None, backend=None: Mesh())
+    monkeypatch.setattr(ttrain, "fit", fit)
+    assert ttrain.main(flags + ["--shard-map"]) == 0
+    assert isinstance(seen["mesh"], Mesh)
+    assert seen["use_shard_map"] is True
 
 
 def test_train_run_maps_bad_config_to_exit_2(monkeypatch, capsys):

@@ -43,7 +43,7 @@ def test_port_imports_neither_jax_nor_stvd():
         "for n in ('cli.train', 'cli.sample', 'cli.score', 'cli.convert',\n"
         "          'cli.serve', 'utils.logging', 'utils.profiling',\n"
         "          'utils.debug', 'decode.sample', 'model.importer',\n"
-        "          'export_aot', 'cli.export'):\n"
+        "          'export_aot', 'cli.export', 'train.parallel'):\n"
         "    assert 'stvd_torch.' + n in names, n\n"
         "from stvd_torch.metrics.scorer import score_all\n"
         "s = score_all({'a': ['a man is running']}, {'a': ['men run']},\n"

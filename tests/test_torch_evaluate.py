@@ -177,8 +177,9 @@ def jax_rounds(monkeypatch):
     real = tloop.evaluate_split
 
     def both(params, cfg, ds, split="valid", save_dir=None, step_fn=None,
-             *, device="cuda"):
-        got = real(params, cfg, ds, split, save_dir, step_fn, device=device)
+             mesh=None, *, device="cuda"):
+        got = real(params, cfg, ds, split, save_dir, step_fn, mesh,
+                   device=device)
         p = params_to_numpy(params)
         jds = rounds_datasets[split]
         want = jevaluate.evaluate_split(
@@ -242,8 +243,8 @@ def test_fit_uses_length_buckets(tmp_path, monkeypatch):
     lengths = []
     real = tloop.make_train_step
 
-    def spy(mcfg, tcfg, step_fn=None):
-        step = real(mcfg, tcfg, step_fn)
+    def spy(mcfg, tcfg, step_fn=None, mesh=None, use_shard_map=False):
+        step = real(mcfg, tcfg, step_fn, mesh, use_shard_map)
 
         def train_step(state, batch):
             lengths.append(batch["tokens"].shape[1])

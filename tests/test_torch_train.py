@@ -489,8 +489,9 @@ def test_interrupted_fit_keeps_its_progress(tmp_path, monkeypatch):
     ds = synthetic_dataset(n_videos=6, k=6, d=32, maxlen=MAXLEN, seed=0)
     real = tloop.make_train_step
 
-    def interrupted(mcfg, tcfg, step_fn=None):
-        step = real(mcfg, tcfg, step_fn)
+    def interrupted(mcfg, tcfg, step_fn=None, mesh=None,
+                    use_shard_map=False):
+        step = real(mcfg, tcfg, step_fn, mesh, use_shard_map)
 
         def train_step(state, batch):
             if state["step"] == 3:
@@ -518,16 +519,18 @@ def test_interrupted_fit_keeps_its_progress(tmp_path, monkeypatch):
 
 
 def test_fit_takes_the_jax_positional_order(tmp_path):
-    """``fit(cfg, train_ds, valid_ds, step_fn)`` binds as in the JAX
-    package: the 4th positional parameter is the decode step, and the
-    run options are keyword-only, so a caller written for the reference
-    cannot pass a step function as ``max_updates``."""
+    """``fit(cfg, train_ds, valid_ds, step_fn, mesh)`` binds as in the
+    JAX package: the 4th positional parameter is the decode step, the 5th
+    the data mesh, and the run options are keyword-only, so a caller
+    written for the reference cannot pass a step function as
+    ``max_updates``."""
     import inspect
-    jpos = list(inspect.signature(jloop.fit).parameters)[:4]
+    jpos = list(inspect.signature(jloop.fit).parameters)[:5]
     params = inspect.signature(tloop.fit).parameters
     tpos = [n for n, p in params.items()
             if p.kind == p.POSITIONAL_OR_KEYWORD]
-    assert tpos == jpos == ["cfg", "train_ds", "valid_ds", "step_fn"]
+    assert tpos == jpos == ["cfg", "train_ds", "valid_ds", "step_fn",
+                            "mesh"]
     for name in ("max_updates", "device"):
         assert params[name].kind == inspect.Parameter.KEYWORD_ONLY
     ds = synthetic_dataset(n_videos=4, k=6, d=32, maxlen=MAXLEN, seed=0)
