@@ -53,7 +53,16 @@ vocab 13056, bf16):
   without the frame-LSTM encoder, the kernel step against the plain
   step, a training update and float32 gradients of kernel and plain
   paths, ``cli.convert --motion`` and ``cli.serve`` with the motion bank
-  resident.
+  resident;
+* preset 5 (``msvd-dp``, ``data_parallel``) on two ranks that share the
+  card over gloo (spawned processes; NCCL refuses two ranks on one
+  card): data-parallel training in both spellings of
+  ``make_train_step(..., mesh, use_shard_map)`` (ranks equal bit for
+  bit, the float32 update equal to one process's), ``cli.train
+  --data-parallel``, the validation decode split over the ranks and a
+  bank sharded over them (``caption_ids``, ``nbest_ids``), every caption
+  equal to the single-device decode at the same decode shape.  Its
+  times are of two ranks sharing one card: no scaling figure.
 
 Each path's kernel launches are counted from zero over its run: those of
 the path must equal its decode steps (serving and the entry points; the
@@ -101,6 +110,7 @@ import torch
 NAME = "msvd-beam"     # preset 3: the serving path bench.py measures
 SPATIAL = "msvd-spatial"   # preset 2: the model the paper is named for
 MSRVTT = "msrvtt-fused"    # preset 4: appearance + motion, ctx 2048
+DP = "msvd-dp"             # preset 5: data-parallel training
 KERNEL_TOL = 1e-4      # float32 sums over A=1024 / K=28 / dw=512 in another order
 INT8_TOL = 1e-5        # int32 sums are exact; only the pointwise math differs
 TRAIN_BF16_TOL = 1e-2  # of the largest entry: one bf16 ulp of tanh may flip
@@ -2352,6 +2362,21 @@ def iid_features(b, dev, seed) -> None:
             b[key] = torch.randn(b[key].shape, generator=gen, device=dev)
 
 
+@torch.no_grad()
+def fan_in_weights(params, dev, seed) -> None:
+    """Every weight redrawn (in place) at the tests' scale: normal over
+    sqrt(fan-in) for a matrix, 0.5 normal for a vector.  At the 0.01 init
+    the attention scores are near zero, so b_att and Wd_att, which add
+    the same to every frame's score before a near-linear tanh, get a
+    gradient that cancels to ~1e-8 of the largest: any change of
+    summation order then moves it by 1e-4 of itself."""
+    gen = torch.Generator(device=dev).manual_seed(seed + 4)
+    for p in params.values():
+        p.copy_(torch.randn(p.shape, generator=gen, device=dev)
+                / (p.shape[0] ** 0.5) if p.dim() >= 2
+                else 0.5 * torch.randn(p.shape, generator=gen, device=dev))
+
+
 def loss_grads(params, mcfg, b, step_fn=None, ss_prob=0.0, seed=0):
     """(loss, {name: gradient}, seconds) of one loss at train=False; the
     scheduled-sampling coins come from a generator seeded ``seed``."""
@@ -2368,19 +2393,22 @@ def loss_grads(params, mcfg, b, step_fn=None, ss_prob=0.0, seed=0):
             time.perf_counter() - t0)
 
 
+def leaf_gaps(got, ref) -> dict:
+    """Per parameter, max|got - ref| over max|ref| (gradients, weights
+    or updates keyed by name); c_att and cs_att shift every score of a
+    softmax alike, so their gradient is zero up to rounding: they are
+    held to the largest entry of the model."""
+    top = max(float(v.abs().max()) for v in ref.values())
+    return {k: float((got[k] - ref[k]).abs().max()) / (
+        top if k in ("c_att", "cs_att")
+        else max(float(ref[k].abs().max()), 1e-30)) for k in ref}
+
+
 def grad_gap(got, ref) -> dict:
     """``got`` against ``ref`` (each ``loss_grads``'s result): the loss's
-    relative difference and, per parameter, max|g - g_ref| over
-    max|g_ref|; c_att and cs_att shift every score of a softmax alike, so
-    their gradient is zero up to rounding and is held to the largest
-    gradient entry of the model."""
+    relative difference and ``leaf_gaps`` of the gradients."""
     (lg, gg, _), (lr, gr, _) = got, ref
-    top = max(float(v.abs().max()) for v in gr.values())
-    worst = {}
-    for k in gr:
-        scale = top if k in ("c_att", "cs_att") else max(
-            float(gr[k].abs().max()), 1e-30)
-        worst[k] = float((gg[k] - gr[k]).abs().max()) / scale
+    worst = leaf_gaps(gg, gr)
     return {"loss_rel_diff": abs(lg - lr) / abs(lr),
             "worst_leaf": max(worst, key=worst.get),
             "worst_rel": max(worst.values()),
@@ -2757,6 +2785,417 @@ def phase_sass(build) -> None:
     emit({"phase": "sass", "loops": out})
 
 
+# ---------------------------------------------------------------------------
+# Data parallelism: two ranks on the one card over gloo
+# ---------------------------------------------------------------------------
+
+DP_RANKS = 2
+DP_TIMEOUT = 600.0     # every collective, and the whole launch
+DP_UPDATES = 5
+DP_F32_BATCH = 16      # global batch of the float32 parity update
+
+
+def param_digest(params) -> str:
+    import hashlib
+    h = hashlib.sha256()
+    for k in sorted(params):
+        h.update(params[k].detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def dp_counts(kernel, steps, run):
+    """``run()`` with this rank's kernel launches and decode steps counted
+    from zero; its result, seconds (synced) and the counts."""
+    reset_launches(kernel)
+    steps[0] = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = run()
+    torch.cuda.synchronize()
+    return out, {"seconds": time.perf_counter() - t0,
+                 "decode_steps": steps[0],
+                 "launches": read_launches(kernel),
+                 "launches_by_route": read_routes(kernel)}
+
+
+def dp_train(kernel, mesh, dev, seed, cfg) -> dict:
+    """Preset 5's update over the mesh in both spellings, the float32
+    update against the single-process one, the all-reduce alone and the
+    single-rank update at the per-rank batch (rank 0 alone; rank 1 waits
+    in the next collective)."""
+    import torch.distributed as dist
+    from stvd_torch.train import parallel
+    from stvd_torch.train.loop import make_train_step
+    out = {}
+    per = cfg.train.per_device_batch
+    for spelling in (True, False):
+        state, batch = train_setup(cfg, dev, seed, per * DP_RANKS)
+        state = parallel.replicate(state, mesh)
+        local = parallel.shard_batch(batch, mesh)
+        step = make_train_step(cfg.model, cfg.train, None, mesh, spelling)
+        state, m = step(state, local)           # warm-up
+        first = float(m["loss"])
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches(kernel)
+        losses, secs = [], []
+        for _ in range(DP_UPDATES):
+            t0 = time.perf_counter()
+            state, m = step(state, local)
+            losses.append(float(m["loss"]))
+            secs.append(time.perf_counter() - t0)
+        out["shard_map" if spelling else "pjit"] = {
+            "loss_warmup": first, "loss_per_update": losses,
+            "seconds_per_update": secs,
+            "median_update_s": float(np.median(secs)),
+            "grad_norm_last": float(m["grad_norm"]),
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "launches": read_launches(kernel),
+            "launches_by_route": read_routes(kernel),
+            "digest": param_digest(state["params"])}
+        n_params = sum(p.numel() for p in state["params"].values())
+        del state, batch, local, step
+        torch.cuda.empty_cache()
+    flat = torch.ones(n_params, dtype=torch.float32, device=dev)
+    group = mesh.get_group(parallel.DATA_AXIS)
+    reduce_s = []
+    for _ in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dist.all_reduce(flat, group=group)
+        torch.cuda.synchronize()
+        reduce_s.append(time.perf_counter() - t0)
+    out["all_reduce"] = {"floats": n_params, "bytes": 4 * n_params,
+                         "seconds": reduce_s[1:],
+                         "median_s": float(np.median(reduce_s[1:]))}
+    del flat
+    if parallel.axis_rank(mesh) == 0:
+        state, batch = train_setup(cfg, dev, seed, per)
+        step = make_train_step(cfg.model, cfg.train)
+        state, m = step(state, batch)
+        secs = []
+        for _ in range(DP_UPDATES):
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            float(m["loss"])
+            secs.append(time.perf_counter() - t0)
+        out["single_rank"] = {"batch": per, "seconds_per_update": secs,
+                              "median_update_s": float(np.median(secs))}
+        del state, batch, step
+        torch.cuda.empty_cache()
+    parallel.broadcast_value(0.0, mesh)         # rank 1 waits here
+    # float32: one DP update against the single-process update, with the
+    # preset's adadelta and clip (weights) and with sgd at lr 1 without
+    # clip, whose update is the gradient (adadelta's first step is near
+    # +-sqrt(eps / 0.1) wherever |g| > 3e-3, which hides the gradient)
+    c32 = with_model(cfg, compute_dtype="float32")
+    sgd = c32.replace(train=dataclasses.replace(
+        c32.train, optimizer="sgd", lr=1.0, clip_c=0.0))
+    parity = {"global_batch": DP_F32_BATCH}
+    for label, c in (("adadelta", c32), ("sgd", sgd)):
+        res = {}
+        for name, m_ in (("dp", mesh), ("single", None)):
+            state, batch = train_setup(c, dev, seed, DP_F32_BATCH)
+            iid_features(batch, dev, seed)
+            fan_in_weights(state["params"], dev, seed)
+            init = {k: v.detach().clone()
+                    for k, v in state["params"].items()}
+            if m_ is not None:
+                batch = parallel.shard_batch(batch, mesh)
+            state, m = make_train_step(c.model, c.train, None, m_)(
+                state, batch)
+            res[name] = (float(m["loss"]), {
+                k: v.detach() - (init[k] if label == "sgd" else 0)
+                for k, v in state["params"].items()})
+            del state, batch, init
+        (loss_dp, p_dp), (loss_one, p_one) = res["dp"], res["single"]
+        gaps = leaf_gaps(p_dp, p_one)
+        what = "weight" if label == "adadelta" else "grad"
+        parity.update({
+            f"{label}_loss_dp": loss_dp, f"{label}_loss_single": loss_one,
+            f"{label}_loss_rel_err": abs(loss_dp - loss_one) / abs(loss_one),
+            f"{what}_rel_err": max(gaps.values()),
+            f"worst_{what}": max(gaps, key=gaps.get)})
+        del res, p_dp, p_one
+    out["f32_parity"] = parity
+    torch.cuda.empty_cache()
+    return out
+
+
+def dp_eval(kernel, mesh, dev, seed, cfg, params, vocab) -> dict:
+    """``evaluate_split(..., mesh)`` over a 256-video split, its tokens
+    (``generate_captions(..., mesh)``) against the single-process decode
+    at the per-rank batch and at the whole batch."""
+    from stvd_torch.data.bank import to_device
+    from stvd_torch.data.batching import synthetic_dataset
+    from stvd_torch.model.step import compute_dtype
+    from stvd_torch.train.evaluate import evaluate_split, generate_captions
+    m = cfg.model
+    ds = dataclasses.replace(
+        synthetic_dataset(n_videos=cfg.decode.decode_batch, k=m.n_frames,
+                          d=m.ctx_dim, maxlen=cfg.decode.maxlen,
+                          seed=seed + 3), vocab=vocab)
+    steps = [0]
+    step_fn = counted_step(kernel.step_kernels, steps)
+    scores, rec = dp_counts(kernel, steps, lambda: evaluate_split(
+        params, cfg, ds, step_fn=step_fn, mesh=mesh, device=dev))
+    dev_bank = to_device(ds.bank, dev, compute_dtype(m))
+    n = ds.bank.n_videos
+    toks = generate_captions(params, m, dev_bank, n, cfg.decode,
+                             kernel.step_kernels, mesh)
+    per_rank = dataclasses.replace(cfg.decode,
+                                   decode_batch=n // DP_RANKS)
+    same = generate_captions(params, m, dev_bank, n, per_rank,
+                             kernel.step_kernels)
+    whole = generate_captions(params, m, dev_bank, n, cfg.decode,
+                              kernel.step_kernels)
+    single = evaluate_split(params, cfg.replace(decode=per_rank), ds,
+                            step_fn=kernel.step_kernels, device=dev)
+    return {"videos": n, "scores": scores, "scores_single": single,
+            "equal_per_rank_batch": sum(a == b for a, b in zip(toks, same)),
+            "equal_whole_batch": sum(a == b for a, b in zip(toks, whole)),
+            **rec}
+
+
+def dp_bank(kernel, api, mesh, dev, seed, cfg, params, vocab) -> dict:
+    """A 256-video bank sharded over the ranks: ``caption_ids`` of 256
+    ids (decode batch 256: gathered by ``reduce_scatter_tensor``, 128
+    rows decoded a rank), of 255 ids at decode batch 255 (gathered by
+    ``all_reduce``, decoded whole on each rank) and ``nbest_ids``,
+    against single-device Captioners at the same decode shapes (and at
+    the whole batch, reported)."""
+    import dataclasses as dc
+    from stvd_torch.data.bank import synthetic_bank
+    m = cfg.model
+    bank = synthetic_bank(cfg.decode.decode_batch, k=m.n_frames,
+                          d=m.ctx_dim, seed=seed + 5)
+    steps, rows = [0], set()
+
+    def captioner(bsz, mesh_=None, counted=False):
+        c = cfg.replace(decode=dc.replace(cfg.decode, decode_batch=bsz))
+        inner = kernel.step_kernels
+        if counted:
+            def step_fn(params_, cfg_, state, *a):
+                steps[0] += 1
+                rows.add(int(state.h.shape[0]))
+                return inner(params_, cfg_, state, *a)
+            step_fn.make_logit_tail = inner.make_logit_tail
+        else:
+            step_fn = inner
+        cap = api.Captioner(params, c, vocab, step_fn, device=dev)
+        cap.attach_bank(bank, mesh=mesh_)
+        return cap
+
+    n = bank.n_videos
+    ids = list(bank.ids)
+    out = {"videos": n, "shard_rows": None, "routes": {}}
+    beam = cfg.decode.beam_size
+    for name, bsz, count in (("scatter", n, n), ("replicated", n - 1, n - 1),
+                             ("nbest", n, n)):
+        cap = captioner(bsz, mesh, counted=True)
+        out["shard_rows"] = int(cap._bank_dev["frames"].shape[0])
+        rows.clear()
+        run = ((lambda: cap.nbest_ids(ids, n=beam)) if name == "nbest"
+               else (lambda: cap.caption_ids(ids[:count])))
+        got, rec = dp_counts(kernel, steps, run)
+        ref = captioner(bsz // DP_RANKS if name != "replicated" else bsz)
+        want = (ref.nbest_ids(ids, n=beam) if name == "nbest"
+                else ref.caption_ids(ids[:count]))
+        whole = captioner(bsz)
+        full = (whole.nbest_ids(ids, n=beam) if name == "nbest"
+                else whole.caption_ids(ids[:count]))
+        if name == "nbest":
+            got, want, full = ([[t for t, _ in r] for r in x]
+                               for x in (got, want, full))
+        out["routes"][name] = {
+            "ids": count, "decode_batch": bsz,
+            "rows_a_step": sorted(r // beam for r in rows),
+            "equal_same_shape": sum(a == b for a, b in zip(got, want)),
+            "equal_whole_batch": sum(a == b for a, b in zip(got, full)),
+            "results": len(got), **rec}
+    return out
+
+
+def dp_cli(kernel, mesh, dev, corpus) -> dict:
+    """``cli.train --config <msvd-dp on the corpus> --data-parallel`` in
+    this rank (the launch's RANK / WORLD_SIZE are set), 3 updates and a
+    validation round of valid and test."""
+    from stvd_torch.cli import train
+    from stvd_torch.config import Config
+    steps = [0]
+    real = kernel.step_kernels
+    kernel.step_kernels = counted_step(real, steps)
+    try:
+        rc, rec = dp_counts(kernel, steps, lambda: train.main(
+            ["--config", os.path.join(corpus, "config_dp.json"),
+             "--data-parallel", "--max-updates", "3"]))
+    finally:
+        kernel.step_kernels = real
+    with open(os.path.join(corpus, "config_dp.json")) as f:
+        cfg = Config.from_json(f.read())
+    return {"rc": rc, "save_dir": cfg.train.save_dir, **rec}
+
+
+def dp_rank(mesh, seed, corpus) -> dict:
+    """Everything one rank of the ``data_parallel`` phase runs."""
+    import contextlib
+    import io
+    import torch.distributed as dist
+    from stvd_torch import _build, api
+    from stvd_torch.model import kernel
+    from stvd_torch.model.decoder import init_params
+    from stvd_torch.train import parallel
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", torch.cuda.current_device())
+    _build.lib()                   # the parent built it: this loads it
+    cfg = with_model(api.preset("msvd-dp"), train_tail_kernel="on")
+    vocab = api.Vocab({f"w{i}": i for i in range(2, cfg.model.n_words)})
+    out = {"rank": parallel.axis_rank(mesh),
+           "backend": dist.get_backend(), "device": str(dev)}
+    with contextlib.redirect_stdout(io.StringIO()):
+        out["train"] = dp_train(kernel, mesh, dev, seed, cfg)
+        params = init_params(
+            cfg.model, torch.Generator(device=dev).manual_seed(seed + 1),
+            dev)
+        out["eval"] = dp_eval(kernel, mesh, dev, seed, cfg, params, vocab)
+        out["bank"] = dp_bank(kernel, api, mesh, dev, seed, cfg, params,
+                              vocab)
+        del params
+        torch.cuda.empty_cache()
+        out["cli"] = dp_cli(kernel, mesh, dev, corpus)
+    out["modules"] = sorted(m for m in sys.modules if m in ("jax", "stvd")
+                            or m.startswith(("jax.", "stvd.")))
+    return out
+
+
+def phase_data_parallel(kernel, dev, seed, cfg, info) -> dict:
+    """Preset 5 (``msvd-dp``) at full width on 2 ranks that share the one
+    card over gloo (``parallel.spawn``: spawned processes, a file store;
+    NCCL refuses two ranks on one card), the kernels built by this
+    process before the launch:
+
+    a. ``make_train_step(..., mesh, use_shard_map)`` in both spellings,
+       64 captions a rank (128 a global batch), T 30, adadelta, clip 10,
+       the train-scan tail on: a warm-up and 5 updates; the ranks' weights
+       must agree bit for bit, kernel 6 launch 30 times an update on a
+       rank, all on wgmma, and the loss fall; the float32 update of a
+       global batch of 16 (i.i.d. features, ``iid_features``, and
+       weights at fan-in scale, ``fan_in_weights``) must equal the
+       single-process update (loss
+       within 1e-5 relative; each weight within GRAD_TOL of its leaf's
+       largest entry, ``leaf_gaps``, and, through sgd at lr 1, each
+       gradient within GRAD_TOL of its leaf's largest entry);
+       ``cli.train --data-parallel`` on a corpus on disk for 3 updates
+       and one validation round;
+    b. ``evaluate_split(..., mesh)`` of 256 videos;
+    c. a 256-video bank sharded over the ranks: ``caption_ids`` of 256
+       ids (scattered) and 255 (replicated), ``nbest_ids``.
+
+    Every caption and n-best list must equal the single-device decode at
+    the per-rank decode shape (the share equal to the whole-batch decode
+    is reported); kernels 1 and 2 launch once a decode step on a rank,
+    on cluster / wgmma, the others not at all.  The times are of two
+    ranks sharing one card over gloo: no scaling figure."""
+    from stvd_torch.train import parallel
+    base = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(base, exist_ok=True)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(dir=base) as corpus:
+        c = with_model(cfg, train_tail_kernel="on")
+        write_corpus(corpus, c, seed)
+        c = c.replace(
+            train=dataclasses.replace(
+                c.train, metric="meteor", valid_freq=3, sample_freq=0,
+                disp_freq=1, save_dir=os.path.join(corpus, "run")),
+            data=dataclasses.replace(
+                c.data, dataset="youtube2text", data_dir=corpus,
+                feature_file="feats.npz", captions_file="captions.json",
+                vocab_file="vocab.pkl"))
+        with open(os.path.join(corpus, "config_dp.json"), "w") as f:
+            f.write(c.to_json())
+        t0 = time.perf_counter()
+        ranks = parallel.spawn(dp_rank, DP_RANKS, (seed, corpus),
+                               device="cuda:0", backend="gloo",
+                               timeout=DP_TIMEOUT)
+        wall = time.perf_counter() - t0
+        files = sorted(os.listdir(os.path.join(corpus, "run")))
+        records = [json.loads(ln)["kind"] for ln in open(
+            os.path.join(corpus, "run", "metrics.jsonl"))]
+    T = cfg.train.maxlen
+    for r in ranks:
+        require(r["backend"] == "gloo", f"rank backend {r['backend']}")
+        require(r["modules"] == [], f"a rank imported {r['modules']}")
+        tr = r["train"]
+        for name in ("shard_map", "pjit"):
+            s = tr[name]
+            want = {k: 0 for k in KERNELS}
+            want["train_tail"] = DP_UPDATES * T
+            require(s["launches"] == want,
+                    f"dp {name}: launches {s['launches']} != {want}")
+            require(s["launches_by_route"]["train_tail"]["wgmma"]
+                    == want["train_tail"], f"dp {name}: train tail routes "
+                    f"{s['launches_by_route']['train_tail']}")
+            losses = [s["loss_warmup"]] + s["loss_per_update"]
+            require(all(np.isfinite(losses)) and losses[-1] < losses[0],
+                    f"dp {name}: loss {losses}")
+            require(s["digest"] == ranks[0]["train"][name]["digest"],
+                    f"dp {name}: the ranks' weights differ")
+        p = tr["f32_parity"]
+        require(p["adadelta_loss_rel_err"] <= 1e-5
+                and p["sgd_loss_rel_err"] <= 1e-5
+                and p["weight_rel_err"] <= GRAD_TOL
+                and p["grad_rel_err"] <= GRAD_TOL,
+                f"dp float32 update vs single-process: {p}")
+        for name, sub in (("eval", r["eval"]),
+                          *(("bank " + k, v) for k, v in
+                            r["bank"]["routes"].items()),
+                          ("cli", r["cli"])):
+            want = {k: 0 for k in KERNELS}
+            want.update(attention_core=sub["decode_steps"],
+                        logit_tail=sub["decode_steps"])
+            if name == "cli":
+                want["train_tail"] = sub["launches"]["train_tail"]
+                require(sub["launches"]["train_tail"] > 0
+                        and sub["launches_by_route"]["train_tail"]["wgmma"]
+                        == want["train_tail"], f"dp cli: train tail "
+                        f"{sub['launches_by_route']['train_tail']}")
+            require(sub["decode_steps"] > 0 and sub["launches"] == want,
+                    f"dp {name}: launches {sub['launches']} != {want}")
+            for k, route in SERVING_ROUTES.items():
+                require(sub["launches_by_route"][k][route] == want[k],
+                        f"dp {name}: {k} routes "
+                        f"{sub['launches_by_route'][k]}")
+        ev = r["eval"]
+        require(ev["equal_per_rank_batch"] == ev["videos"],
+                f"dp eval: {ev['equal_per_rank_batch']} of {ev['videos']} "
+                "captions equal the single-process decode")
+        require(ev["scores"] == ev["scores_single"],
+                f"dp eval scores {ev['scores']} != {ev['scores_single']}")
+        for name, sub in r["bank"]["routes"].items():
+            require(sub["equal_same_shape"] == sub["results"] == sub["ids"],
+                    f"dp bank {name}: {sub['equal_same_shape']} of "
+                    f"{sub['ids']} equal single-device")
+        require(r["bank"]["shard_rows"] == 256 // DP_RANKS,
+                f"dp bank: a rank holds {r['bank']['shard_rows']} rows")
+        require(r["cli"]["rc"] == 0, "dp cli.train failed")
+    require({"config.json", "vocab.pkl", "ckpt.pt", "ckpt_best.pt",
+             "metrics.jsonl", "valid_samples.json"} <= set(files),
+            f"dp cli run dir {files}")
+    require(records.count("train") == 3 and records.count("valid") == 1,
+            f"dp cli records {records}")
+    r0 = ranks[0]
+    routes = r0["bank"]["routes"]
+    require(routes["scatter"]["rows_a_step"] == [256 // DP_RANKS]
+            and routes["replicated"]["rows_a_step"] == [255],
+            f"dp bank: rows a decode step {routes}")
+    out = {"phase": "data_parallel", "card": info["nvidia_smi"],
+           "setting": f"{DP_RANKS} ranks sharing one card over gloo "
+                      "(no scaling figure)",
+           "launch_seconds": wall, "ranks": ranks}
+    emit(out)
+    return out
+
+
 def with_model(cfg, **kw):
     return cfg.replace(model=dataclasses.replace(cfg.model, **kw))
 
@@ -2899,6 +3338,19 @@ def main() -> int:
     phase_cli(kernel, dev, args.seed, cfg, info)
     msrvtt = phase_msrvtt(api, kernel, step_mod, dev, args.seed, info,
                           args.profile)
+    # kernels 1 and 2 at a rank's decode shape (128 of preset 5's
+    # 256-video batches), then preset 5 on two ranks sharing the card
+    cfg_dp = api.preset(DP)
+    cfg_dp_rank = cfg_dp.replace(decode=dataclasses.replace(
+        cfg_dp.decode, decode_batch=cfg_dp.decode.decode_batch // DP_RANKS))
+    attn_dp = phase_attention(
+        kernel, step_mod, dev, g, cfg_dp_rank,
+        shapes=(("serving", cfg_dp_rank.decode.decode_batch,
+                 cfg_dp.decode.beam_size, torch.bfloat16),),
+        phase="kernel_attention_core_dp")
+    tail_dp = phase_tail(kernel, dev, g, args.seed, cfg_dp_rank,
+                         phase="kernel_logit_tail_dp")
+    dp = phase_data_parallel(kernel, dev, args.seed, cfg_dp, info)
     if args.profile:
         phase_train_profile(dev, args.seed, cfg_sp, "profile_train_spatial")
         phase_train_profile(dev, args.seed,
@@ -2963,6 +3415,17 @@ def main() -> int:
             aot["path_b"]["launches"]["gates_lstm"], gates),
         row("spatial_core_aot", "spatial_core.cu", "stvd/model/kernel.py:204",
             aot["spatial"]["launches"]["spatial_core"], spatial),
+        # kernels 1, 2 and 6 on rank 0 of preset 5's data-parallel paths
+        # (two ranks sharing the card over gloo): the validation decode
+        # (128 videos a rank) and 5 updates of the shard_map spelling (64
+        # captions a rank, train_tail's shape)
+        row("attention_core_dp", "attn_core.cu", "stvd/model/kernel.py:45",
+            dp["ranks"][0]["eval"]["launches"]["attention_core"], attn_dp),
+        row("logit_tail_dp", "logit_tail.cu", "stvd/model/kernel.py:593",
+            dp["ranks"][0]["eval"]["launches"]["logit_tail"], tail_dp),
+        row("train_tail_dp", "train_tail.cu", "stvd/model/kernel.py:1032",
+            dp["ranks"][0]["train"]["shard_map"]["launches"]["train_tail"],
+            train_tail),
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": info["name"],
                                  "count": info["count"]}})
