@@ -56,13 +56,13 @@ vocab 13056, bf16):
   resident;
 * preset 5 (``msvd-dp``, ``data_parallel``) on two ranks that share the
   card over gloo (spawned processes; NCCL refuses two ranks on one
-  card): data-parallel training in both spellings of
-  ``make_train_step(..., mesh, use_shard_map)`` (ranks equal bit for
-  bit, the float32 update equal to one process's), ``cli.train
-  --data-parallel``, the validation decode split over the ranks and a
-  bank sharded over them (``caption_ids``, ``nbest_ids``), every caption
-  equal to the single-device decode at the same decode shape.  Its
-  times are of two ranks sharing one card: no scaling figure.
+  card): data-parallel training through ``make_train_step(..., mesh,
+  use_shard_map)`` (ranks equal bit for bit, the float32 update equal
+  to one process's), ``cli.train --data-parallel``, the validation
+  decode split over the ranks and a bank sharded over them
+  (``caption_ids``, ``nbest_ids``), every caption equal to the
+  single-device decode of the same batch.  Its times are of two ranks
+  sharing one card: no scaling figure.
 
 Each path's kernel launches are counted from zero over its run: those of
 the path must equal its decode steps (serving and the entry points; the
@@ -317,7 +317,7 @@ def phase_attention(kernel, step_mod, dev, g, cfg, splits=False,
         ctx = torch.randn(bc, k, dc, generator=g, device=dev).to(cdt)
         mask = (torch.rand(bc, k, generator=g, device=dev) > 0.25).float()
         mask[:, 0] = 1.0
-        n_split, kc = kernel.attention_core_split(k, bc, nb, a, dc,
+        n_split, kc = kernel.attention_core_split(k, nb, a, dc,
                                                   ctx.element_size())
         mask[3, (n_split - 1) * kc:] = 0.0
         mask[7] = 0.0
@@ -372,7 +372,7 @@ def phase_attention(kernel, step_mod, dev, g, cfg, splits=False,
             c["split_ms"] = {n: device_ms(lambda: kernel._attention_core_cuda(
                 *args, route="cluster", splits=n))
                 if kernel.attention_core_route(
-                    bc, nb, k, a, dc, cdt, pctx.data_ptr(), ctx.data_ptr(),
+                    nb, k, a, dc, cdt, pctx.data_ptr(), ctx.data_ptr(),
                     -(-k // n)) == "cluster" else None
                 for n in (1, 2, 3, 4)}
         c["bound_share"] = c["bound_ms"] / c["device_ms"]
@@ -2362,21 +2362,6 @@ def iid_features(b, dev, seed) -> None:
             b[key] = torch.randn(b[key].shape, generator=gen, device=dev)
 
 
-@torch.no_grad()
-def fan_in_weights(params, dev, seed) -> None:
-    """Every weight redrawn (in place) at the tests' scale: normal over
-    sqrt(fan-in) for a matrix, 0.5 normal for a vector.  At the 0.01 init
-    the attention scores are near zero, so b_att and Wd_att, which add
-    the same to every frame's score before a near-linear tanh, get a
-    gradient that cancels to ~1e-8 of the largest: any change of
-    summation order then moves it by 1e-4 of itself."""
-    gen = torch.Generator(device=dev).manual_seed(seed + 4)
-    for p in params.values():
-        p.copy_(torch.randn(p.shape, generator=gen, device=dev)
-                / (p.shape[0] ** 0.5) if p.dim() >= 2
-                else 0.5 * torch.randn(p.shape, generator=gen, device=dev))
-
-
 def loss_grads(params, mcfg, b, step_fn=None, ss_prob=0.0, seed=0):
     """(loss, {name: gradient}, seconds) of one loss at train=False; the
     scheduled-sampling coins come from a generator seeded ``seed``."""
@@ -2793,6 +2778,7 @@ DP_RANKS = 2
 DP_TIMEOUT = 600.0     # every collective, and the whole launch
 DP_UPDATES = 5
 DP_F32_BATCH = 16      # global batch of the float32 parity update
+SPLIT_TOL = 1e-6       # per leaf: DP vs one process's update of the split
 
 
 def param_digest(params) -> str:
@@ -2819,42 +2805,42 @@ def dp_counts(kernel, steps, run):
 
 
 def dp_train(kernel, mesh, dev, seed, cfg) -> dict:
-    """Preset 5's update over the mesh in both spellings, the float32
-    update against the single-process one, the all-reduce alone and the
-    single-rank update at the per-rank batch (rank 0 alone; rank 1 waits
-    in the next collective)."""
+    """Preset 5's update over the mesh, the float32 update against the
+    single-process one, the all-reduce alone and the single-rank update
+    at the per-rank batch (rank 0 alone; rank 1 waits in the next
+    collective)."""
     import torch.distributed as dist
     from stvd_torch.train import parallel
     from stvd_torch.train.loop import make_train_step
     out = {}
     per = cfg.train.per_device_batch
-    for spelling in (True, False):
-        state, batch = train_setup(cfg, dev, seed, per * DP_RANKS)
-        state = parallel.replicate(state, mesh)
-        local = parallel.shard_batch(batch, mesh)
-        step = make_train_step(cfg.model, cfg.train, None, mesh, spelling)
-        state, m = step(state, local)           # warm-up
-        first = float(m["loss"])
-        torch.cuda.reset_peak_memory_stats()
-        reset_launches(kernel)
-        losses, secs = [], []
-        for _ in range(DP_UPDATES):
-            t0 = time.perf_counter()
-            state, m = step(state, local)
-            losses.append(float(m["loss"]))
-            secs.append(time.perf_counter() - t0)
-        out["shard_map" if spelling else "pjit"] = {
-            "loss_warmup": first, "loss_per_update": losses,
-            "seconds_per_update": secs,
-            "median_update_s": float(np.median(secs)),
-            "grad_norm_last": float(m["grad_norm"]),
-            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
-            "launches": read_launches(kernel),
-            "launches_by_route": read_routes(kernel),
-            "digest": param_digest(state["params"])}
-        n_params = sum(p.numel() for p in state["params"].values())
-        del state, batch, local, step
-        torch.cuda.empty_cache()
+    state, batch = train_setup(cfg, dev, seed, per * DP_RANKS)
+    state = parallel.replicate(state, mesh)
+    local = parallel.shard_batch(batch, mesh)
+    step = make_train_step(cfg.model, cfg.train, None, mesh,
+                           cfg.train.use_shard_map)
+    state, m = step(state, local)               # warm-up
+    first = float(m["loss"])
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(kernel)
+    losses, secs = [], []
+    for _ in range(DP_UPDATES):
+        t0 = time.perf_counter()
+        state, m = step(state, local)
+        losses.append(float(m["loss"]))
+        secs.append(time.perf_counter() - t0)
+    out["update"] = {
+        "loss_warmup": first, "loss_per_update": losses,
+        "seconds_per_update": secs,
+        "median_update_s": float(np.median(secs)),
+        "grad_norm_last": float(m["grad_norm"]),
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+        "launches": read_launches(kernel),
+        "launches_by_route": read_routes(kernel),
+        "digest": param_digest(state["params"])}
+    n_params = sum(p.numel() for p in state["params"].values())
+    del state, batch, local, step
+    torch.cuda.empty_cache()
     flat = torch.ones(n_params, dtype=torch.float32, device=dev)
     group = mesh.get_group(parallel.DATA_AXIS)
     reduce_s = []
@@ -2883,48 +2869,72 @@ def dp_train(kernel, mesh, dev, seed, cfg) -> dict:
         del state, batch, step
         torch.cuda.empty_cache()
     parallel.broadcast_value(0.0, mesh)         # rank 1 waits here
-    # float32: one DP update against the single-process update, with the
-    # preset's adadelta and clip (weights) and with sgd at lr 1 without
-    # clip, whose update is the gradient (adadelta's first step is near
-    # +-sqrt(eps / 0.1) wherever |g| > 3e-3, which hides the gradient)
+    # float32 at the preset's init: one DP update against one process's.
+    # The preset's adadelta, clip and dropout: the weights against the
+    # whole-batch update.  sgd at lr 1 without clip or dropout, whose
+    # update is the gradient (adadelta's first step is near
+    # +-sqrt(eps / 0.1) wherever |g| > 3e-3, which hides the gradient):
+    # against the update of the same split in one process (grad_accum 2:
+    # each half's gradient, summed, then divided), and, reported, against
+    # the whole-batch update, which sums the batch in another order
     c32 = with_model(cfg, compute_dtype="float32")
-    sgd = c32.replace(train=dataclasses.replace(
-        c32.train, optimizer="sgd", lr=1.0, clip_c=0.0))
-    parity = {"global_batch": DP_F32_BATCH}
-    for label, c in (("adadelta", c32), ("sgd", sgd)):
-        res = {}
-        for name, m_ in (("dp", mesh), ("single", None)):
-            state, batch = train_setup(c, dev, seed, DP_F32_BATCH)
-            iid_features(batch, dev, seed)
-            fan_in_weights(state["params"], dev, seed)
-            init = {k: v.detach().clone()
-                    for k, v in state["params"].items()}
-            if m_ is not None:
-                batch = parallel.shard_batch(batch, mesh)
-            state, m = make_train_step(c.model, c.train, None, m_)(
-                state, batch)
-            res[name] = (float(m["loss"]), {
-                k: v.detach() - (init[k] if label == "sgd" else 0)
-                for k, v in state["params"].items()})
-            del state, batch, init
-        (loss_dp, p_dp), (loss_one, p_one) = res["dp"], res["single"]
-        gaps = leaf_gaps(p_dp, p_one)
-        what = "weight" if label == "adadelta" else "grad"
-        parity.update({
-            f"{label}_loss_dp": loss_dp, f"{label}_loss_single": loss_one,
-            f"{label}_loss_rel_err": abs(loss_dp - loss_one) / abs(loss_one),
-            f"{what}_rel_err": max(gaps.values()),
-            f"worst_{what}": max(gaps, key=gaps.get)})
-        del res, p_dp, p_one
+    sgd = with_model(c32, use_dropout=False)
+    sgd = sgd.replace(train=dataclasses.replace(
+        sgd.train, optimizer="sgd", lr=1.0, clip_c=0.0))
+    accum = sgd.replace(train=dataclasses.replace(sgd.train,
+                                                  grad_accum=DP_RANKS))
+
+    def update(c, m_, delta):
+        state, batch = train_setup(c, dev, seed, DP_F32_BATCH)
+        iid_features(batch, dev, seed)
+        init = {k: v.detach().clone() for k, v in state["params"].items()}
+        if m_ is not None:
+            batch = parallel.shard_batch(batch, mesh)
+        state, m = make_train_step(c.model, c.train, None, m_)(state, batch)
+        return float(m["loss"]), {k: v.detach() - (init[k] if delta else 0)
+                                  for k, v in state["params"].items()}
+
+    def own(got, ref):
+        return {k: float((got[k] - v).abs().max())
+                / max(float(v.abs().max()), 1e-30) for k, v in ref.items()}
+
+    (loss_dp, w_dp), (loss_one, w_one) = (update(c32, mesh, False),
+                                          update(c32, None, False))
+    gaps = leaf_gaps(w_dp, w_one)
+    parity = {"global_batch": DP_F32_BATCH,
+              "adadelta_loss_dp": loss_dp, "adadelta_loss_single": loss_one,
+              "adadelta_loss_rel_err": abs(loss_dp - loss_one) / abs(loss_one),
+              "weight_rel_err": max(gaps.values()),
+              "worst_weight": max(gaps, key=gaps.get)}
+    del w_dp, w_one
+    (loss_dp, g_dp), (loss_acc, g_acc), (loss_one, g_one) = (
+        update(sgd, mesh, True), update(accum, None, True),
+        update(sgd, None, True))
+    gaps = leaf_gaps(g_dp, g_acc)
+    top = max(float(v.abs().max()) for v in g_one.values())
+    parity.update({
+        "sgd_loss_dp": loss_dp, "sgd_loss_split": loss_acc,
+        "sgd_loss_single": loss_one,
+        "sgd_loss_rel_err": abs(loss_dp - loss_one) / abs(loss_one),
+        "grad_rel_err_vs_split": max(gaps.values()),
+        "worst_grad_vs_split": max(gaps, key=gaps.get),
+        "grad_bitwise_vs_split": all(torch.equal(g_dp[k], g_acc[k])
+                                     for k in g_acc),
+        "grad_share_of_top": {k: float(v.abs().max()) / top
+                              for k, v in g_one.items()},
+        "grad_rel_err_vs_whole": own(g_dp, g_one),
+        "split_grad_rel_err_vs_whole": own(g_acc, g_one)})
+    del g_dp, g_acc, g_one
     out["f32_parity"] = parity
     torch.cuda.empty_cache()
     return out
 
 
 def dp_eval(kernel, mesh, dev, seed, cfg, params, vocab) -> dict:
-    """``evaluate_split(..., mesh)`` over a 256-video split, its tokens
-    (``generate_captions(..., mesh)``) against the single-process decode
-    at the per-rank batch and at the whole batch."""
+    """``evaluate_split(..., mesh)`` over a 256-video split against the
+    single-process ``evaluate_split``, and its tokens
+    (``generate_captions(..., mesh)``) against the single-process
+    decode."""
     from stvd_torch.data.bank import to_device
     from stvd_torch.data.batching import synthetic_dataset
     from stvd_torch.model.step import compute_dtype
@@ -2942,17 +2952,12 @@ def dp_eval(kernel, mesh, dev, seed, cfg, params, vocab) -> dict:
     n = ds.bank.n_videos
     toks = generate_captions(params, m, dev_bank, n, cfg.decode,
                              kernel.step_kernels, mesh)
-    per_rank = dataclasses.replace(cfg.decode,
-                                   decode_batch=n // DP_RANKS)
-    same = generate_captions(params, m, dev_bank, n, per_rank,
-                             kernel.step_kernels)
-    whole = generate_captions(params, m, dev_bank, n, cfg.decode,
-                              kernel.step_kernels)
-    single = evaluate_split(params, cfg.replace(decode=per_rank), ds,
-                            step_fn=kernel.step_kernels, device=dev)
-    return {"videos": n, "scores": scores, "scores_single": single,
-            "equal_per_rank_batch": sum(a == b for a, b in zip(toks, same)),
-            "equal_whole_batch": sum(a == b for a, b in zip(toks, whole)),
+    single = generate_captions(params, m, dev_bank, n, cfg.decode,
+                               kernel.step_kernels)
+    scores_single = evaluate_split(params, cfg, ds,
+                                   step_fn=kernel.step_kernels, device=dev)
+    return {"videos": n, "scores": scores, "scores_single": scores_single,
+            "equal_single_device": sum(a == b for a, b in zip(toks, single)),
             **rec}
 
 
@@ -2961,8 +2966,7 @@ def dp_bank(kernel, api, mesh, dev, seed, cfg, params, vocab) -> dict:
     ids (decode batch 256: gathered by ``reduce_scatter_tensor``, 128
     rows decoded a rank), of 255 ids at decode batch 255 (gathered by
     ``all_reduce``, decoded whole on each rank) and ``nbest_ids``,
-    against single-device Captioners at the same decode shapes (and at
-    the whole batch, reported)."""
+    against single-device Captioners at the same decode batch."""
     import dataclasses as dc
     from stvd_torch.data.bank import synthetic_bank
     m = cfg.model
@@ -2997,20 +3001,15 @@ def dp_bank(kernel, api, mesh, dev, seed, cfg, params, vocab) -> dict:
         run = ((lambda: cap.nbest_ids(ids, n=beam)) if name == "nbest"
                else (lambda: cap.caption_ids(ids[:count])))
         got, rec = dp_counts(kernel, steps, run)
-        ref = captioner(bsz // DP_RANKS if name != "replicated" else bsz)
+        ref = captioner(bsz)
         want = (ref.nbest_ids(ids, n=beam) if name == "nbest"
                 else ref.caption_ids(ids[:count]))
-        whole = captioner(bsz)
-        full = (whole.nbest_ids(ids, n=beam) if name == "nbest"
-                else whole.caption_ids(ids[:count]))
         if name == "nbest":
-            got, want, full = ([[t for t, _ in r] for r in x]
-                               for x in (got, want, full))
+            got, want = ([[t for t, _ in r] for r in x] for x in (got, want))
         out["routes"][name] = {
             "ids": count, "decode_batch": bsz,
             "rows_a_step": sorted(r // beam for r in rows),
-            "equal_same_shape": sum(a == b for a, b in zip(got, want)),
-            "equal_whole_batch": sum(a == b for a, b in zip(got, full)),
+            "equal_single_device": sum(a == b for a, b in zip(got, want)),
             "results": len(got), **rec}
     return out
 
@@ -3074,26 +3073,27 @@ def phase_data_parallel(kernel, dev, seed, cfg, info) -> dict:
     NCCL refuses two ranks on one card), the kernels built by this
     process before the launch:
 
-    a. ``make_train_step(..., mesh, use_shard_map)`` in both spellings,
-       64 captions a rank (128 a global batch), T 30, adadelta, clip 10,
-       the train-scan tail on: a warm-up and 5 updates; the ranks' weights
-       must agree bit for bit, kernel 6 launch 30 times an update on a
-       rank, all on wgmma, and the loss fall; the float32 update of a
-       global batch of 16 (i.i.d. features, ``iid_features``, and
-       weights at fan-in scale, ``fan_in_weights``) must equal the
-       single-process update (loss
-       within 1e-5 relative; each weight within GRAD_TOL of its leaf's
-       largest entry, ``leaf_gaps``, and, through sgd at lr 1, each
-       gradient within GRAD_TOL of its leaf's largest entry);
+    a. ``make_train_step(..., mesh, use_shard_map)``, 64 captions a rank
+       (128 a global batch), T 30, adadelta, clip 10, the train-scan tail
+       on: a warm-up and 5 updates; the ranks' weights must agree bit for
+       bit, kernel 6 launch 30 times an update on a rank, all on wgmma,
+       and the loss fall; the float32 update of a global batch of 16
+       (i.i.d. features, ``iid_features``, the preset's init) must equal
+       the single-process update: the preset's, loss within 1e-5
+       relative and each weight within GRAD_TOL of its leaf's largest
+       entry (``leaf_gaps``); through sgd at lr 1 without dropout, each
+       gradient within SPLIT_TOL of the single-process update of the
+       same split (``grad_accum`` 2), its gaps to the whole-batch
+       gradient reported;
        ``cli.train --data-parallel`` on a corpus on disk for 3 updates
        and one validation round;
     b. ``evaluate_split(..., mesh)`` of 256 videos;
     c. a 256-video bank sharded over the ranks: ``caption_ids`` of 256
        ids (scattered) and 255 (replicated), ``nbest_ids``.
 
-    Every caption and n-best list must equal the single-device decode at
-    the per-rank decode shape (the share equal to the whole-batch decode
-    is reported); kernels 1 and 2 launch once a decode step on a rank,
+    Every caption and n-best list, and the metrics, must equal the
+    single-device decode at the same decode batch (256 rows, 255 on the
+    replicated route); kernels 1 and 2 launch once a decode step on a rank,
     on cluster / wgmma, the others not at all.  The times are of two
     ranks sharing one card over gloo: no scaling figure."""
     from stvd_torch.train import parallel
@@ -3126,25 +3126,24 @@ def phase_data_parallel(kernel, dev, seed, cfg, info) -> dict:
         require(r["backend"] == "gloo", f"rank backend {r['backend']}")
         require(r["modules"] == [], f"a rank imported {r['modules']}")
         tr = r["train"]
-        for name in ("shard_map", "pjit"):
-            s = tr[name]
-            want = {k: 0 for k in KERNELS}
-            want["train_tail"] = DP_UPDATES * T
-            require(s["launches"] == want,
-                    f"dp {name}: launches {s['launches']} != {want}")
-            require(s["launches_by_route"]["train_tail"]["wgmma"]
-                    == want["train_tail"], f"dp {name}: train tail routes "
-                    f"{s['launches_by_route']['train_tail']}")
-            losses = [s["loss_warmup"]] + s["loss_per_update"]
-            require(all(np.isfinite(losses)) and losses[-1] < losses[0],
-                    f"dp {name}: loss {losses}")
-            require(s["digest"] == ranks[0]["train"][name]["digest"],
-                    f"dp {name}: the ranks' weights differ")
+        s = tr["update"]
+        want = {k: 0 for k in KERNELS}
+        want["train_tail"] = DP_UPDATES * T
+        require(s["launches"] == want,
+                f"dp update: launches {s['launches']} != {want}")
+        require(s["launches_by_route"]["train_tail"]["wgmma"]
+                == want["train_tail"], "dp update: train tail routes "
+                f"{s['launches_by_route']['train_tail']}")
+        losses = [s["loss_warmup"]] + s["loss_per_update"]
+        require(all(np.isfinite(losses)) and losses[-1] < losses[0],
+                f"dp update: loss {losses}")
+        require(s["digest"] == ranks[0]["train"]["update"]["digest"],
+                "dp update: the ranks' weights differ")
         p = tr["f32_parity"]
         require(p["adadelta_loss_rel_err"] <= 1e-5
                 and p["sgd_loss_rel_err"] <= 1e-5
                 and p["weight_rel_err"] <= GRAD_TOL
-                and p["grad_rel_err"] <= GRAD_TOL,
+                and p["grad_rel_err_vs_split"] <= SPLIT_TOL,
                 f"dp float32 update vs single-process: {p}")
         for name, sub in (("eval", r["eval"]),
                           *(("bank " + k, v) for k, v in
@@ -3166,15 +3165,16 @@ def phase_data_parallel(kernel, dev, seed, cfg, info) -> dict:
                         f"dp {name}: {k} routes "
                         f"{sub['launches_by_route'][k]}")
         ev = r["eval"]
-        require(ev["equal_per_rank_batch"] == ev["videos"],
-                f"dp eval: {ev['equal_per_rank_batch']} of {ev['videos']} "
+        require(ev["equal_single_device"] == ev["videos"],
+                f"dp eval: {ev['equal_single_device']} of {ev['videos']} "
                 "captions equal the single-process decode")
         require(ev["scores"] == ev["scores_single"],
                 f"dp eval scores {ev['scores']} != {ev['scores_single']}")
         for name, sub in r["bank"]["routes"].items():
-            require(sub["equal_same_shape"] == sub["results"] == sub["ids"],
-                    f"dp bank {name}: {sub['equal_same_shape']} of "
-                    f"{sub['ids']} equal single-device")
+            require(sub["equal_single_device"] == sub["results"]
+                    == sub["ids"], f"dp bank {name}: "
+                    f"{sub['equal_single_device']} of {sub['ids']} equal "
+                    "single-device")
         require(r["bank"]["shard_rows"] == 256 // DP_RANKS,
                 f"dp bank: a rank holds {r['bank']['shard_rows']} rows")
         require(r["cli"]["rc"] == 0, "dp cli.train failed")
@@ -3339,12 +3339,13 @@ def main() -> int:
     msrvtt = phase_msrvtt(api, kernel, step_mod, dev, args.seed, info,
                           args.profile)
     # kernels 1 and 2 at a rank's decode shape (128 of preset 5's
-    # 256-video batches), then preset 5 on two ranks sharing the card
+    # 256-video batches; kernel 1 also with 1-4 CTAs a row, split_ms),
+    # then preset 5 on two ranks sharing the card
     cfg_dp = api.preset(DP)
     cfg_dp_rank = cfg_dp.replace(decode=dataclasses.replace(
         cfg_dp.decode, decode_batch=cfg_dp.decode.decode_batch // DP_RANKS))
     attn_dp = phase_attention(
-        kernel, step_mod, dev, g, cfg_dp_rank,
+        kernel, step_mod, dev, g, cfg_dp_rank, splits=True,
         shapes=(("serving", cfg_dp_rank.decode.decode_batch,
                  cfg_dp.decode.beam_size, torch.bfloat16),),
         phase="kernel_attention_core_dp")
@@ -3417,14 +3418,14 @@ def main() -> int:
             aot["spatial"]["launches"]["spatial_core"], spatial),
         # kernels 1, 2 and 6 on rank 0 of preset 5's data-parallel paths
         # (two ranks sharing the card over gloo): the validation decode
-        # (128 videos a rank) and 5 updates of the shard_map spelling (64
-        # captions a rank, train_tail's shape)
+        # (128 videos a rank) and 5 updates (64 captions a rank,
+        # train_tail's shape)
         row("attention_core_dp", "attn_core.cu", "stvd/model/kernel.py:45",
             dp["ranks"][0]["eval"]["launches"]["attention_core"], attn_dp),
         row("logit_tail_dp", "logit_tail.cu", "stvd/model/kernel.py:593",
             dp["ranks"][0]["eval"]["launches"]["logit_tail"], tail_dp),
         row("train_tail_dp", "train_tail.cu", "stvd/model/kernel.py:1032",
-            dp["ranks"][0]["train"]["shard_map"]["launches"]["train_tail"],
+            dp["ranks"][0]["train"]["update"]["launches"]["train_tail"],
             train_tail),
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": info["name"],

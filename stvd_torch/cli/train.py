@@ -22,10 +22,11 @@ preset 5, ``msvd-dp``) runs over every rank that ``torchrun`` starts:
 Each rank joins the process group from ``RANK``, ``WORLD_SIZE`` and
 ``LOCAL_RANK`` (NCCL on ``cuda:LOCAL_RANK``, gloo on the CPU), and
 ``fit`` trains over the 1-D data mesh (``--shard-map`` /
-``--no-shard-map`` pick the spelling of the update); rank 0 writes the
-run directory.  One process (no ``WORLD_SIZE`` above 1) is a
-single-device run.  ``--model-parallel`` above 1 raises
-``NotImplementedError`` (ROADMAP.md Queue 1 item 8b).
+``--no-shard-map`` name the JAX package's two spellings of the update,
+which make the same update); rank 0 writes the run directory.  One
+process (no ``WORLD_SIZE`` above 1) is a single-device run.
+``--model-parallel`` above 1 raises ``NotImplementedError`` (ROADMAP.md
+Queue 1 item 8b).
 """
 
 from __future__ import annotations
@@ -98,14 +99,15 @@ def main(argv=None) -> int:
     ap.add_argument("--no-data-parallel", dest="data_parallel",
                     action="store_false", help="force single-device")
     ap.add_argument("--shard-map", action="store_true", default=None,
-                    help="with data parallelism: gradients of the summed "
-                         "objective reduced, then divided (the JAX "
-                         "package's shard_map spelling; default: "
-                         "cfg.train.use_shard_map)")
+                    help="the JAX package's shard_map spelling of the "
+                         "data-parallel update (default: "
+                         "cfg.train.use_shard_map); both spellings make "
+                         "the same update: gradients of the summed "
+                         "objective reduced, then divided")
     ap.add_argument("--no-shard-map", dest="shard_map",
                     action="store_false",
-                    help="force the pjit spelling: each rank's gradient "
-                         "of the global mean loss, reduced")
+                    help="the JAX package's pjit spelling (the same "
+                         "update)")
     ap.add_argument("--model-parallel", type=int, default=None,
                     metavar="N",
                     help="tensor parallelism over N devices (default: "

@@ -29,9 +29,10 @@
 //
 // Route "cluster" (the design for Hopper):
 // * a row's K frames are split over the CTAs of a thread-block cluster,
-//   kc frames each, up to 4 CTAs a row; from 3 beams up only as many as
-//   keep the launch within one wave (~512 CTAs;
-//   stvd_torch/model/kernel.py:attention_core_split): 2 x 14 at preset 3,
+//   kc frames each, up to 4 CTAs a row; from 3 beams up 2, one wave
+//   (~512 CTAs) at a decode batch of 256, whatever the row count, so a
+//   row's sums run in one order at any batch
+//   (stvd_torch/model/kernel.py:attention_core_split): 2 x 14 at preset 3,
 //   4 x 7 at 1 beam (training, and path A's per-beam rows);
 // * each CTA fetches its ctx slice into shared memory with one TMA bulk
 //   copy, issued first, so it lands while the scores run, and asks L2 for

@@ -76,7 +76,7 @@ def score_chunks(width: int) -> int:
 ATTENTION_CORE_ROUTES = ("cluster", "simple")
 
 
-_CLUSTER_CTAS = 512   # CTAs the card holds at once at 3+ beams: one wave
+_BEAM_CTAS = 2        # CTAs a row from 3 beams up (csrc: attn_core.cu)
 _SM_SMEM = 233472     # shared memory of an SM; each CTA also takes 1 KB
 _WIDE = 2048          # A and Dc the eight-warp CTA covers (csrc)
 
@@ -89,32 +89,36 @@ def _cluster_smem(nb: int, kc: int, a: int, dc: int, ctx_bytes: int) -> int:
             + 4 * (nb * kc * (score_chunks(a) + 1) + 5 * nb))
 
 
-def attention_core_split(k: int, rows: int, nb: int, a: int = 0,
-                         dc: int = 0, ctx_bytes: int = 2
-                         ) -> Tuple[int, int]:
-    """Route 'cluster''s plan for K frames of ``rows`` context rows of
-    ``nb`` beams: (CTAs per row, frames per CTA).  Up to 4 CTAs a row,
-    frames as even as whole frames allow and no CTA empty.  From 3 beams
-    up a CTA holds 2^(C h) of every beam in registers (~96 a thread,
-    about 5 CTAs an SM), so only as many CTAs a row as keep the launch
-    within ~512 CTAs, one wave: K 28 over 256 rows of 5 beams -> (2, 14);
-    over 64 rows of 1 beam -> (4, 7) - unless that plan's shared memory
-    (A, Dc and the ctx element's ``ctx_bytes`` given) leaves room for one
-    CTA an SM: preset 4's 14 float32 frames of 2048 (115 KB) take 4 CTAs
-    of 7 frames instead.  ``chip_smoke.py --profile`` times every split
-    at the paths' shapes (split_ms)."""
+def attention_core_split(k: int, nb: int, a: int = 0, dc: int = 0,
+                         ctx_bytes: int = 2) -> Tuple[int, int]:
+    """Route 'cluster''s plan for K frames of ``nb`` beams: (CTAs per
+    row, frames per CTA).  Up to 4 CTAs a row, frames as even as whole
+    frames allow and no CTA empty.  From 3 beams up a CTA holds 2^(C h)
+    of every beam in registers (~96 a thread, about 5 CTAs an SM), so 2
+    CTAs a row, one wave of ~512 CTAs at a decode batch of 256: K 28 at
+    5 beams -> (2, 14); at 1 beam -> (4, 7) - unless that plan's shared
+    memory (A, Dc and the ctx element's ``ctx_bytes`` given) leaves room
+    for one CTA an SM: preset 4's 14 float32 frames of 2048 (115 KB) take
+    4 CTAs of 7 frames instead.
+
+    The plan does not depend on the number of rows: it sets the order in
+    which a row's frames are summed, so a row's context, and the beams'
+    near-ties that follow from it, are the same whether the row is
+    decoded in a batch of 256 or in a data-parallel rank's share of it.
+    ``chip_smoke.py --profile`` times every split at the paths' shapes
+    (split_ms)."""
     want = min(4, k)
     if nb >= 3:
-        wave = max(1, min(want, _CLUSTER_CTAS // max(rows, 1)))
-        smem = _cluster_smem(nb, -(-k // wave), a, dc, ctx_bytes)
+        few = min(want, _BEAM_CTAS)
+        smem = _cluster_smem(nb, -(-k // few), a, dc, ctx_bytes)
         if 2 * (smem + 1024) <= _SM_SMEM:
-            want = wave
+            want = few
     kc = -(-k // want)
     return -(-k // kc), kc
 
 
-def attention_core_route(rows: int, nb: int, k: int, a: int, dc: int,
-                         ctx_dtype, pctx_ptr: int, ctx_ptr: int,
+def attention_core_route(nb: int, k: int, a: int, dc: int, ctx_dtype,
+                         pctx_ptr: int, ctx_ptr: int,
                          kc: Optional[int] = None) -> str:
     """The attention core's route, from shapes, dtype and alignment alone:
     'cluster' when A and Dc are multiples of 8 (16-byte rows, whole TMA
@@ -128,7 +132,7 @@ def attention_core_route(rows: int, nb: int, k: int, a: int, dc: int,
         return "simple"
     el = 2 if ctx_dtype == torch.bfloat16 else 4
     if kc is None:
-        kc = attention_core_split(k, rows, nb, a, dc, el)[1]
+        kc = attention_core_split(k, nb, a, dc, el)[1]
     return ("cluster" if _cluster_smem(nb, kc, a, dc, el) <= _SMEM_LIMIT
             else "simple")
 
@@ -178,10 +182,10 @@ def _attention_core_cuda(h_att, beta_logit, pctx, ctx, ctx_mask, u_att,
     c_att = c_att.to(f32).reshape(())
     b_sel = b_sel.to(f32).reshape(())
     nb = bs // bc
-    kc = (attention_core_split(k, bc, nb, a, dc, ctx.element_size())[1]
+    kc = (attention_core_split(k, nb, a, dc, ctx.element_size())[1]
           if splits is None else -(-k // splits))
     if route is None:
-        route = attention_core_route(bc, nb, k, a, dc, ctx.dtype,
+        route = attention_core_route(nb, k, a, dc, ctx.dtype,
                                      pctx.data_ptr(), ctx.data_ptr(), kc)
     ctx_t = torch.empty((bs, dc), dtype=f32, device=h_att.device)
     alpha = torch.empty((bs, k), dtype=f32, device=h_att.device)

@@ -260,14 +260,13 @@ def make_train_step(mcfg, tcfg, step_fn=None, mesh=None,
     rank's dropout masks and coins are the global batch's, cut to its
     rows (``global_rows``), and one flat ``all_reduce`` sums the
     gradients and the four loss terms before the optimizer, whose
-    clipping and ``grad_norm`` see the reduced gradient.
-    ``use_shard_map=True`` is the JAX package's explicit-collective
-    spelling: gradients of the summed objective, reduced, then divided by
-    the global example weight.  ``use_shard_map=False`` is its pjit
-    spelling: each rank's gradient of the global mean loss over its rows
-    (the global example weight is reduced first), then reduced.  Both
-    give the same update.  ``grad_accum > 1`` with a mesh raises, as in
-    the JAX package."""
+    clipping and ``grad_norm`` see the reduced gradient.  Each rank takes
+    the gradient of its rows' summed objective; the reduced sum is divided
+    by the global example weight (the JAX package's explicit-collective
+    spelling, ``use_shard_map=True``).  ``use_shard_map`` is taken for the
+    JAX package's signature: its pjit spelling (False) makes the same
+    update, so both run this one.  ``grad_accum > 1`` with a mesh raises,
+    as in the JAX package."""
     opt = make_optimizer(tcfg)
     n_acc = tcfg.grad_accum
     if n_acc > 1 and mesh is not None:
@@ -291,26 +290,15 @@ def make_train_step(mcfg, tcfg, step_fn=None, mesh=None,
 
     def data_parallel(params, batch, gen):
         """Reduced gradients, loss and aux of the global batch."""
-        if use_shard_map:
-            obj, t = objective(params, batch, gen)
-            grads = _grads(obj, params)
-        else:
-            w = batch.get("weight")
-            ex = (w.sum() if w is not None
-                  else torch.tensor(float(batch["tokens"].shape[0]),
-                                    device=batch["tokens"].device))
-            den = parallel.all_reduce_flat([ex], mesh)[0].clamp_min(1.0)
-            obj, t = objective(params, batch, gen)
-            grads = _grads(obj / den, params)
+        obj, t = objective(params, batch, gen)
+        grads = _grads(obj, params)
         keys = sorted(grads)
         summed = parallel.all_reduce_flat(
             [grads[k] for k in keys] + [t[k] for k in _TERMS], mesh)
-        grads = dict(zip(keys, summed[:len(keys)]))
-        terms = dict(zip(_TERMS, summed[len(keys):]))
-        if use_shard_map:
-            den = terms["ex_den"].clamp_min(1.0)
-            grads = {k: g / den for k, g in grads.items()}
-        loss, aux = loss_from_terms(terms, mcfg)
+        den = summed[len(keys) + _TERMS.index("ex_den")].clamp_min(1.0)
+        grads = {k: g / den for k, g in zip(keys, summed)}
+        loss, aux = loss_from_terms(dict(zip(_TERMS, summed[len(keys):])),
+                                    mcfg)
         return grads, loss, aux
 
     def train_step(state: TrainState, batch):
@@ -541,9 +529,11 @@ def fit(cfg, train_ds: Dataset, valid_ds: Optional[Dataset] = None,
     With a ``mesh`` (1-D ``('data',)``) every rank calls ``fit`` with the
     same arguments and ``device`` its own device.  ``per_device_batch``
     > 0 sets the global batch to that times the data-axis size, which
-    must divide it.  The state is replicated from rank 0; every rank
-    walks the same seeded batch order and gathers only its rows, and the
-    update is ``make_train_step(..., mesh, use_shard_map)``'s (default
+    must divide it.  The state is replicated from rank 0, and so is a
+    ``reload_``: rank 0 alone writes checkpoints, so it alone reads one
+    (``save_dir`` need not be shared by the ranks); every rank walks the
+    same seeded batch order and gathers only its rows, and the update is
+    ``make_train_step(..., mesh, use_shard_map)``'s (default
     ``train.use_shard_map``).  Validation decodes data-parallel
     (``evaluate_split(..., mesh)``) and every rank takes rank 0's metric,
     so all reach the same decisions.  Rank 0 alone writes records,
@@ -571,8 +561,6 @@ def fit(cfg, train_ds: Dataset, valid_ds: Optional[Dataset] = None,
     elif not writer:
         logger = None
     state = init_train_state(tcfg.seed, mcfg, tcfg, device)
-    if mesh is not None:
-        parallel.replicate(state, mesh)
     metric_name = tcfg.metric
     key = _metric_key(metric_name)
     bigger_is_better = metric_name != "nll"
@@ -581,11 +569,20 @@ def fit(cfg, train_ds: Dataset, valid_ds: Optional[Dataset] = None,
     ckpt = os.path.join(tcfg.save_dir, "ckpt.pt")
     best_ckpt = os.path.join(tcfg.save_dir, "ckpt_best.pt")
     reload = tcfg.reload_ and os.path.exists(ckpt)
-    if reload:
+    saved = {}
+    if mesh is not None:
+        # rank 0 alone writes checkpoints, so its decision and its state,
+        # fresh or restored, hold on every rank (save_dir need not be
+        # shared)
+        reload = parallel.broadcast_object(reload, mesh)
+    if reload and writer:
         state, saved = restore_checkpoint(ckpt, state, device)
-        # a best of another metric is no yardstick: keep the weights only
-        if saved.get("metric") == metric_name:
-            fs = saved
+    if mesh is not None:
+        state = parallel.replicate(state, mesh)
+        saved = parallel.broadcast_object(saved, mesh)
+    # a best of another metric is no yardstick: keep the weights only
+    if reload and saved.get("metric") == metric_name:
+        fs = saved
     best = fs["best"] if fs["best"] is not None else (
         -math.inf if bigger_is_better else math.inf)
     if reload:

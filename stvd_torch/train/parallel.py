@@ -11,10 +11,11 @@ called by every rank of the mesh with the same arguments (apart from the
 rank's own data), in the same order: a collective waits for all ranks.
 
 The collectives are the ones NCCL takes and gloo takes for CUDA tensors
-(``all_reduce``, ``broadcast``, ``all_gather``, ``reduce_scatter_tensor``),
-so one code path serves NCCL across cards and gloo on one card or on the
-CPU.  The backend is chosen explicitly (``make_mesh(backend=...)``);
-without a choice it is NCCL on CUDA and gloo on the CPU.
+(``all_reduce``, ``broadcast`` and ``broadcast_object_list``, which is
+built on it, ``all_gather``, ``reduce_scatter_tensor``), so one code
+path serves NCCL across cards and gloo on one card or on the CPU.  The
+backend is chosen explicitly (``make_mesh(backend=...)``); without a
+choice it is NCCL on CUDA and gloo on the CPU.
 
 The model axis of the JAX module (``TP_RULES``, ``make_mesh_2d`` with
 ``model_parallel > 1``, ``state_shardings``, ``shard_state``) is not
@@ -121,37 +122,64 @@ def shard_batch(batch: Dict[str, Any], mesh) -> Dict[str, Any]:
     return {k: v[rows] for k, v in batch.items()}
 
 
-def _tensors(tree, out: List[torch.Tensor]) -> List[torch.Tensor]:
-    if isinstance(tree, torch.Tensor):
-        out.append(tree)
-    elif isinstance(tree, dict):
+def _leaves(tree, out: List[Any]) -> List[Any]:
+    """The leaves of ``tree`` (dicts in sorted key order, tuples, lists)."""
+    if isinstance(tree, dict):
         for k in sorted(tree):
-            _tensors(tree[k], out)
+            _leaves(tree[k], out)
     elif isinstance(tree, (tuple, list)):
         for v in tree:
-            _tensors(v, out)
+            _leaves(v, out)
+    else:
+        out.append(tree)
     return out
+
+
+def _with_leaves(tree, leaves) -> Any:
+    """``tree`` rebuilt with the leaves of the iterator ``leaves``, taken
+    in ``_leaves``'s order."""
+    if isinstance(tree, dict):
+        new = {k: _with_leaves(tree[k], leaves) for k in sorted(tree)}
+        return {k: new[k] for k in tree}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_with_leaves(v, leaves) for v in tree)
+    return next(leaves)
+
+
+def broadcast_object(obj: Any, mesh) -> Any:
+    """Rank 0's ``obj`` (any picklable value) on every rank."""
+    group = _group(mesh)
+    box = [obj]
+    dist.broadcast_object_list(box, src=dist.get_global_rank(group, 0),
+                               group=group)
+    return box[0]
 
 
 @torch.no_grad()
 def replicate(tree: Any, mesh) -> Any:
-    """Make every rank hold rank 0's values: each tensor of ``tree``
-    (dicts, tuples and lists of tensors, as a train state's parameters
-    and optimizer slots) is broadcast in place, and a ``torch.Generator``
-    in it takes rank 0's state.  Returns ``tree``."""
+    """Make every rank hold rank 0's values of ``tree`` (dicts, tuples
+    and lists, as a train state: parameters, optimizer slots, a step
+    count, the dropout generator), which has the same structure and
+    tensor shapes on every rank.  Each tensor is broadcast in place, a
+    ``torch.Generator`` takes rank 0's state, and every other leaf (a
+    count) is rank 0's in the tree returned: use the returned tree."""
     group = _group(mesh)
     src = dist.get_global_rank(group, 0)
-    for t in _tensors(tree, []):
-        dist.broadcast(t.data, src=src, group=group)
-    gens = ([tree[k] for k in sorted(tree)
-             if isinstance(tree[k], torch.Generator)]
-            if isinstance(tree, dict) else [])
-    for gen in gens:
-        # NCCL moves only CUDA tensors: the state crosses on the device
-        state = gen.get_state().to(gen.device)
-        dist.broadcast(state, src=src, group=group)
-        gen.set_state(state.cpu())
-    return tree
+    leaves = _leaves(tree, [])
+    for leaf in leaves:
+        if isinstance(leaf, torch.Tensor):
+            dist.broadcast(leaf.data, src=src, group=group)
+        elif isinstance(leaf, torch.Generator):
+            # NCCL moves only CUDA tensors: the state crosses on the device
+            state = leaf.get_state().to(leaf.device)
+            dist.broadcast(state, src=src, group=group)
+            leaf.set_state(state.cpu())
+    plain = broadcast_object(
+        [None if isinstance(x, (torch.Tensor, torch.Generator)) else x
+         for x in leaves], mesh)
+    return _with_leaves(tree, iter(
+        x if isinstance(x, (torch.Tensor, torch.Generator)) else y
+        for x, y in zip(leaves, plain)))
 
 
 @torch.no_grad()

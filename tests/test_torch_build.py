@@ -231,82 +231,82 @@ def test_spatial_bwd_route(s, dr, cdtype, ptrs, route):
     assert route in tkernel.SPATIAL_BWD_ROUTES
 
 
-@pytest.mark.parametrize("rows,nb,k,a,dc,dtype,pctx_ptr,ctx_ptr,route", [
-    (256, 5, 28, 1024, 1024, BF16, 0, 256, "cluster"),
-    (64, 1, 28, 1024, 1024, BF16, 16, 32, "cluster"),
-    (64, 8, 40, 1024, 1024, F32, 0, 0, "cluster"),
-    (1024, 1, 28, 1024, 1024, F32, 0, 0, "cluster"),
-    (7, 3, 1, 8, 8, BF16, 0, 0, "cluster"),
-    (256, 5, 28, 1024, 1024, BF16, 4, 0, "simple"),
-    (256, 5, 28, 1024, 1024, BF16, 0, 2, "simple"),
-    (256, 5, 28, 100, 304, BF16, 0, 0, "simple"),
-    (256, 5, 28, 1024, 300, F32, 0, 0, "simple"),
-    (256, 5, 28, 2048, 1024, BF16, 0, 0, "cluster"),
-    (256, 5, 28, 1024, 2048, BF16, 0, 0, "cluster"),
-    (64, 8, 400, 1024, 1024, F32, 0, 0, "simple"),
-    (256, 5, 28, 2048, 2048, F32, 0, 0, "cluster"),
-    (64, 1, 28, 2048, 2048, F32, 0, 0, "cluster"),
-    (256, 5, 28, 2056, 2048, F32, 0, 0, "simple"),
-    (256, 5, 28, 2048, 4096, BF16, 0, 0, "simple")])
-def test_attention_core_route(rows, nb, k, a, dc, dtype, pctx_ptr, ctx_ptr,
+@pytest.mark.parametrize("nb,k,a,dc,dtype,pctx_ptr,ctx_ptr,route", [
+    (5, 28, 1024, 1024, BF16, 0, 256, "cluster"),
+    (1, 28, 1024, 1024, BF16, 16, 32, "cluster"),
+    (8, 40, 1024, 1024, F32, 0, 0, "cluster"),
+    (1, 28, 1024, 1024, F32, 0, 0, "cluster"),
+    (3, 1, 8, 8, BF16, 0, 0, "cluster"),
+    (5, 28, 1024, 1024, BF16, 4, 0, "simple"),
+    (5, 28, 1024, 1024, BF16, 0, 2, "simple"),
+    (5, 28, 100, 304, BF16, 0, 0, "simple"),
+    (5, 28, 1024, 300, F32, 0, 0, "simple"),
+    (5, 28, 2048, 1024, BF16, 0, 0, "cluster"),
+    (5, 28, 1024, 2048, BF16, 0, 0, "cluster"),
+    (8, 400, 1024, 1024, F32, 0, 0, "simple"),
+    (5, 28, 2048, 2048, F32, 0, 0, "cluster"),
+    (1, 28, 2048, 2048, F32, 0, 0, "cluster"),
+    (5, 28, 2056, 2048, F32, 0, 0, "simple"),
+    (5, 28, 2048, 4096, BF16, 0, 0, "simple")])
+def test_attention_core_route(nb, k, a, dc, dtype, pctx_ptr, ctx_ptr,
                               route):
     """'cluster' only when A and Dc are whole 16-byte vectors of float32
     (multiples of 8 also for the bf16 TMA span) of at most 2048 columns
     (four warps a CTA up to 1024, eight above), both bases are 16-byte
     aligned and a CTA's ctx slice (or its partial sums over it) fits
-    shared memory: at 1024 rows one CTA a row takes all 28 float32 frames
-    (115 KB); K 400 over 64 rows, 100 float32 frames a CTA, does not
-    fit."""
-    assert tkernel.attention_core_route(rows, nb, k, a, dc, dtype, pctx_ptr,
+    shared memory: 20 float32 frames of 1024 a CTA (80 KB, K 40 at 8
+    beams) fit; K 400 at 8 beams, 100 float32 frames a CTA, does not."""
+    assert tkernel.attention_core_route(nb, k, a, dc, dtype, pctx_ptr,
                                         ctx_ptr) == route
     assert route in tkernel.ATTENTION_CORE_ROUTES
 
 
-@pytest.mark.parametrize("rows,nb,k,dtype,kc,route", [
-    (1024, 1, 28, F32, 28, "cluster"),
-    (1024, 1, 60, F32, 60, "simple"),
-    (256, 5, 28, BF16, 28, "cluster"),
-    (64, 8, 400, BF16, 100, "cluster"),
-    (64, 8, 400, BF16, 112, "simple")])
-def test_attention_core_route_of_a_given_plan(rows, nb, k, dtype, kc, route):
+@pytest.mark.parametrize("nb,k,dtype,kc,route", [
+    (1, 28, F32, 28, "cluster"),
+    (1, 60, F32, 60, "simple"),
+    (5, 28, BF16, 28, "cluster"),
+    (8, 400, BF16, 100, "cluster"),
+    (8, 400, BF16, 112, "simple")])
+def test_attention_core_route_of_a_given_plan(nb, k, dtype, kc, route):
     """With the frames per CTA given (a forced plan), the route checks
     that plan's slice against shared memory, not the default split's:
     28 float32 frames of 1024 (115 KB) fit, 60 (246 KB) do not; 100 bf16
     frames of 8 beams fit, 112 do not."""
-    assert tkernel.attention_core_route(rows, nb, k, 1024, 1024, dtype, 0,
-                                        0, kc) == route
+    assert tkernel.attention_core_route(nb, k, 1024, 1024, dtype, 0, 0,
+                                        kc) == route
 
 
-@pytest.mark.parametrize("k,rows,nb,plan", [
-    (1, 64, 1, (1, 1)), (2, 64, 1, (2, 1)), (5, 64, 1, (3, 2)),
-    (28, 64, 1, (4, 7)), (29, 64, 1, (4, 8)), (40, 64, 1, (4, 10)),
-    (28, 1280, 1, (4, 7)), (28, 1, 5, (4, 7)), (28, 150, 5, (3, 10)),
-    (28, 256, 5, (2, 14)), (28, 256, 3, (2, 14)), (28, 256, 2, (4, 7)),
-    (28, 1024, 8, (1, 28))])
-def test_attention_core_split(k, rows, nb, plan):
+@pytest.mark.parametrize("k,nb,plan", [
+    (1, 1, (1, 1)), (2, 1, (2, 1)), (5, 1, (3, 2)), (28, 1, (4, 7)),
+    (29, 1, (4, 8)), (40, 1, (4, 10)), (28, 2, (4, 7)), (28, 3, (2, 14)),
+    (28, 5, (2, 14)), (28, 8, (2, 14)), (29, 5, (2, 15)), (1, 5, (1, 1)),
+    (5, 5, (2, 3))])
+def test_attention_core_split(k, nb, plan):
     """At most 4 CTAs a row, frames as even as whole frames allow, no CTA
     without a frame (the last CTA holds 1..kc of them); from 3 beams up,
-    about 512 CTAs a launch at most (one wave)."""
-    splits, kc = tkernel.attention_core_split(k, rows, nb)
+    2 CTAs a row (one wave of ~512 CTAs at a decode batch of 256).  The
+    plan takes no row count: a row's frames are summed in one order
+    whatever the batch it is decoded in."""
+    splits, kc = tkernel.attention_core_split(k, nb)
     assert (splits, kc) == plan
     assert 1 <= splits <= 4 and (splits - 1) * kc < k <= splits * kc
     if nb >= 3:
-        assert rows * splits <= max(512, rows)
+        assert splits <= 2
 
 
-@pytest.mark.parametrize("k,rows,nb,a,dc,el,plan", [
-    (28, 256, 5, 2048, 2048, 4, (4, 7)), (28, 256, 5, 2048, 2048, 2, (2, 14)),
-    (28, 64, 1, 2048, 2048, 4, (4, 7)), (28, 1024, 8, 2048, 2048, 4, (4, 7)),
-    (5, 256, 5, 2048, 2048, 4, (2, 3)), (28, 256, 5, 1024, 1024, 2, (2, 14)),
-    (28, 256, 5, 1024, 1024, 4, (2, 14))])
-def test_attention_core_split_by_shared_memory(k, rows, nb, a, dc, el, plan):
-    """From 3 beams up the one-wave plan holds unless its CTA's shared
+@pytest.mark.parametrize("k,nb,a,dc,el,plan", [
+    (28, 5, 2048, 2048, 4, (4, 7)), (28, 5, 2048, 2048, 2, (2, 14)),
+    (28, 1, 2048, 2048, 4, (4, 7)), (28, 8, 2048, 2048, 4, (4, 7)),
+    (5, 5, 2048, 2048, 4, (2, 3)), (28, 5, 1024, 1024, 2, (2, 14)),
+    (28, 5, 1024, 1024, 4, (2, 14))])
+def test_attention_core_split_by_shared_memory(k, nb, a, dc, el, plan):
+    """From 3 beams up the 2-CTA plan holds unless its CTA's shared
     memory leaves room for one CTA an SM: preset 4's 14 float32 frames of
     2048 (115 KB) take 4 CTAs of 7 frames; the same frames in bf16 (57 KB)
-    or preset 3's keep (2, 14).  Without A and Dc the plan is the
-    one-wave rule's."""
-    assert tkernel.attention_core_split(k, rows, nb, a, dc, el) == plan
-    if nb >= 3 and plan != tkernel.attention_core_split(k, rows, nb):
+    or preset 3's keep (2, 14).  Without A and Dc the plan is the 2-CTA
+    rule's."""
+    assert tkernel.attention_core_split(k, nb, a, dc, el) == plan
+    if nb >= 3 and plan != tkernel.attention_core_split(k, nb):
         assert plan[0] == min(4, k)
 
 

@@ -56,7 +56,7 @@ def attention_inputs(bc, nb, k, a, dc, ctx_dtype, device, seed):
     ctx = torch.randn(bc, k, dc, generator=g, device=device).to(ctx_dtype)
     mask = (torch.rand(bc, k, generator=g, device=device) > 0.3).float()
     mask[:, 0] = 1.0
-    splits, kc = tkernel.attention_core_split(k, bc, nb, a, dc,
+    splits, kc = tkernel.attention_core_split(k, nb, a, dc,
                                               ctx.element_size())
     mask[1, (splits - 1) * kc:] = 0.0
     mask[2] = 0.0

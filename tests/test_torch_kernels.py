@@ -60,7 +60,7 @@ def test_attention_core_route_at_preset_4(rows, a, dc, route):
     route 'cluster' at 5 beams and at the training scan's 1 beam; only
     above 2048 columns does the core fall back to 'simple'."""
     nb = 5 if rows != 64 else 1
-    assert tkernel.attention_core_route(rows, nb, 28, a, dc, torch.float32,
+    assert tkernel.attention_core_route(nb, 28, a, dc, torch.float32,
                                         0, 0) == route
 
 

@@ -677,9 +677,9 @@ def test_msrvtt_recipe_routes():
     bf16 = torch.bfloat16
     rows = d.decode_batch * d.beam_size
     assert (m.dim, m.dim_word, m.n_words) == (3518, 468, 20000)
-    assert tkernel.attention_core_route(d.decode_batch, d.beam_size,
-                                        m.n_frames, m.attn_dim, m.ctx_dim,
-                                        torch.float32, 0, 0) == "cluster"
+    assert tkernel.attention_core_route(d.beam_size, m.n_frames, m.attn_dim,
+                                        m.ctx_dim, torch.float32, 0,
+                                        0) == "cluster"
     assert tkernel.logit_tail_route(rows, m.dim_word, m.n_words, bf16,
                                     0, 0) == "wmma"
     assert tkernel.gates_route(rows, m.dim_word + m.dim + m.ctx_dim, m.dim,

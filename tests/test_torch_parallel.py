@@ -13,13 +13,16 @@ imports it only inside the functions that run here):
   over ``make_mesh(devs[:n])``: loss within 1e-5 relative, parameters
   within 1e-5, the ranks' parameters bitwise equal;
 * a DP update with dropout against the port's single-process update on
-  the global batch (the masks are the global batch's, cut to the rank);
+  the global batch (the masks are the global batch's, cut to the rank),
+  and one without dropout bit for bit the single-process update of the
+  same split (``grad_accum`` = the ranks);
 * ``generate_captions(..., mesh)`` and the sharded bank's
   ``caption_ids`` / ``nbest_ids`` on divisible and indivisible chunks
   against the JAX package's: the same tokens;
 * ``fit(..., mesh)`` and ``cli.train --data-parallel`` against the
   port's single-process ``fit``: loss per update within 1e-5 relative,
-  the same valid metrics, one writer.
+  the same valid metrics, one writer; a reload from rank 0's checkpoint
+  when the other ranks' ``save_dir`` holds none.
 """
 
 from __future__ import annotations
@@ -119,6 +122,24 @@ def _dropout_update(mesh, params):
     return out
 
 
+def _split_update(mesh, params):
+    """One DP update and, on this rank, the single-process update of the
+    same split (``grad_accum`` = the ranks: each share's gradient,
+    summed, then divided), without dropout."""
+    mcfg = tconfig.ModelConfig(**MODEL)
+    n = parallel.axis_size(mesh)
+    out = {}
+    for name, m, acc in (("dp", mesh, 1), ("split", None, n)):
+        tcfg = tconfig.TrainConfig(**{**TRAIN, "grad_accum": acc})
+        batch = _global_batch()
+        state, met = tloop.make_train_step(mcfg, tcfg, None, m)(
+            _state(params, tcfg),
+            parallel.shard_batch(batch, m) if m else batch)
+        out[name] = {"loss": float(met["loss"]),
+                     "params": _numpy(state["params"])}
+    return out
+
+
 def _captioner(params, decode_batch):
     cfg = tconfig.Config(model=tconfig.ModelConfig(**MODEL),
                          decode=tconfig.DecodeConfig(
@@ -175,6 +196,21 @@ def _fit(mesh, root):
     return out
 
 
+def _fit_reload(mesh, root):
+    """``fit(..., mesh)`` resumed with ``reload_`` from ``_fit``'s run to
+    6 updates, rank 0 in ``_fit``'s directory and every other rank in an
+    empty one of its own, as on hosts that share no ``save_dir``."""
+    n, r = parallel.axis_size(mesh), parallel.axis_rank(mesh)
+    ds = synthetic_dataset(n_videos=12, k=6, d=32, maxlen=MAXLEN, seed=4)
+    run = os.path.join(root, f"fit_dp{n}" if r == 0 else f"fit_rank{n}_{r}")
+    res = tloop.fit(_fit_config(run, batch_size=0,
+                                per_device_batch=BATCH // n, reload_=True),
+                    ds, ds, None, mesh, max_updates=6, device="cpu")
+    return {"updates": [x["update"] for x in res.log],
+            "step": res.state["step"],
+            "params": _numpy(res.state["params"])}
+
+
 def _cli_train(mesh, root):
     from stvd_torch.cli import train as ttrain
     n = parallel.axis_size(mesh)
@@ -215,12 +251,14 @@ def _collectives(mesh):
     r = parallel.axis_rank(mesh)
     tree = {"w": torch.full((2, 3), float(r)),
             "slots": (torch.arange(4) * (r + 1), [torch.tensor(r + 0.5)]),
+            "count": (r + 7, {"step": 3 * r}),
             "generator": torch.Generator().manual_seed(100 + r)}
-    parallel.replicate(tree, mesh)
+    tree = parallel.replicate(tree, mesh)
     mean = parallel.psum_mean_grads(
         {"a": torch.full((3,), float(r)), "b": torch.tensor(2.0 * r)}, mesh)
     return {"w": tree["w"].tolist(), "slots": tree["slots"][0].tolist(),
-            "scalar": float(tree["slots"][1][0]),
+            "scalar": float(tree["slots"][1][0]), "count": tree["count"],
+            "object": parallel.broadcast_object({"rank": r}, mesh),
             "draw": torch.rand(2, generator=tree["generator"]).tolist(),
             "mean": {k: v.tolist() for k, v in mean.items()},
             "gathered": parallel.all_gather_rows(
@@ -236,6 +274,7 @@ def rank_checks(mesh, params, root):
     for spelling in ("pjit", "shard_map"):
         out[spelling] = _train(mesh, params, spelling)
     out["dropout"] = _dropout_update(mesh, params)
+    out["split"] = _split_update(mesh, params)
     dcfg = tconfig.DecodeConfig(decode_batch=6, **DECODE)
     ds = dataset(seed=3, n=N_VIDEOS)
     out["captions"] = generate_captions(
@@ -243,6 +282,7 @@ def rank_checks(mesh, params, root):
         to_device(ds.bank, "cpu"), N_VIDEOS, dcfg, mesh=mesh)
     out["bank"] = _bank(mesh, params)
     out["fit"] = _fit(mesh, root)
+    out["fit_reload"] = _fit_reload(mesh, root)
     out["cli"] = _cli_train(mesh, root)
     out["errors"] = _errors(mesh)
     out["modules"] = sorted(m for m in sys.modules
@@ -372,7 +412,7 @@ def test_dp_train_updates_match_jax(run, spelling):
 
 def test_dp_ranks_hold_bitwise_equal_parameters(run):
     """After 3 updates every rank holds the same bits, in both
-    spellings, and the two spellings agree within 1e-6."""
+    spellings, and the two spellings (one update) agree bit for bit."""
     _, _, ranks = run
     for spelling in ("pjit", "shard_map"):
         first = ranks[0][spelling]["params"]
@@ -380,8 +420,7 @@ def test_dp_ranks_hold_bitwise_equal_parameters(run):
             for k, v in r[spelling]["params"].items():
                 assert np.array_equal(v, first[k]), (spelling, k)
     for k, v in ranks[0]["pjit"]["params"].items():
-        np.testing.assert_allclose(v, ranks[0]["shard_map"]["params"][k],
-                                   rtol=0, atol=1e-6, err_msg=k)
+        assert np.array_equal(v, ranks[0]["shard_map"]["params"][k]), k
 
 
 def test_dp_dropout_update_matches_single_process(run):
@@ -395,6 +434,29 @@ def test_dp_dropout_update_matches_single_process(run):
         for k, v in single["params"].items():
             np.testing.assert_allclose(dp["params"][k], v, rtol=0,
                                        atol=1e-6, err_msg=k)
+
+
+def test_dp_update_is_the_split_update_bit_for_bit(run):
+    """A DP update is one process's update of the same split
+    (``grad_accum`` = the ranks): the one all-reduce adds the shares'
+    gradients and loss terms as the microbatch loop does, and both
+    divide once by the global example weight.  Bit for bit on 2 ranks
+    (one addition, which commutes); on 4 the all-reduce may add the
+    shares in another order than the loop: within 1e-6 of each leaf's
+    largest entry."""
+    n, _, ranks = run
+    for r in ranks:
+        dp, split = r["split"]["dp"], r["split"]["split"]
+        if n == 2:
+            assert dp["loss"] == split["loss"]
+            for k, v in split["params"].items():
+                assert np.array_equal(dp["params"][k], v), k
+        else:
+            assert dp["loss"] == pytest.approx(split["loss"], rel=1e-6)
+            for k, v in split["params"].items():
+                np.testing.assert_allclose(
+                    dp["params"][k], v, rtol=0,
+                    atol=1e-6 * np.abs(v).max(), err_msg=k)
 
 
 def test_dp_generate_captions_match_jax(run):
@@ -466,6 +528,20 @@ def test_dp_fit_matches_single_process_fit(run):
             "valid_samples.txt"} <= set(ranks[0]["fit"]["files"])
 
 
+def test_dp_fit_reloads_rank_0_s_checkpoint(run):
+    """``reload_`` over the mesh resumes every rank from rank 0's
+    checkpoint (step 4 of ``_fit``'s run), also where a rank's own
+    ``save_dir`` holds none: every rank runs updates 5 and 6 and ends
+    with the same bits."""
+    _, _, ranks = run
+    first = ranks[0]["fit_reload"]["params"]
+    for r in ranks:
+        assert r["fit_reload"]["updates"] == [5, 6]
+        assert r["fit_reload"]["step"] == 6
+        for k, v in r["fit_reload"]["params"].items():
+            assert np.array_equal(v, first[k]), k
+
+
 def test_cli_train_data_parallel_over_the_ranks(run):
     """``cli.train --preset msvd-dp --data-parallel`` on the ranks of a
     launch: every rank returns 0, rank 0 writes the run directory."""
@@ -491,8 +567,9 @@ def test_ranks_import_no_jax_and_run_gloo(run):
 
 
 def test_replicate_and_reductions_over_the_ranks(run):
-    """``replicate`` gives every rank rank 0's tensors and generator
-    state; ``psum_mean_grads`` is the rank mean; ``all_gather_rows``
+    """``replicate`` gives every rank rank 0's tensors, generator state
+    and other leaves (counts), ``broadcast_object`` rank 0's object;
+    ``psum_mean_grads`` is the rank mean; ``all_gather_rows``
     stacks the ranks' rows in rank order."""
     n, _, ranks = run
     draw = torch.rand(2, generator=torch.Generator().manual_seed(100))
@@ -500,6 +577,7 @@ def test_replicate_and_reductions_over_the_ranks(run):
         c = r["collectives"]
         assert c["w"] == [[0.0] * 3] * 2 and c["slots"] == [0, 1, 2, 3]
         assert c["scalar"] == 0.5 and c["draw"] == draw.tolist()
+        assert c["count"] == (7, {"step": 0}) and c["object"] == {"rank": 0}
         mean = (n - 1) / 2
         assert c["mean"] == {"a": [mean] * 3, "b": 2 * mean}
         assert c["gathered"] == [[q, q] for q in range(n) for _ in (0, 1)]
