@@ -619,8 +619,9 @@ def _attach_bank(cap, bank_path: str, manifest: Dict,
     from ..data.bank import FeatureBank
     if shards and shards > 1:
         raise NotImplementedError(
-            "--bank-shards above 1 (a bank sharded over several devices) "
-            "is not ported yet (ROADMAP.md Queue 1 item 8c)")
+            "--bank-shards above 1 (a bank sharded over several devices, "
+            "on a data mesh or a mesh with a model axis) is not ported "
+            "yet (ROADMAP.md Queue 1 item 8c)")
     n = cap.attach_bank(FeatureBank.load(bank_path))
     manifest["bank_videos"] = n
     manifest["bank_ids"] = cap.bank_ids

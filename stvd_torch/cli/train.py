@@ -25,8 +25,16 @@ Each rank joins the process group from ``RANK``, ``WORLD_SIZE`` and
 ``--no-shard-map`` name the JAX package's two spellings of the update,
 which make the same update); rank 0 writes the run directory.  One
 process (no ``WORLD_SIZE`` above 1) is a single-device run.
-``--model-parallel`` above 1 raises ``NotImplementedError`` (ROADMAP.md
-Queue 1 item 8b).
+
+Tensor parallelism (``--model-parallel M`` above 1, or
+``train.model_parallel``) runs over every rank ``torchrun`` starts, with
+or without ``--data-parallel``: a 2-D mesh of ``WORLD_SIZE // M`` data by
+M model ranks (``train.parallel.make_mesh_2d``), each rank holding its
+share of the big weights:
+
+    torchrun --nproc-per-node N -m stvd_torch.cli.train --model-parallel M
+    torchrun --nproc-per-node 2 -m stvd_torch.cli.train --preset msvd-beam \
+        --model-parallel 2 --device cpu --set ...   # gloo on the CPU
 """
 
 from __future__ import annotations
@@ -110,8 +118,10 @@ def main(argv=None) -> int:
                          "update)")
     ap.add_argument("--model-parallel", type=int, default=None,
                     metavar="N",
-                    help="tensor parallelism over N devices (default: "
-                         "cfg.train.model_parallel; only 1 is ported)")
+                    help="tensor parallelism: shard the big weights over "
+                         "an N-wide 'model' mesh axis of the ranks torchrun "
+                         "starts (2-D data x model mesh; default: "
+                         "cfg.train.model_parallel)")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; cpu for a CPU run)")
     args = ap.parse_args(argv)
@@ -122,16 +132,21 @@ def main(argv=None) -> int:
           else args.data_parallel)
     mp = (cfg.train.model_parallel if args.model_parallel is None
           else args.model_parallel)
-    if mp > 1:
-        raise NotImplementedError(
-            "model parallelism is not ported yet (ROADMAP.md Queue 1 "
-            "item 8b)")
     mesh = None
-    if dp and int(os.environ.get("WORLD_SIZE", "1")) > 1:
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if mp > 1:
+        # TP implies a mesh over all ranks even without --data-parallel
+        # (the data axis is then WORLD_SIZE // mp, possibly 1)
+        if world % mp:
+            raise ValueError(f"{world} devices not divisible by "
+                             f"model_parallel={mp} (launch the ranks with "
+                             "torchrun)")
+        mesh = parallel.make_mesh_2d(device.type, model_parallel=mp)
+    elif dp and world > 1:
         mesh = parallel.make_mesh(device.type)
-        if device.type == "cuda":
-            device = torch.device("cuda", torch.cuda.current_device())
-    writer = parallel.axis_rank(mesh) == 0
+    if mesh is not None and device.type == "cuda":
+        device = torch.device("cuda", torch.cuda.current_device())
+    writer = parallel.is_first_rank(mesh)
     os.makedirs(cfg.train.save_dir, exist_ok=True)
     if writer:
         with open(os.path.join(cfg.train.save_dir, "config.json"),

@@ -75,8 +75,9 @@ from .model import kernel as _kernel  # noqa: F401 (registers the custom ops)
 FORMAT = "stvd-torch-aot-decode-v1"
 JAX_FORMAT = "stvd-aot-decode-v1"
 PLATFORMS = ("cuda", "cpu")
-_PARALLEL = ("graphs sharded over several devices are not ported yet "
-             "(ROADMAP.md Queue 1 item 8c)")
+_PARALLEL = ("graphs sharded over several devices (a data mesh, or a mesh "
+             "with a model axis) are not ported yet (ROADMAP.md Queue 1 "
+             "item 8c)")
 
 
 def _decode_run_fn(cfg: Config, step_fn):

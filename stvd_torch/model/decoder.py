@@ -15,6 +15,7 @@ import torch
 import torch.utils.checkpoint
 
 from . import step as step_mod
+from . import tp
 from .step import Params, StepOut
 
 # (params, cfg, state, step_context, emb_t, x_pre=None) -> StepOut
@@ -107,8 +108,8 @@ def encode_context(params: Params, cfg, frames: torch.Tensor,
     else:
         if motion is None:
             raise ValueError("use_motion=True but no motion features given")
-        ctx = (step_mod._dot(frames, params["W_app"], cdtype)
-               + step_mod._dot(motion, params["W_mot"], cdtype)
+        ctx = (tp.row_sum([(frames, params["W_app"]),
+                           (motion, params["W_mot"])], cdtype)
                + params["b_fuse"])
     if cfg.encoder == "lstm":
         # masked frames are excluded downstream by the attention mask
@@ -122,13 +123,13 @@ def _frame_lstm(params: Params, cfg, ctx: torch.Tensor) -> torch.Tensor:
     recurrence.  Returns the (B, K, ctx_dim) float32 states."""
     cdtype = step_mod.compute_dtype(cfg)
     dc = cfg.ctx_dim
-    x_pre = step_mod._dot(ctx, params["enc_W"], cdtype) + params["enc_b"]
+    x_pre = tp.row(ctx, params["enc_W"], cdtype) + params["enc_b"]
     h = torch.zeros((ctx.shape[0], dc), dtype=torch.float32,
                     device=ctx.device)
     c = torch.zeros_like(h)
     hs = []
     for t in range(ctx.shape[1]):
-        preact = x_pre[:, t] + step_mod._dot(h, params["enc_U"], cdtype)
+        preact = x_pre[:, t] + tp.row(h, params["enc_U"], cdtype)
         i = torch.sigmoid(preact[:, 0 * dc: 1 * dc])
         f = torch.sigmoid(preact[:, 1 * dc: 2 * dc])
         o = torch.sigmoid(preact[:, 2 * dc: 3 * dc])
@@ -224,7 +225,7 @@ def forward_train(params: Params, cfg, batch: Dict[str, torch.Tensor],
     remat = cfg.remat and train
 
     if teacher:
-        x_pre_all = step_mod._dot(emb_in, params["W"], cdtype) + params["b"]
+        x_pre_all = tp.row(emb_in, params["W"], cdtype) + params["b"]
         if cfg.fused_seq_grad:
             from . import seqgrad
             run = seqgrad.run_spatial if cfg.use_spatial else seqgrad.run

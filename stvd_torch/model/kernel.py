@@ -40,6 +40,7 @@ from typing import Optional, Tuple
 import torch
 
 from . import step as step_mod
+from . import tp
 from .. import _build
 
 
@@ -738,8 +739,9 @@ gates_lstm.launches_by_route = dict.fromkeys(GATES_ROUTES, 0)
 def _train_tail_plain(ctx_t, x_pre_t, h_gates, c, wc, cdtype
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One train-scan step's tail: preact = (x_pre_t + h_gates) + ctx_t @
-    Wc, then the LSTM pointwise.  Returns (h_t, c_t, preact), float32."""
-    preact = x_pre_t + h_gates + step_mod._dot(ctx_t, wc, cdtype)
+    Wc (row-parallel under a model axis, ``tp.row``), then the LSTM
+    pointwise.  Returns (h_t, c_t, preact), float32."""
+    preact = x_pre_t + h_gates + tp.row(ctx_t, wc, cdtype)
     return (*step_mod.lstm_update(preact, c), preact)
 
 
@@ -1014,29 +1016,38 @@ class RegionProjection(torch.autograd.Function):
     the compute dtype.  Its backward forms dWs_att from the compute-dtype
     operands with ``dws_gemm`` (``use_kernel``) or its plain version,
     dbs_att as a float32 sum, and d(regions) only when regions require a
-    gradient."""
+    gradient.  Under a model axis with Ws_att row-sharded the product is
+    row-parallel (``tp``): the rank's contiguous Dr slice of the regions
+    times its rows, one reduce, then the bias; dWs_att is the GEMM kernel
+    on that slice, and d(regions) is gathered."""
 
     @staticmethod
     def forward(ctx, regions, w, b, cdtype, use_kernel):
-        ctx.save_for_backward(regions, w)
+        width = regions.shape[-1]
+        part = tp.local_cols(regions, w.shape[0])
+        ctx.save_for_backward(part, w)
         ctx.cdtype = cdtype
         ctx.wgrad = dws_gemm if use_kernel else _dws_plain
-        return step_mod._dot(regions, w, cdtype) + b
+        ctx.regions = (regions.shape, regions.dtype)
+        ctx.axis = tp.current()
+        y = step_mod._dot(part, w, cdtype)
+        return tp.reduce_rows(y, width, w.shape[0]) + b
 
     @staticmethod
     def backward(ctx, g):
-        regions, w = ctx.saved_tensors
+        part, w = ctx.saved_tensors
         cd = ctx.cdtype
+        shape, dtype = ctx.regions
         g2 = g.reshape(-1, g.shape[-1])
         d_reg = d_w = d_b = None
         if ctx.needs_input_grad[1]:
-            d_w = ctx.wgrad(regions.reshape(-1, regions.shape[-1]).to(cd),
+            d_w = ctx.wgrad(part.reshape(-1, part.shape[-1]).to(cd),
                             g2.to(cd)).to(w.dtype)
         if ctx.needs_input_grad[2]:
             d_b = g2.sum(dim=0)
         if ctx.needs_input_grad[0]:
-            d_reg = step_mod._dot(g2, w.t(), cd).reshape(
-                regions.shape).to(regions.dtype)
+            with tp.using(ctx.axis):
+                d_reg = tp.col(g2, w, shape[-1], cd).reshape(shape).to(dtype)
         return d_reg, d_w, d_b, None, None
 
 

@@ -48,7 +48,8 @@ import torch
 
 from . import kernel as kernel_mod
 from . import step as step_mod
-from .step import _dot, compute_dtype, masked_softmax
+from . import tp
+from .step import compute_dtype, masked_softmax
 
 
 class Opts(NamedTuple):
@@ -112,12 +113,14 @@ def _attn_bwd(dalpha, alpha, mask_f, e, u32):
 
 
 def _weight_grads(h_prev, dhp_stack, ctxs, hw, wc, dim, cdtype):
-    """The two post-scan products over all T*B rows: (dhw, dwc, dx_pre)."""
+    """The two post-scan products over all T*B rows: (dhw, dwc, dx_pre);
+    under a model axis each takes the rows of its weight on the rank."""
     t, b, p = dhp_stack.shape
     dhp_flat = dhp_stack.reshape(t * b, p).to(cdtype)
-    dhw = _dot(h_prev.reshape(t * b, -1).t(), dhp_flat, cdtype).to(hw.dtype)
-    dwc = _dot(ctxs.reshape(t * b, -1).t(), dhp_flat[:, :4 * dim],
-               cdtype).to(wc.dtype)
+    dhw = tp.wgrad(h_prev.reshape(t * b, -1), dhp_flat, hw,
+                   cdtype).to(hw.dtype)
+    dwc = tp.wgrad(ctxs.reshape(t * b, -1), dhp_flat[:, :4 * dim], wc,
+                   cdtype).to(wc.dtype)
     return dhw, dwc, dhp_stack[:, :, :4 * dim]
 
 
@@ -135,7 +138,7 @@ class FusedSequence(torch.autograd.Function):
         ys = {k: [] for k in ("h", "c", "ctx", "alpha", "pre", "h_att",
                               "blogit")}
         for t in range(x_pre_all.shape[0]):
-            hp = _dot(h, hw, cd)
+            hp = tp.row(h, hw, cd)
             h_gates, h_att, blogit, _ = _split_hp(hp, opts.dim, opts.attn)
             ctx_t, alpha = opts.attention_core(
                 h_att, blogit, pctx, ctxt, ctx_mask, u_att, c_att, b_sel,
@@ -148,6 +151,7 @@ class FusedSequence(torch.autograd.Function):
                 ys[k].append(v)
         st = {k: torch.stack(v) for k, v in ys.items()}
         ctx.opts = opts
+        ctx.axis = tp.current()
         ctx.save_for_backward(hw, wc, u_att, c_att, b_sel, ctxt, pctx,
                               ctx_mask, h0, c0, st["h"], st["c"], st["ctx"],
                               st["alpha"], st["pre"], st["h_att"],
@@ -156,6 +160,11 @@ class FusedSequence(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dhs, dctxs, dalphas):
+        with tp.using(ctx.axis):
+            return FusedSequence._backward(ctx, dhs, dctxs, dalphas)
+
+    @staticmethod
+    def _backward(ctx, dhs, dctxs, dalphas):
         opts = ctx.opts
         cd, dim = opts.cdtype, opts.dim
         (hw, wc, u_att, c_att, b_sel, ctxt, pctx, ctx_mask, h0, c0, hs, cs,
@@ -163,7 +172,7 @@ class FusedSequence(torch.autograd.Function):
         T = hs.shape[0]
         h_prev = torch.cat([h0[None], hs[:-1]])
         c_prev = torch.cat([c0[None], cs[:-1]])
-        wc_t, hw_t = wc.t(), hw.t()
+        dc_w, d_w = ctxt.shape[-1], h0.shape[-1]
         u32 = u_att.to(pctx.dtype)
         mask_f = (ctx_mask > 0).float()
         f32 = torch.float32
@@ -179,7 +188,7 @@ class FusedSequence(torch.autograd.Function):
         for t in reversed(range(T)):
             dpre, dc = _lstm_bwd(dh + dhs[t], dc, preacts[t], cs[t],
                                  c_prev[t], dim)
-            dctx_t = dctxs[t] + _dot(dpre, wc_t, cd)
+            dctx_t = dctxs[t] + tp.col(dpre, wc, dc_w, cd)
             alpha = alphas[t]
             ctxw = torch.einsum("bk,bkd->bd", alpha.to(ctxt.dtype),
                                 ctxt).float()
@@ -198,7 +207,7 @@ class FusedSequence(torch.autograd.Function):
             dhp = torch.cat([dpre, dpe.sum(dim=1).float(), dblogit[:, None]],
                             dim=1)
             dhp_stack[t] = dhp
-            dh = _dot(dhp, hw_t, cd)
+            dh = tp.col(dhp, hw, d_w, cd)
         dhw, dwc, dx_pre = _weight_grads(h_prev, dhp_stack, ctxs, hw, wc,
                                          dim, cd)
         return (None, dhw, dwc, du_att.to(u_att.dtype), dc_att.to(c_att.dtype),
@@ -235,13 +244,13 @@ class FusedSequenceSpatial(torch.autograd.Function):
         ys = {k: [] for k in ("h", "c", "ctx", "alpha", "pre", "h_att",
                               "blogit", "h_satt", "alpha_s")}
         for t in range(x_pre_all.shape[0]):
-            hp = _dot(h, hw, cd)
+            hp = tp.row(h, hw, cd)
             h_gates, h_att, blogit, h_satt = _split_hp(hp, opts.dim,
                                                        opts.attn)
             spat, alpha_s = spatial_stage(h_satt, pregion_c, regions_c, u_s,
                                           c_s, cd)
-            ctx_k = ctxt + _dot(spat, w_sf, cd)
-            pctx_k = pctx + _dot(spat, w_sfa, cd)
+            fuse, pfuse = tp.row_split(spat, [w_sf, w_sfa], cd)
+            ctx_k, pctx_k = ctxt + fuse, pctx + pfuse
             ctx_t, alpha = opts.attention_core(
                 h_att, blogit, pctx_k, ctx_k, ctx_mask, u_att, c_att, b_sel,
                 opts.selector)
@@ -254,6 +263,7 @@ class FusedSequenceSpatial(torch.autograd.Function):
                 ys[k].append(v)
         st = {k: torch.stack(v) for k, v in ys.items()}
         ctx.opts = opts
+        ctx.axis = tp.current()
         ctx.save_for_backward(
             hw, wc, u_att, c_att, b_sel, u_s, c_s, w_sf, w_sfa, ctxt, pctx,
             pregion_c, regions_c, ctx_mask, h0, c0, st["h"], st["c"],
@@ -265,6 +275,11 @@ class FusedSequenceSpatial(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dhs, dctxs, dalphas):
+        with tp.using(ctx.axis):
+            return FusedSequenceSpatial._backward(ctx, dhs, dctxs, dalphas)
+
+    @staticmethod
+    def _backward(ctx, dhs, dctxs, dalphas):
         opts = ctx.opts
         cd, dim = opts.cdtype, opts.dim
         (hw, wc, u_att, c_att, b_sel, u_s, c_s, w_sf, w_sfa, ctxt, pctx,
@@ -277,7 +292,7 @@ class FusedSequenceSpatial(torch.autograd.Function):
         want_dregions = ctx.needs_input_grad[12]
         h_prev = torch.cat([h0[None], hs[:-1]])
         c_prev = torch.cat([c0[None], cs[:-1]])
-        wc_t, hw_t, w_sf_t, w_sfa_t = wc.t(), hw.t(), w_sf.t(), w_sfa.t()
+        dc_w, d_w, dr_w = ctxt.shape[-1], h0.shape[-1], regions_c.shape[-1]
         u32 = u_att.to(pctx.dtype)
         mask_f = (ctx_mask > 0).float()
         dh, dc = torch.zeros_like(h0), torch.zeros_like(c0)
@@ -299,12 +314,12 @@ class FusedSequenceSpatial(torch.autograd.Function):
         spat = torch.einsum("bkr,bkrd->bkd", alpha_ss[-1].to(cd), regions_c)
         for t in reversed(range(T)):
             h_att, blogit, alpha = h_atts[t], blogits[t], alphas[t]
-            ctx_k = ctxt + _dot(spat, w_sf, cd)
-            pctx_k = pctx + _dot(spat, w_sfa, cd)
+            fuse, pfuse = tp.row_split(spat, [w_sf, w_sfa], cd)
+            ctx_k, pctx_k = ctxt + fuse, pctx + pfuse
             e = torch.tanh(pctx_k + h_att[:, None, :])
             dpre, dc = _lstm_bwd(dh + dhs[t], dc, preacts[t], cs[t],
                                  c_prev[t], dim)
-            dctx_t = dctxs[t] + _dot(dpre, wc_t, cd)
+            dctx_t = dctxs[t] + tp.col(dpre, wc, dc_w, cd)
             ctxw = torch.einsum("bk,bkd->bd", alpha.to(ctx_k.dtype),
                                 ctx_k).float()
             dcw, dblogit, dbs = _selector_bwd(dctx_t, ctxw, blogit, b_sel,
@@ -321,10 +336,10 @@ class FusedSequenceSpatial(torch.autograd.Function):
             dck_f = dck.reshape(B * K, -1).to(cd)
             dpk_f = dpk.reshape(B * K, -1).to(cd)
             sp_f = spat.reshape(B * K, -1).to(cd)
-            dw_sf += _dot(sp_f.t(), dck_f, cd)
-            dw_sfa += _dot(sp_f.t(), dpk_f, cd)
-            dspat = (_dot(dck_f, w_sf_t, cd)
-                     + _dot(dpk_f, w_sfa_t, cd)).reshape(B, K, -1)
+            dw_sf += tp.wgrad(sp_f, dck_f, w_sf, cd)
+            dw_sfa += tp.wgrad(sp_f, dpk_f, w_sfa, cd)
+            dspat = tp.col_sum([(dck_f, w_sf), (dpk_f, w_sfa)], dr_w,
+                               cd).reshape(B, K, -1)
             alpha_prev = alpha_ss[t - 1] if t > 0 else zeros_r
             dh_satt, du_c, dss, spat = opts.spatial_bwd(
                 h_satts[t], pregion_c, regions_c, alpha_ss[t], alpha_prev,
@@ -333,7 +348,7 @@ class FusedSequenceSpatial(torch.autograd.Function):
             dc_s = dc_s + dss.sum()
             dhp_stack[t] = torch.cat([dpre, dpk.sum(dim=1).float(),
                                       dblogit[:, None], dh_satt], dim=1)
-            dh = _dot(dhp_stack[t], hw_t, cd)
+            dh = tp.col(dhp_stack[t], hw, d_w, cd)
             if want_dregions:
                 dspat_stack[t] = dspat.to(cd)
         dhw, dwc, dx_pre = _weight_grads(h_prev, dhp_stack, ctxs, hw, wc,
@@ -361,6 +376,9 @@ def _kernel_on(switch: str) -> bool:
 
 
 def _opts(cfg, spatial: bool) -> Opts:
+    """The scans' options; under a model axis the train-scan tail is the
+    plain one, whose ``ctx_t @ Wc`` is row-parallel ('on' is refused by
+    ``tp.check_options``)."""
     cd = compute_dtype(cfg)
     acc = None
     if spatial:
@@ -375,6 +393,7 @@ def _opts(cfg, spatial: bool) -> Opts:
                         else step_mod._attention_core),
         train_tail=(kernel_mod.train_tail
                     if _kernel_on(cfg.train_tail_kernel)
+                    and tp.current() is None
                     else kernel_mod._train_tail_plain),
         spatial_bwd=((kernel_mod.spatial_bwd
                       if _kernel_on(cfg.spatial_bwd_kernel)

@@ -26,6 +26,8 @@ from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
+from . import tp
+
 Params = Dict[str, torch.Tensor]
 
 # (global rows, this rank's first row) of a data-parallel batch while
@@ -155,8 +157,8 @@ def _check_options(cfg) -> None:
 def _h_att_weights(params: Params, cfg) -> torch.Tensor:
     """h-projection weights of the decode path:
     [Wd_att | W_sel (| Wsd_att under spatial attention)]."""
-    cols = [params["Wd_att"],
-            params["W_sel"][:, None].to(params["Wd_att"].dtype)]
+    w_sel = tp.rows_like(params["W_sel"], params["Wd_att"].shape[0])
+    cols = [params["Wd_att"], w_sel[:, None].to(params["Wd_att"].dtype)]
     if cfg.use_spatial:
         cols.append(params["Wsd_att"])
     return torch.cat(cols, dim=1)
@@ -217,7 +219,7 @@ def precompute(params: Params, cfg, ctx: torch.Tensor,
     differentiable: gradients reach W, U and Wc through the cast copy."""
     _check_options(cfg)
     cdtype = compute_dtype(cfg)
-    pctx = _dot(ctx, params["Wc_att"], cdtype) + params["b_att"]
+    pctx = tp.row(ctx, params["Wc_att"], cdtype) + params["b_att"]
     denom = ctx_mask.sum(dim=1, keepdim=True).clamp_min(1.0)
     mean_ctx = (ctx * ctx_mask[..., None]).sum(dim=1) / denom
     pregion = w_sf_att = None
@@ -230,11 +232,22 @@ def precompute(params: Params, cfg, ctx: torch.Tensor,
                                     params["bs_att"], cdtype,
                                     cfg.spatial_bwd_kernel != "off")
         # pctx'_t = pctx + spat_t @ (W_spat_fuse @ Wc_att): the composed
-        # (Dr, attn_dim) weight saves one matmul per step
-        w_sf_att = _dot(params["W_spat_fuse"], params["Wc_att"], cdtype)
+        # (Dr, attn_dim) weight saves one matmul per step; under a model
+        # axis its rows are those of the rank's W_spat_fuse, composed
+        # with the whole Wc_att
+        w_sf_att = _dot(params["W_spat_fuse"],
+                        tp.whole_rows(params["Wc_att"], ctx.shape[-1]),
+                        cdtype)
     gates_w = gates_w_q = gates_scale = h_proj_w = None
     if train:
         h_proj_w = _h_projection_weights(params, cfg)
+    elif tp.current() is not None:
+        # the step takes W, U and Wc apart, each row-parallel
+        if cfg.decode_quant == "int8":
+            raise ValueError(
+                "decode_quant='int8' cannot run under a model axis: each "
+                "rank holds a row slice of the gates stack, whose per-column "
+                "scales are maxima over all of its rows")
     else:
         gates_w = _gates_weights(params)
         if cfg.decode_quant == "int8":
@@ -251,10 +264,10 @@ def precompute(params: Params, cfg, ctx: torch.Tensor,
 def init_state(params: Params, cfg, sc: StepContext) -> StepState:
     """h0/c0 from the masked mean context through tanh layers."""
     cdtype = compute_dtype(cfg)
-    h0 = torch.tanh(_dot(sc.mean_ctx, params["ff_state_W"], cdtype)
-                    + params["ff_state_b"])
-    c0 = torch.tanh(_dot(sc.mean_ctx, params["ff_memory_W"], cdtype)
-                    + params["ff_memory_b"])
+    ph, pc = tp.row_split(sc.mean_ctx, [params["ff_state_W"],
+                                        params["ff_memory_W"]], cdtype)
+    h0 = torch.tanh(ph + params["ff_state_b"])
+    c0 = torch.tanh(pc + params["ff_memory_b"])
     return StepState(h=h0, c=c0)
 
 
@@ -379,10 +392,10 @@ def step_with_core(params: Params, cfg, state: StepState, sc: StepContext,
     attn = cfg.attn_dim
     h, c = state
     if x_pre is None:
-        hp = _dot(h, sc.h_att_w, cdtype)              # (B, attn + 1 [+ s])
+        hp = tp.row(h, sc.h_att_w, cdtype)           # (B, attn + 1 [+ s])
         off = 0
     else:
-        hp = _dot(h, sc.h_proj_w, cdtype)     # (B, 4 dim + attn + 1 [+ s])
+        hp = tp.row(h, sc.h_proj_w, cdtype)   # (B, 4 dim + attn + 1 [+ s])
         off = 4 * cfg.dim
     # beam broadcast: context tensors keep their (Bc, ...) batch; only
     # the recurrent state carries the beam axis (Bs = Bc * nb)
@@ -397,18 +410,26 @@ def step_with_core(params: Params, cfg, state: StepState, sc: StepContext,
         # the fused context differs per beam: (Bs, K, .) from here on,
         # and the attention core runs with nb = 1 on Bs rows
         k_f = ctx_k.shape[1]
-        ctx_k = (ctx_k[:, None] + _dot(spat, params["W_spat_fuse"], cdtype)
-                 ).reshape(bs, k_f, -1)
-        pctx_k = (pctx_k[:, None] + _dot(spat, sc.w_sf_att, cdtype)
-                  ).reshape(bs, k_f, -1)
+        fuse, pfuse = tp.row_split(spat, [params["W_spat_fuse"],
+                                          sc.w_sf_att], cdtype)
+        ctx_k = (ctx_k[:, None] + fuse).reshape(bs, k_f, -1)
+        pctx_k = (pctx_k[:, None] + pfuse).reshape(bs, k_f, -1)
         alpha_s = alpha_s.reshape(bs, k_f, -1)
         if nb > 1:
             ctx_mask = ctx_mask.repeat_interleave(nb, dim=0)
     ctx_t, alpha = attention_core(
         hp[:, off:off + attn], hp[:, off + attn], pctx_k, ctx_k, ctx_mask,
         params["U_att"], params["c_att"], params["b_sel"], cfg.selector)
+    preact = None
     if x_pre is not None:
-        preact = x_pre + hp[:, :off] + _dot(ctx_t, params["Wc"], cdtype)
+        preact = x_pre + hp[:, :off] + tp.row(ctx_t, params["Wc"], cdtype)
+    elif tp.current() is not None:
+        # under a model axis the gates are three row-parallel products
+        # with one reduce; the gates kernel, which fuses them with the
+        # LSTM, is refused there (tp.check_options)
+        preact = tp.row_sum([(emb_t, params["W"]), (h, params["U"]),
+                             (ctx_t, params["Wc"])], cdtype) + params["b"]
+    if preact is not None:
         h_t, c_t = lstm_update(preact, c)
         return StepOut(h=h_t, c=c_t, ctx_t=ctx_t, alpha=alpha,
                        alpha_s=alpha_s)
@@ -490,9 +511,9 @@ def logit_activation(params: Params, cfg, h: torch.Tensor,
     activation's device).  ``emb`` is added raw: a bf16 embedding
     promotes to float32 in the sum, as in JAX."""
     cdtype = compute_dtype(cfg)
-    logit = (_dot(h, params["ff_logit_lstm_W"], cdtype)
-             + params["ff_logit_lstm_b"]
-             + _dot(ctx_t, params["ff_logit_ctx_W"], cdtype))
+    logit = (tp.row_sum([(h, params["ff_logit_lstm_W"]),
+                         (ctx_t, params["ff_logit_ctx_W"])], cdtype)
+             + params["ff_logit_lstm_b"])
     if cfg.prev_word_logit:
         logit = logit + emb
     logit = torch.tanh(logit)
@@ -516,4 +537,4 @@ def logits_from_states(params: Params, cfg, h: torch.Tensor,
     cdtype = compute_dtype(cfg)
     act = logit_activation(params, cfg, h, ctx_t, emb, generator, train,
                            keep)
-    return _dot(act, params["ff_logit_W"], cdtype) + params["ff_logit_b"]
+    return tp.vocab(act, params["ff_logit_W"], params["ff_logit_b"], cdtype)

@@ -6,9 +6,12 @@ Every video of a split is decoded (beam search, or greedy at
 written to ``{split}_samples.txt`` and ``.json`` in the run directory,
 and the split scored with the COCO metrics (``metrics.scorer``); the
 metric dict is what ``fit`` selects a model by.  The decode is eager:
-there is no compiled executable to cache.  With a 1-D ``('data',)`` mesh
-(``train.parallel``) each rank decodes its slice of every decode batch
-and the tokens are gathered, so every rank returns every caption.
+there is no compiled executable to cache.  With a mesh (``train.parallel``)
+each data rank decodes its slice of every decode batch and the tokens are
+gathered, so every rank returns every caption; on a 2-D ``('data',
+'model')`` mesh the weights are each rank's share and a model group
+decodes its slice together (``decode.parallel``: the products over the
+model axis, kernel 2 per vocab shard).
 """
 
 from __future__ import annotations
@@ -24,8 +27,10 @@ from ..data.bank import to_device
 from ..data.batching import Dataset
 from ..decode.beam import beam_decode
 from ..decode.greedy import greedy_decode
+from ..decode.parallel import tp_decode_step
 from ..metrics.scorer import score_all
 from ..model.decoder import StepFn
+from ..model import tp
 from ..model.kernel import get_step_fn
 from ..model.step import compute_dtype
 from . import parallel
@@ -40,18 +45,22 @@ def generate_captions(params, mcfg, dev_bank: Dict[str, torch.Tensor],
     one shape.  All batches are dispatched before the first is read.
 
     With a ``mesh`` (every rank calls this with the same arguments) the
-    batch is rounded down to a multiple of the data-axis size (at least
-    one row a rank), each rank decodes its contiguous slice of every
-    batch, and one ``all_gather`` a batch brings every rank all tokens,
-    as the JAX package's batch-sharded decode does."""
+    batch is rounded down to a multiple of the mesh's ranks (at least
+    one row a rank, as the JAX package's ``mesh.devices.size``), each
+    data rank decodes its contiguous slice of every batch, and one
+    ``all_gather`` a batch brings every rank all tokens, as the JAX
+    package's batch-sharded decode does.  On a 2-D mesh ``params`` is the
+    rank's share and the ranks of a model group decode their slice
+    together (``decode.parallel.tp_decode_step``)."""
     bsz = min(dcfg.decode_batch, n_videos)
     if mesh is not None:
-        n_dev = parallel.axis_size(mesh)
+        n_dev = parallel.axis_size(mesh) * parallel.model_axis_size(mesh)
         bsz = max(n_dev, (bsz // n_dev) * n_dev)
+    step_fn = tp_decode_step(mesh, step_fn)
     mine = parallel.local_slice(bsz, mesh)
     dev = dev_bank["frames"].device
     pending = []
-    with torch.no_grad():
+    with torch.no_grad(), tp.model_axis(mesh, mcfg):
         for s in range(0, n_videos, bsz):
             rows = np.arange(s, min(s + bsz, n_videos))
             pad = bsz - len(rows)
@@ -90,16 +99,16 @@ def evaluate_split(params, cfg, ds: Dataset, split: str = "valid",
     ``"unk"``.  ``step_fn=None`` takes ``get_step_fn(None, device)``:
     the kernel step on a CUDA device.  With a ``mesh`` every rank calls
     this with the same arguments: the decode is data-parallel
-    (``generate_captions``), every rank scores all captions on the host
-    (the same metrics on every rank) and rank 0 alone writes the
-    samples files."""
+    (``generate_captions``; tensor-parallel too on a 2-D mesh), every rank
+    scores all captions on the host (the same metrics on every rank) and
+    rank 0 alone writes the samples files."""
     if step_fn is None:
         step_fn = get_step_fn(None, device)
     dev_bank = to_device(ds.bank, device, compute_dtype(cfg.model))
     token_rows = generate_captions(params, cfg.model, dev_bank,
                                    ds.bank.n_videos, cfg.decode,
                                    step_fn=step_fn, mesh=mesh)
-    if parallel.axis_rank(mesh) != 0:
+    if not parallel.is_first_rank(mesh):
         save_dir = None
     hyps: Dict[str, List[str]] = {}
     gts: Dict[str, List[str]] = {}

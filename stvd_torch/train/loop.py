@@ -1,8 +1,9 @@
 """The training loop (counterpart of stvd/train/loop.py): optimizers, the
 train step, validation by NLL and caption metrics, model selection,
-checkpointing and early stopping, on one device or data-parallel over a
-1-D ``('data',)`` mesh (``train.parallel``; every rank calls ``fit`` and
-the train step with the same arguments).
+checkpointing and early stopping, on one device, data-parallel over a
+1-D ``('data',)`` mesh, or over a 2-D ``('data', 'model')`` mesh whose
+model axis shards the big weights (``train.parallel``, ``model.tp``);
+every rank calls ``fit`` and the train step with the same arguments.
 
 The optimizers follow the JAX package's ``make_optimizer``, which uses
 optax: each is a pair of functions ``init(params) -> state`` and
@@ -29,6 +30,8 @@ from ..data.bank import to_device
 from ..data.batching import (BatchIterator, BucketedBatchIterator, Dataset,
                              gather_batch)
 from ..decode.greedy import greedy_decode
+from ..decode.parallel import tp_decode_step
+from ..model import tp
 from ..model.decoder import init_params
 from ..model.kernel import get_step_fn
 from ..model.step import Params, compute_dtype, global_rows
@@ -60,12 +63,35 @@ def global_norm(tensors: Tensors) -> torch.Tensor:
                           for k in sorted(tensors)))
 
 
-def clip_by_global_norm(max_norm: float) -> GradientTransformation:
+def tp_global_norm(shardings: Dict[str, Optional[int]], mesh
+                   ) -> Callable[[Tensors], torch.Tensor]:
+    """``global_norm`` of the whole gradient from a rank's share of it
+    under a model axis: the squares of the sharded leaves (``shardings``,
+    ``parallel.param_shardings``) summed over the model axis, those of the
+    replicated leaves, which every rank holds whole, counted once."""
+    import torch.distributed as dist
+
+    def norm(tensors):
+        parts = {True: [], False: []}
+        for k in sorted(tensors):
+            parts[shardings.get(k) is not None].append(
+                (tensors[k].float() ** 2).sum())
+        sharded = torch.stack(parts[True]).sum()
+        dist.all_reduce(sharded, group=parallel.model_group(mesh))
+        rep = torch.stack(parts[False]).sum() if parts[False] else 0.0
+        return torch.sqrt(sharded + rep)
+
+    return norm
+
+
+def clip_by_global_norm(max_norm: float, norm=global_norm
+                        ) -> GradientTransformation:
     """optax.clip_by_global_norm: ``t / g_norm * max_norm`` when
-    ``g_norm >= max_norm``; chosen on the device, so no host sync."""
+    ``g_norm >= max_norm``; chosen on the device, so no host sync.
+    ``norm`` computes g_norm (``tp_global_norm`` for a rank's share)."""
 
     def update(grads, state):
-        g_norm = global_norm(grads)
+        g_norm = norm(grads)
         keep = g_norm < max_norm
         return ({k: torch.where(keep, g, (g / g_norm) * max_norm)
                  for k, g in grads.items()}, state)
@@ -174,9 +200,9 @@ def chain(*transforms: GradientTransformation) -> GradientTransformation:
     return GradientTransformation(init, update)
 
 
-def make_optimizer(tcfg) -> GradientTransformation:
+def make_optimizer(tcfg, norm=global_norm) -> GradientTransformation:
     """The JAX package's optimizers, chained after global-norm clipping
-    when ``clip_c > 0``."""
+    (by ``norm``) when ``clip_c > 0``."""
     slot = (torch.bfloat16 if tcfg.opt_slot_dtype == "bfloat16"
             else torch.float32)
     if tcfg.optimizer == "adadelta":
@@ -190,7 +216,7 @@ def make_optimizer(tcfg) -> GradientTransformation:
     else:
         raise ValueError(f"unknown optimizer {tcfg.optimizer!r}")
     if tcfg.clip_c > 0:
-        return chain(clip_by_global_norm(tcfg.clip_c), opt)
+        return chain(clip_by_global_norm(tcfg.clip_c, norm), opt)
     return opt
 
 
@@ -266,20 +292,39 @@ def make_train_step(mcfg, tcfg, step_fn=None, mesh=None,
     spelling, ``use_shard_map=True``).  ``use_shard_map`` is taken for the
     JAX package's signature: its pjit spelling (False) makes the same
     update, so both run this one.  ``grad_accum > 1`` with a mesh raises,
-    as in the JAX package."""
-    opt = make_optimizer(tcfg)
+    as in the JAX package.
+
+    With a 2-D ``('data', 'model')`` mesh (``parallel.make_mesh_2d``) the
+    state is each rank's share (``parallel.shard_state``): the forward and
+    its backward run their products over the model axis (``model.tp``),
+    each rank's gradients are its shards of the sharded leaves and the
+    whole of the replicated ones, the flat ``all_reduce`` runs over the
+    data axis only, and the global norm of clipping and ``grad_norm``
+    adds the sharded leaves' squares over the model axis
+    (``tp_global_norm``).  ``use_shard_map=True`` raises there, as in the
+    JAX package, and so does a kernel that cannot run under a model axis
+    (``tp.check_options``)."""
     n_acc = tcfg.grad_accum
     if n_acc > 1 and mesh is not None:
         raise ValueError("grad_accum is the single-device memory lever; "
                          "with a mesh, shard the batch instead")
-    if mesh is not None:
-        parallel.check_data_mesh(mesh)
+    norm = global_norm
+    if parallel.has_model_axis(mesh):
+        if use_shard_map:
+            raise ValueError("use_shard_map is the explicit DP path; "
+                             "tensor parallelism (a 2-D mesh) uses the "
+                             "pjit path")
+        tp.check_options(mcfg, mesh)
+        if parallel.model_axis_size(mesh) > 1:
+            norm = tp_global_norm(parallel.param_shardings(mcfg, mesh), mesh)
+    opt = make_optimizer(tcfg, norm)
     n_data, rank = parallel.axis_size(mesh), parallel.axis_rank(mesh)
 
     def terms_of(params, batch, gen):
         b = batch["tokens"].shape[0]
         with (contextlib.nullcontext() if mesh is None
-              else global_rows(b * n_data, rank * b)):
+              else global_rows(b * n_data, rank * b)), \
+                tp.model_axis(mesh, mcfg):
             return loss_terms(params, mcfg, batch, generator=gen,
                               train=True, ss_prob=tcfg.ss_prob,
                               step_fn=step_fn)
@@ -329,7 +374,7 @@ def make_train_step(mcfg, tcfg, step_fn=None, mesh=None,
             grads = _grads(loss, params)
         if tcfg.debug_nans:
             _check_finite(loss, grads)
-        gnorm = global_norm(grads)
+        gnorm = norm(grads)
         updates, opt_state = opt.update(grads, state["opt_state"])
         apply_updates(params, updates)
         new_state = {"params": params, "opt_state": opt_state,
@@ -344,13 +389,16 @@ def make_train_step(mcfg, tcfg, step_fn=None, mesh=None,
 
 @torch.no_grad()
 def evaluate_nll_stats(params: Params, mcfg, ds: Dataset, batch_size: int,
-                       step_fn=None, *, device: torch.device | str = "cuda"
-                       ) -> Tuple[float, float, float]:
+                       step_fn=None, *, device: torch.device | str = "cuda",
+                       mesh=None) -> Tuple[float, float, float]:
     """(NLL numerator, example count, token count) over a split, without
     dropout, in fixed-shape batches (the wrapped tail weighs 0).  The
     positional parameters are the JAX package's; ``step_fn`` is the step
     of the autodiff scan (``fused_seq_grad=False``), while the default
-    scan runs its own step body (as in the JAX package)."""
+    scan runs its own step body (as in the JAX package).  With a 2-D
+    ``mesh`` ``params`` is the rank's share and the products run over the
+    model axis; every rank of a model group calls this, each group takes
+    the whole split."""
     dev = to_device(ds.bank, device, compute_dtype(mcfg))
     it = BatchIterator(ds.captions.n, min(batch_size, ds.captions.n),
                        shuffle=False)
@@ -358,7 +406,9 @@ def evaluate_nll_stats(params: Params, mcfg, ds: Dataset, batch_size: int,
     for idx, w in it.epoch():
         batch = gather_batch(dev, ds.captions, idx)
         batch["weight"] = torch.from_numpy(w).to(device)
-        t = loss_terms(params, mcfg, batch, train=False, step_fn=step_fn)
+        with tp.model_axis(mesh, mcfg):
+            t = loss_terms(params, mcfg, batch, train=False,
+                           step_fn=step_fn)
         num += float(t["nll_num"])
         ex += float(t["ex_den"])
         tok += float(t["tok_den"])
@@ -366,11 +416,12 @@ def evaluate_nll_stats(params: Params, mcfg, ds: Dataset, batch_size: int,
 
 
 def evaluate_nll(params: Params, mcfg, ds: Dataset, batch_size: int,
-                 step_fn=None, *, device: torch.device | str = "cuda"
-                 ) -> float:
-    """Mean per-example NLL over a split."""
+                 step_fn=None, *, device: torch.device | str = "cuda",
+                 mesh=None) -> float:
+    """Mean per-example NLL over a split (``mesh`` as in
+    ``evaluate_nll_stats``)."""
     num, ex, _ = evaluate_nll_stats(params, mcfg, ds, batch_size, step_fn,
-                                    device=device)
+                                    device=device, mesh=mesh)
     return num / max(ex, 1.0)
 
 
@@ -451,9 +502,10 @@ def _validate(params: Params, cfg, ds: Dataset, step_fn, update: int,
     """NLL and the caption metrics of a split, as one record of kind
     ``split``; the samples files go to ``save_dir``.  With a mesh the
     captions are decoded data-parallel; the NLL pass runs whole on every
-    rank, as in the JAX package."""
+    rank (on every model group, under a model axis), as in the JAX
+    package."""
     nll = evaluate_nll(params, cfg.model, ds, cfg.train.valid_batch_size,
-                       step_fn, device=device)
+                       step_fn, device=device, mesh=mesh)
     scores = evaluate_split(params, cfg, ds, split=split,
                             save_dir=cfg.train.save_dir, step_fn=step_fn,
                             mesh=mesh, device=device)
@@ -463,16 +515,18 @@ def _validate(params: Params, cfg, ds: Dataset, step_fn, update: int,
 
 
 def _print_samples(params: Params, cfg, ds: Dataset, dev_bank, step_fn,
-                   update: int, logger, n: int = 2) -> None:
+                   update: int, logger, n: int = 2, mesh=None) -> None:
     """Greedy captions of the split's first ``n`` videos beside their
-    first reference, one ``sample`` record each."""
+    first reference, one ``sample`` record each (with a 2-D ``mesh`` every
+    rank of the calling model group decodes them together)."""
     rows = torch.arange(min(n, ds.bank.n_videos),
                         device=dev_bank["frames"].device)
     batch = {k: v.index_select(0, rows) for k, v in dev_bank.items()}
-    with torch.no_grad():
+    with torch.no_grad(), tp.model_axis(mesh, cfg.model):
         toks = greedy_decode(params, cfg.model, batch,
                              maxlen=cfg.decode.maxlen,
-                             step_fn=step_fn).tokens.cpu().numpy()
+                             step_fn=tp_decode_step(mesh, step_fn)
+                             ).tokens.cpu().numpy()
     for i in range(len(rows)):
         refs = ds.references[i]
         _emit(logger, {
@@ -538,7 +592,16 @@ def fit(cfg, train_ds: Dataset, valid_ds: Optional[Dataset] = None,
     (``evaluate_split(..., mesh)``) and every rank takes rank 0's metric,
     so all reach the same decisions.  Rank 0 alone writes records,
     samples, checkpoints and the profile; ``logger`` is used on rank 0
-    only."""
+    only.
+
+    With a 2-D ``('data', 'model')`` mesh the batch is split over the data
+    axis, each rank keeps its share of the replicated state
+    (``parallel.shard_state``), and the updates, the NLL pass and the
+    validation decode run over the model axis.  Every checkpoint holds
+    the whole state (``parallel.gather_state``, which every rank joins),
+    so it loads in one process; a reload slices each rank's share from
+    rank 0's.  The samples are decoded by the model group of data rank 0.
+    The result's state is the whole one."""
     tcfg, mcfg = cfg.train, cfg.model
     if use_shard_map is None:
         use_shard_map = tcfg.use_shard_map
@@ -551,7 +614,9 @@ def fit(cfg, train_ds: Dataset, valid_ds: Optional[Dataset] = None,
         raise ValueError(
             f"batch_size {tcfg.batch_size} must be divisible by the mesh "
             f"data-axis size {n_data} (static data-parallel sharding)")
-    writer = parallel.axis_rank(mesh) == 0
+    writer = parallel.is_first_rank(mesh)
+    # the model group that decodes the samples (rank 0's)
+    lead = parallel.axis_rank(mesh) == 0
     if step_fn is None:
         step_fn = get_step_fn(None, device)
     os.makedirs(tcfg.save_dir, exist_ok=True)
@@ -580,6 +645,22 @@ def fit(cfg, train_ds: Dataset, valid_ds: Optional[Dataset] = None,
     if mesh is not None:
         state = parallel.replicate(state, mesh)
         saved = parallel.broadcast_object(saved, mesh)
+    shardings = None
+    if parallel.has_model_axis(mesh):
+        shardings = parallel.state_shardings(state, mesh)
+        state = parallel.shard_state(state, mesh)
+
+    def whole():
+        return (state if shardings is None
+                else parallel.gather_state(state, mesh, shardings))
+
+    def save(path):
+        # every rank joins the gather of a sharded state
+        full = whole()
+        if writer:
+            save_checkpoint(path, full, fs)
+        return full
+
     # a best of another metric is no yardstick: keep the weights only
     if reload and saved.get("metric") == metric_name:
         fs = saved
@@ -643,9 +724,9 @@ def fit(cfg, train_ds: Dataset, valid_ds: Optional[Dataset] = None,
                         rec["steps_per_sec"] = round(rate, 2)
                     log.append(_emit(logger, rec))
                 if (tcfg.sample_freq > 0 and update % tcfg.sample_freq == 0
-                        and writer):
+                        and lead):
                     _print_samples(state["params"], cfg, train_ds, dev,
-                                   step_fn, update, logger)
+                                   step_fn, update, logger, mesh=mesh)
                 if (tcfg.valid_freq > 0 and update % tcfg.valid_freq == 0
                         and valid_ds is not None):
                     scores = _validate(state["params"], cfg, valid_ds,
@@ -661,8 +742,7 @@ def fit(cfg, train_ds: Dataset, valid_ds: Optional[Dataset] = None,
                     if (val > best) if bigger_is_better else (val < best):
                         best = val
                         fs.update(best=val, best_step=update, bad_rounds=0)
-                        if writer:
-                            save_checkpoint(best_ckpt, state, fs)
+                        save(best_ckpt)
                         _emit(logger, {"kind": "best", "update": update,
                                        "metric": metric_name, "value": val})
                     else:
@@ -673,9 +753,8 @@ def fit(cfg, train_ds: Dataset, valid_ds: Optional[Dataset] = None,
                                 "bad_rounds": fs["bad_rounds"]})
                             stop = True
                             break
-                if (tcfg.save_freq > 0 and update % tcfg.save_freq == 0
-                        and writer):
-                    save_checkpoint(ckpt, state, fs)
+                if tcfg.save_freq > 0 and update % tcfg.save_freq == 0:
+                    save(ckpt)
                 if max_updates is not None and update >= max_updates:
                     stop = True
                     break
@@ -687,8 +766,7 @@ def fit(cfg, train_ds: Dataset, valid_ds: Optional[Dataset] = None,
             prof.stop()
         if nan_debug is not None:
             nan_debug.__exit__()
-    if writer:
-        save_checkpoint(ckpt, state, fs)
+    state = save(ckpt)
     if own_logger:
         logger.close()
     return FitResult(best_metric=float(best), best_step=fs["best_step"],

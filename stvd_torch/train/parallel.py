@@ -1,11 +1,16 @@
-"""Data parallelism over a 1-D ``('data',)`` device mesh (the port's copy
-of the data axis of stvd/train/parallel.py).
+"""Data and tensor parallelism over a device mesh (the port's copy of
+stvd/train/parallel.py): the 1-D ``('data',)`` mesh, and the 2-D
+``('data', 'model')`` mesh whose model axis shards the big weights by
+``TP_RULES``.
 
-The JAX package is single-controller: one process holds a ``Mesh`` and
-XLA inserts the gradient ``psum``.  The port is SPMD: one process per
+The JAX package is single-controller: one process holds a ``Mesh``, the
+weights are placed by ``TP_RULES`` and XLA inserts the gradient ``psum``
+and one ``psum`` a sharded product.  The port is SPMD: one process per
 device (launched by ``torchrun``, or by ``spawn`` below for ranks on one
-host), a ``torch.distributed`` process group for the mesh's data axis
-(``torch.distributed.device_mesh``), and explicit collectives.  Every
+host), a ``torch.distributed`` ``DeviceMesh`` whose dimensions are the
+mesh's axes, and explicit collectives: each rank holds its slice of
+every sharded weight (``shard_state``), and the products that read one
+are written row-parallel or vocab-parallel in ``model.tp``.  Every
 function here, and every function of the port that takes a ``mesh``, is
 called by every rank of the mesh with the same arguments (apart from the
 rank's own data), in the same order: a collective waits for all ranks.
@@ -16,10 +21,6 @@ built on it, ``all_gather``, ``reduce_scatter_tensor``), so one code
 path serves NCCL across cards and gloo on one card or on the CPU.  The
 backend is chosen explicitly (``make_mesh(backend=...)``); without a
 choice it is NCCL on CUDA and gloo on the CPU.
-
-The model axis of the JAX module (``TP_RULES``, ``make_mesh_2d`` with
-``model_parallel > 1``, ``state_shardings``, ``shard_state``) is not
-ported: ROADMAP.md Queue 1 item 8b.
 """
 
 from __future__ import annotations
@@ -35,13 +36,57 @@ import torch
 import torch.distributed as dist
 
 DATA_AXIS = "data"
-_MODEL_AXIS_TODO = ("tensor parallelism (a 'model' mesh axis) is not "
-                    "ported yet (ROADMAP.md Queue 1 item 8b)")
+MODEL_AXIS = "model"
+
+# parameter name -> the axis its model-axis slices cut (0: rows, the
+# input features of a row-sharded product; 1: the vocab columns of
+# ff_logit_W); a parameter not listed is replicated.  The JAX package's
+# TP_RULES with each PartitionSpec written as its sharded axis.
+TP_RULES: Dict[str, int] = {
+    # gates products: row-sharded on their input axis
+    "U": 0,                # (d, 4d) recurrent
+    "W": 0,                # (dw, 4d) input projection
+    "Wc": 0,               # (ctx, 4d) context projection
+    # logit stack: row-sharded projections, vocab-column output
+    "ff_logit_lstm_W": 0,  # (d, dw)
+    "ff_logit_ctx_W": 0,   # (ctx, dw)
+    "ff_logit_W": 1,       # (dw, V)
+    "ff_logit_b": 0,       # (V,)
+    # attention, selector and init projections
+    "Wc_att": 0,           # (ctx, attn)
+    "Wd_att": 0,           # (d, attn)
+    "ff_state_W": 0,       # (ctx, d)
+    "ff_memory_W": 0,      # (ctx, d)
+    # spatial stream (presets 2 and 4)
+    "Ws_att": 0,           # (Dr, s)
+    "Wsd_att": 0,          # (d, s)
+    "W_spat_fuse": 0,      # (Dr, ctx)
+    # motion fusion and the frame-LSTM encoder
+    "W_app": 0,
+    "W_mot": 0,
+    "enc_W": 0,
+    "enc_U": 0,
+}
 
 
 def default_backend(device_type: str) -> str:
     """torch's own choice: NCCL for CUDA tensors, gloo for the CPU."""
     return "nccl" if device_type == "cuda" else "gloo"
+
+
+def _init_group(devices, backend: Optional[str]) -> str:
+    """The device type of the ranks; joins the process group from
+    ``torchrun``'s environment if there is none yet."""
+    kind = torch.device(devices if devices is not None else "cuda").type
+    if not dist.is_initialized():
+        if kind == "cuda" and "LOCAL_RANK" in os.environ:
+            torch.cuda.set_device(int(os.environ["LOCAL_RANK"]))
+        dist.init_process_group(backend or default_backend(kind),
+                                init_method="env://")
+    elif backend is not None and dist.get_backend() != backend:
+        raise ValueError(f"the process group runs {dist.get_backend()!r}, "
+                         f"not the requested {backend!r}")
+    return kind
 
 
 def make_mesh(devices: Optional[str | torch.device] = None,
@@ -56,15 +101,7 @@ def make_mesh(devices: Optional[str | torch.device] = None,
     ``torchrun`` sets (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``,
     ``MASTER_PORT``) with ``backend`` (default ``default_backend``); an
     existing group must have ``backend`` when one is given."""
-    kind = torch.device(devices if devices is not None else "cuda").type
-    if not dist.is_initialized():
-        if kind == "cuda" and "LOCAL_RANK" in os.environ:
-            torch.cuda.set_device(int(os.environ["LOCAL_RANK"]))
-        dist.init_process_group(backend or default_backend(kind),
-                                init_method="env://")
-    elif backend is not None and dist.get_backend() != backend:
-        raise ValueError(f"the process group runs {dist.get_backend()!r}, "
-                         f"not the requested {backend!r}")
+    kind = _init_group(devices, backend)
     from torch.distributed.device_mesh import init_device_mesh
     return init_device_mesh(kind, (dist.get_world_size(),),
                             mesh_dim_names=(DATA_AXIS,))
@@ -72,20 +109,40 @@ def make_mesh(devices: Optional[str | torch.device] = None,
 
 def make_mesh_2d(devices=None, model_parallel: int = 1,
                  backend: Optional[str] = None):
-    """The JAX package's 2-D (data x model) mesh: with ``model_parallel``
-    1 it is the data mesh; above 1 it is not ported (item 8b)."""
-    if model_parallel > 1:
-        raise NotImplementedError(_MODEL_AXIS_TODO)
-    return make_mesh(devices, backend)
+    """The 2-D (data x model) mesh over every rank of the process group,
+    a ``DeviceMesh`` of shape ``(world // model_parallel,
+    model_parallel)`` with the dimensions ``('data', 'model')``: the rank
+    at (d, m) is ``d * model_parallel + m``, as the JAX package's
+    ``devs.reshape(n // mp, mp)``.  With ``model_parallel`` 1 it is still
+    a 2-D mesh, on which the JAX package's train step is the TP one.
+    ``devices`` and ``backend`` are ``make_mesh``'s; a world that
+    ``model_parallel`` does not divide raises ``ValueError``."""
+    kind = _init_group(devices, backend)
+    world = dist.get_world_size()
+    if model_parallel < 1 or world % model_parallel:
+        raise ValueError(f"{world} devices not divisible by "
+                         f"model_parallel={model_parallel}")
+    from torch.distributed.device_mesh import init_device_mesh
+    return init_device_mesh(kind, (world // model_parallel, model_parallel),
+                            mesh_dim_names=(DATA_AXIS, MODEL_AXIS))
+
+
+def has_model_axis(mesh) -> bool:
+    """Whether ``mesh`` is a 2-D (data x model) mesh."""
+    names = getattr(mesh, "mesh_dim_names", None)
+    return names is not None and MODEL_AXIS in names
 
 
 def check_data_mesh(mesh) -> None:
-    """Raise unless ``mesh`` is a 1-D ``('data',)`` mesh."""
+    """Raise unless ``mesh`` is a 1-D ``('data',)`` mesh: serving with a
+    bank sharded over a mesh with a model axis is not ported (ROADMAP.md
+    Queue 1 item 8c)."""
     names = getattr(mesh, "mesh_dim_names", None)
     if names is None or tuple(names) != (DATA_AXIS,):
         raise NotImplementedError(
-            f"only a 1-D ('data',) mesh is ported, not {names!r}; "
-            + _MODEL_AXIS_TODO)
+            f"only a 1-D ('data',) mesh serves a sharded bank, not "
+            f"{names!r}: sharded serving on a mesh with a model axis is "
+            "not ported yet (ROADMAP.md Queue 1 item 8c)")
 
 
 def axis_size(mesh) -> int:
@@ -146,12 +203,28 @@ def _with_leaves(tree, leaves) -> Any:
     return next(leaves)
 
 
+def _from_rank_0(mesh):
+    """(group, source) of each broadcast that takes rank 0's value to
+    every rank: over the model axis from each model group's first rank,
+    then over the data axis from each data group's first rank (ranks
+    (0, m) then hold rank 0's)."""
+    names = (MODEL_AXIS, DATA_AXIS) if has_model_axis(mesh) else (DATA_AXIS,)
+    for name in names:
+        group = mesh.get_group(name)
+        yield group, dist.get_global_rank(group, 0)
+
+
+def _broadcast(t: torch.Tensor, mesh) -> None:
+    """Rank 0's ``t`` on every rank of the mesh, in place."""
+    for group, src in _from_rank_0(mesh):
+        dist.broadcast(t, src=src, group=group)
+
+
 def broadcast_object(obj: Any, mesh) -> Any:
-    """Rank 0's ``obj`` (any picklable value) on every rank."""
-    group = _group(mesh)
+    """Rank 0's ``obj`` (any picklable value) on every rank of the mesh."""
     box = [obj]
-    dist.broadcast_object_list(box, src=dist.get_global_rank(group, 0),
-                               group=group)
+    for group, src in _from_rank_0(mesh):
+        dist.broadcast_object_list(box, src=src, group=group)
     return box[0]
 
 
@@ -163,16 +236,14 @@ def replicate(tree: Any, mesh) -> Any:
     tensor shapes on every rank.  Each tensor is broadcast in place, a
     ``torch.Generator`` takes rank 0's state, and every other leaf (a
     count) is rank 0's in the tree returned: use the returned tree."""
-    group = _group(mesh)
-    src = dist.get_global_rank(group, 0)
     leaves = _leaves(tree, [])
     for leaf in leaves:
         if isinstance(leaf, torch.Tensor):
-            dist.broadcast(leaf.data, src=src, group=group)
+            _broadcast(leaf.data, mesh)
         elif isinstance(leaf, torch.Generator):
             # NCCL moves only CUDA tensors: the state crosses on the device
             state = leaf.get_state().to(leaf.device)
-            dist.broadcast(state, src=src, group=group)
+            _broadcast(state, mesh)
             leaf.set_state(state.cpu())
     plain = broadcast_object(
         [None if isinstance(x, (torch.Tensor, torch.Generator)) else x
@@ -212,8 +283,7 @@ def broadcast_value(value: float, mesh) -> float:
     """Rank 0's ``value`` on every rank (float64 on the mesh's device)."""
     t = torch.tensor([value], dtype=torch.float64,
                      device=_mesh_device(mesh))
-    group = _group(mesh)
-    dist.broadcast(t, src=dist.get_global_rank(group, 0), group=group)
+    _broadcast(t, mesh)
     return float(t.item())
 
 
@@ -245,6 +315,113 @@ def sum_rows(t: torch.Tensor, mesh, scatter: bool) -> torch.Tensor:
     out = t.new_empty((t.shape[0] // axis_size(mesh),) + t.shape[1:])
     dist.reduce_scatter_tensor(out, t, group=_group(mesh))
     return out
+
+
+# ---------------------------------------------------------------------------
+# The model axis: which rank holds which slice of each weight
+# ---------------------------------------------------------------------------
+
+def model_axis_size(mesh) -> int:
+    """Ranks on the model axis (1 without a mesh or on a 1-D mesh)."""
+    return mesh.size(1) if has_model_axis(mesh) else 1
+
+
+def model_rank(mesh) -> int:
+    """This rank's place on the model axis (0 without one)."""
+    return mesh.get_local_rank(MODEL_AXIS) if has_model_axis(mesh) else 0
+
+
+def model_group(mesh):
+    """The process group of this rank's model axis (its data index)."""
+    return mesh.get_group(MODEL_AXIS)
+
+
+def is_first_rank(mesh) -> bool:
+    """Rank 0 of the mesh (the one that writes files); True without one."""
+    return axis_rank(mesh) == 0 and model_rank(mesh) == 0
+
+
+def tp_spec_for(name: Optional[str], shape: Sequence[int], mesh
+                ) -> Optional[int]:
+    """The axis of ``TP_RULES[name]`` if the model axis divides the full
+    ``shape`` there, else None (replicated), as the JAX package's
+    ``_tp_spec_for`` (small configs may not divide every dimension)."""
+    ax = TP_RULES.get(name) if name is not None else None
+    if ax is None or not has_model_axis(mesh):
+        return None
+    if ax >= len(shape) or shape[ax] % model_axis_size(mesh):
+        return None
+    return ax
+
+
+def _map_named(tree, fn, name=None):
+    """``tree`` with each leaf ``x`` replaced by ``fn(name, x)``, ``name``
+    the innermost dict key above it that ``TP_RULES`` lists (optimizer
+    slots mirror the parameter dict, so a slot's key is its parameter's
+    name)."""
+    if isinstance(tree, dict):
+        return {k: _map_named(v, fn, k if k in TP_RULES else name)
+                for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_map_named(v, fn, name) for v in tree)
+    return fn(name, tree)
+
+
+def state_shardings(state: Any, mesh) -> Any:
+    """The layout of a full (unsharded) train state, a parameter dict or
+    any tree of them on ``mesh``: the same tree with each tensor leaf
+    replaced by its sharded axis (``tp_spec_for``) or None, and every
+    other leaf by None."""
+    return _map_named(state, lambda name, x: (
+        tp_spec_for(name, tuple(x.shape), mesh)
+        if isinstance(x, torch.Tensor) else None))
+
+
+def param_shardings(mcfg, mesh) -> Dict[str, Optional[int]]:
+    """``state_shardings`` of the parameters of ``mcfg`` (shapes only:
+    made on the meta device)."""
+    from ..model.decoder import init_params
+    return state_shardings(init_params(mcfg, torch.Generator(), "meta"),
+                           mesh)
+
+
+def _shard_leaf(x, ax, mesh):
+    if ax is None or not isinstance(x, torch.Tensor):
+        return x
+    part = x.shape[ax] // model_axis_size(mesh)
+    out = x.detach().narrow(ax, model_rank(mesh) * part, part).clone()
+    return out.requires_grad_(x.requires_grad)
+
+
+def shard_state(state: Any, mesh) -> Any:
+    """This rank's share of a full train state (or parameter dict): the
+    contiguous slice at its model index of every leaf that
+    ``state_shardings`` shards, the whole of every other leaf (a new
+    tree; the sharded leaves are new tensors)."""
+    return _with_leaves(state, iter(
+        _shard_leaf(x, ax, mesh) for x, ax in zip(
+            _leaves(state, []), _leaves(state_shardings(state, mesh), []))))
+
+
+@torch.no_grad()
+def _gather_leaf(x, ax, mesh):
+    if ax is None or not isinstance(x, torch.Tensor):
+        return x
+    x = x.detach().contiguous()
+    parts = [torch.empty_like(x) for _ in range(model_axis_size(mesh))]
+    dist.all_gather(parts, x, group=model_group(mesh))
+    return torch.cat(parts, dim=ax)
+
+
+def gather_state(state: Any, mesh, shardings: Any) -> Any:
+    """The full leaves of a sharded state: each leaf that ``shardings``
+    (``state_shardings`` of the full state, which a sharded leaf's shape
+    no longer tells) marks sharded is gathered over the model axis in
+    rank order; every other leaf is returned as it is.  Every rank of
+    the mesh calls it."""
+    return _with_leaves(state, iter(
+        _gather_leaf(x, ax, mesh) for x, ax in zip(
+            _leaves(state, []), _leaves(shardings, []))))
 
 
 # ---------------------------------------------------------------------------

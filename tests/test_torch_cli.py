@@ -402,9 +402,10 @@ def test_build_config_of_a_recipe_matches_jax():
 def test_train_cli_parallel_flags(tmp_path, sets, what, monkeypatch):
     """Data parallelism in one process is a single-device run; under a
     launcher (``WORLD_SIZE`` above 1) it trains over the data mesh, with
-    the spelling of ``--shard-map``; tensor parallelism raises with the
-    queue item that brings it (8b).  Runs over real ranks:
-    tests/test_torch_parallel.py."""
+    the spelling of ``--shard-map``; tensor parallelism in one process
+    raises, as one device does not divide the model axis.  Runs over real
+    ranks: tests/test_torch_parallel.py and
+    tests/test_torch_tensor_parallel.py."""
     d = str(tmp_path / "r")
     flags = TRAIN_FLAGS + ["--set", f"train.save_dir={d}",
                            "--set", "train.valid_freq=0",
@@ -414,7 +415,7 @@ def test_train_cli_parallel_flags(tmp_path, sets, what, monkeypatch):
     for s in sets:
         flags += ["--set", s]
     if what:
-        with pytest.raises(NotImplementedError, match="item 8b"):
+        with pytest.raises(ValueError, match="model_parallel=2"):
             ttrain.main(flags)
         return
     assert ttrain.main(flags) == 0

@@ -43,7 +43,8 @@ def test_port_imports_neither_jax_nor_stvd():
         "for n in ('cli.train', 'cli.sample', 'cli.score', 'cli.convert',\n"
         "          'cli.serve', 'utils.logging', 'utils.profiling',\n"
         "          'utils.debug', 'decode.sample', 'model.importer',\n"
-        "          'export_aot', 'cli.export', 'train.parallel'):\n"
+        "          'export_aot', 'cli.export', 'train.parallel',\n"
+        "          'model.tp', 'decode.parallel'):\n"
         "    assert 'stvd_torch.' + n in names, n\n"
         "from stvd_torch.metrics.scorer import score_all\n"
         "s = score_all({'a': ['a man is running']}, {'a': ['men run']},\n"
@@ -60,6 +61,19 @@ def test_port_imports_neither_jax_nor_stvd():
 def test_presets_match_jax(name):
     assert (dataclasses.asdict(tconfig.preset(name))
             == dataclasses.asdict(jconfig.preset(name)))
+
+
+def test_tp_rules_match_jax():
+    """The port's TP_RULES name the JAX package's weights, each with the
+    axis its PartitionSpec shards over 'model'."""
+    from stvd.train import parallel as jparallel
+    from stvd_torch.train import parallel as tparallel
+    want = {name: [ax for ax, s in enumerate(spec)
+                   if s == jparallel.MODEL_AXIS]
+            for name, spec in jparallel.TP_RULES.items()}
+    assert all(len(v) == 1 for v in want.values())
+    assert tparallel.TP_RULES == {k: v[0] for k, v in want.items()}
+    assert tparallel.MODEL_AXIS == jparallel.MODEL_AXIS
 
 
 def test_config_json_round_trips_between_packages():

@@ -617,9 +617,3 @@ def test_shard_batch_takes_the_rank_s_contiguous_rows():
     with pytest.raises(ValueError, match="divide"):
         parallel.shard_batch(batch, _Mesh(3, 0))
 
-
-def test_model_axis_raises_naming_its_item():
-    with pytest.raises(NotImplementedError, match="item 8b"):
-        parallel.make_mesh_2d(model_parallel=2)
-    with pytest.raises(NotImplementedError, match="item 8b"):
-        parallel.check_data_mesh(_Mesh(2, 0, names=("data", "model")))
