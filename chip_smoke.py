@@ -62,7 +62,16 @@ vocab 13056, bf16):
   decode split over the ranks and a bank sharded over them
   (``caption_ids``, ``nbest_ids``), every caption equal to the
   single-device decode of the same batch.  Its times are of two ranks
-  sharing one card: no scaling figure.
+  sharing one card: no scaling figure;
+* tensor parallelism (``tensor_parallel``) on ranks that share the card
+  over gloo, meshes of 1 x 2 and 2 x 2 (data x model): presets 3 and 2
+  trained with the weights sharded by ``TP_RULES`` (the gathered weights
+  against one process's, the replicated ones bitwise equal on the ranks,
+  kernels 5 and 7 on each rank, kernel 7 on its Dr slice), preset 3
+  decoded by ``make_tp_beam_decode`` and ``generate_captions(...,
+  mesh)`` with kernel 2 on each rank's vocab shard (captions against the
+  single-device decode), ``cli.train --model-parallel 2`` and its
+  checkpoint in one process.  No scaling figure either.
 
 Each path's kernel launches are counted from zero over its run: those of
 the path must equal its decode steps (serving and the entry points; the
@@ -1404,16 +1413,19 @@ def phase_train_tail(kernel, dev, g, cfg, batch,
     return out
 
 
-def phase_dws(kernel, dev, g, cfg, batch) -> dict:
+def phase_dws(kernel, dev, g, cfg, batch, dr=None, phase="kernel_dws"
+              ) -> dict:
     """Kernel 7, dWs_att = regions^T @ d(pregion), at the preset-2
-    training shapes (N = B*K*R = 87808, Dr = s = 1024) in bf16 and in
-    float32, against the plain version; ``torch.mm(a.t(), b,
+    training shapes (N = B*K*R = 87808, Dr = s = 1024; ``dr`` rows of
+    regions instead, as a rank of a model axis takes its slice of Dr) in
+    bf16 and in float32, against the plain version; ``torch.mm(a.t(), b,
     out_dtype=float32)`` is timed beside it as the library yardstick.
     Each case reports its route (bf16 at this shape must take wgmma), its
     share of the bound and whether two calls agree bit for bit (they
     must)."""
     m = cfg.model
-    n, dr, s = batch * m.n_frames * m.n_regions, m.region_dim, m.region_dim
+    n, dr, s = (batch * m.n_frames * m.n_regions, dr or m.region_dim,
+                m.region_dim)
     a32 = torch.randn(n, dr, generator=g, device=dev)
     b32 = 0.01 * torch.randn(n, s, generator=g, device=dev)
     cases, times = {}, {}
@@ -1448,7 +1460,7 @@ def phase_dws(kernel, dev, g, cfg, batch) -> dict:
         times[name]["library_ratio"] = (times[name]["ms"]
                                         / times[name]["library_ms"])
         del a, b, got, ref
-    out = {"phase": "kernel_dws", "shape": [n, dr, s],
+    out = {"phase": phase, "shape": [n, dr, s],
            "max_abs_err": cases["bfloat16"]["max_abs_err"], "cases": cases,
            "tol_rel": KERNEL_TOL, "route": cases["bfloat16"]["route"],
            "times": times, **times["bfloat16"]}
@@ -3196,6 +3208,528 @@ def phase_data_parallel(kernel, dev, seed, cfg, info) -> dict:
     return out
 
 
+TP_MODEL = 2           # the model axis of the one-card TP phase
+TP_TIMEOUT = 600.0     # every collective, and the whole launch
+TP_UPDATES = 5
+TP_F32_BATCH = 16      # float32 parity: preset 3 (preset 2 at 8)
+TP_SHARE = 0.95        # the path-parity bar: the CLI run's valid captions
+TP_NUDGE = 1e-7        # float32 noise on the gates bias: the decode's floor
+TP_SHARE_SLACK = 0.05  # bf16 TP share vs the nudged share (~2.5 std, n 256)
+TP_VS_DP = 2.0         # bf16 weights: TP's worst leaf gap vs the DP order's
+
+
+def tp_param_bytes(cfg, mesh, params) -> dict:
+    """The parameter bytes a rank holds, reckoned from ``TP_RULES`` on the
+    full shapes (a sharded leaf's 1/M, a replicated leaf whole), beside
+    the bytes of the rank's own leaves: the two must agree."""
+    from stvd_torch.model.decoder import init_params
+    from stvd_torch.train import parallel
+    m = parallel.model_axis_size(mesh)
+    layout = parallel.param_shardings(cfg.model, mesh)
+    full = {k: tuple(v.shape) for k, v in init_params(
+        cfg.model, torch.Generator(), "meta").items()}
+    reckoned = sum(int(np.prod(s)) * 4 // (m if layout[k] is not None else 1)
+                   for k, s in full.items())
+    held = sum(p.numel() * p.element_size() for p in params.values())
+    whole = sum(int(np.prod(s)) * 4 for s in full.values())
+    return {"reckoned": reckoned, "held": held, "whole": whole,
+            "share": held / whole}
+
+
+def replicated_digest(params, layout) -> str:
+    return param_digest({k: v for k, v in params.items()
+                         if layout[k] is None})
+
+
+def tp_updates(kernel, mesh, dev, seed, cfg, batch, updates) -> tuple:
+    """``updates`` TP updates after a warm-up on one batch of ``batch``
+    captions (split over the data axis) from the preset's init: the
+    sharded state, its layout, losses, seconds and launches."""
+    from stvd_torch.train import parallel
+    from stvd_torch.train.loop import make_train_step
+    full, b = train_setup(cfg, dev, seed, batch)
+    layout = parallel.state_shardings(full, mesh)
+    state = parallel.shard_state(full, mesh)
+    del full
+    local = parallel.shard_batch(b, mesh)
+    step = make_train_step(cfg.model, cfg.train, None, mesh)
+    state, m = step(state, local)                # warm-up
+    first = float(m["loss"])
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(kernel)
+    losses, secs = [], []
+    for _ in range(updates):
+        t0 = time.perf_counter()
+        state, m = step(state, local)
+        losses.append(float(m["loss"]))
+        secs.append(time.perf_counter() - t0)
+    rec = {"batch": batch, "steps_T": int(b["tokens"].shape[1]),
+           "loss_warmup": first, "loss_per_update": losses,
+           "seconds_per_update": secs,
+           "median_update_s": float(np.median(secs)),
+           "grad_norm_last": float(m["grad_norm"]),
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "launches": read_launches(kernel),
+           "launches_by_route": read_routes(kernel)}
+    return state, layout, rec
+
+
+def single_updates(dev, seed, cfg, batch, updates, f32=False) -> tuple:
+    """The same updates (warm-up included) in one process; their
+    seconds after the warm-up."""
+    from stvd_torch.train.loop import make_train_step
+    state, b = train_setup(cfg, dev, seed, batch)
+    if f32:
+        iid_features(b, dev, seed)
+    step = make_train_step(cfg.model, cfg.train)
+    secs, loss = [], None
+    for i in range(updates + 1):
+        t0 = time.perf_counter()
+        state, m = step(state, b)
+        loss = float(m["loss"])
+        if i:
+            secs.append(time.perf_counter() - t0)
+    return state, loss, secs
+
+
+def tp_f32_parity(mesh, dev, seed, cfg, batch, updates=1) -> dict:
+    """``updates`` float32 TP updates from the preset's init (i.i.d.
+    features) against the single-process ones: the last loss's relative
+    gap and ``leaf_gaps`` of the weights (rank 0 alone runs the single
+    process; every other rank waits in the next collective)."""
+    from stvd_torch.train import parallel
+    from stvd_torch.train.loop import make_train_step
+    full, b = train_setup(cfg, dev, seed, batch)
+    iid_features(b, dev, seed)
+    layout = parallel.state_shardings(full, mesh)
+    state = parallel.shard_state(full, mesh)
+    del full
+    step = make_train_step(cfg.model, cfg.train, None, mesh)
+    local = parallel.shard_batch(b, mesh)
+    for _ in range(updates):
+        state, m = step(state, local)
+    loss_tp = float(m["loss"])
+    whole = parallel.gather_state(state, mesh, layout)["params"]
+    del state, local
+    out = {"batch": batch, "updates": updates, "loss_tp": loss_tp}
+    if parallel.is_first_rank(mesh):
+        one, loss_one, _ = single_updates(dev, seed, cfg, batch,
+                                          updates - 1, True)
+        gaps = leaf_gaps({k: v.detach() for k, v in whole.items()},
+                         {k: v.detach() for k, v in one["params"].items()})
+        out.update(loss_single=loss_one,
+                   loss_rel_err=abs(loss_tp - loss_one) / abs(loss_one),
+                   weight_rel_err=max(gaps.values()),
+                   worst_weight=max(gaps, key=gaps.get), gaps=gaps)
+        del one
+    parallel.broadcast_value(0.0, mesh)          # the others wait here
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_train(kernel, mesh, dev, seed, cfg, updates, f32_batch,
+             data_mesh=None) -> dict:
+    """The preset's TP update at batch 64 (``updates`` after a warm-up),
+    its gathered weights against the single-process run of the same
+    updates (``leaf_gaps``), its replicated leaves' digest, its parameter
+    bytes, and the float32 parity update."""
+    from stvd_torch.train import parallel
+    state, layout, rec = tp_updates(kernel, mesh, dev, seed, cfg,
+                                    cfg.train.batch_size, updates)
+    rec["param_bytes"] = tp_param_bytes(cfg, mesh, state["params"])
+    rec["replicated_digest"] = replicated_digest(state["params"],
+                                                 layout["params"])
+    rec["local_shapes"] = {k: list(v.shape) for k, v in
+                           state["params"].items()
+                           if layout["params"][k] is not None}
+    whole = parallel.gather_state(state, mesh, layout)["params"]
+    del state
+    torch.cuda.empty_cache()
+    one = None
+    if parallel.is_first_rank(mesh):
+        one, _, secs = single_updates(dev, seed, cfg, cfg.train.batch_size,
+                                      updates)
+        gaps = leaf_gaps({k: v.detach() for k, v in whole.items()},
+                         {k: v.detach() for k, v in one["params"].items()})
+        rec["single_process"] = {
+            "seconds_per_update": secs,
+            "median_update_s": float(np.median(secs)),
+            "weight_rel_err": max(gaps.values()),
+            "worst_weight": max(gaps, key=gaps.get), "gaps": gaps}
+    del whole
+    parallel.broadcast_value(0.0, mesh)
+    torch.cuda.empty_cache()
+    if data_mesh is not None:
+        # the same updates data-parallel over the same ranks (the batch
+        # halved, the gradients summed, the same dropout masks): another
+        # order of the same float32 sums, whose distance from one process
+        # is the yardstick of the TP weights' after the bf16 updates
+        from stvd_torch.train.loop import make_train_step
+        state, b = train_setup(cfg, dev, seed, cfg.train.batch_size)
+        step = make_train_step(cfg.model, cfg.train, None, data_mesh)
+        local = parallel.shard_batch(b, data_mesh)
+        for _ in range(updates + 1):
+            state, m = step(state, local)
+        float(m["loss"])
+        if one is not None:
+            dgaps = leaf_gaps({k: v.detach() for k, v in
+                               state["params"].items()},
+                              {k: v.detach() for k, v in
+                               one["params"].items()})
+            rec["single_process"].update(
+                dp_weight_rel_err=max(dgaps.values()),
+                dp_worst_weight=max(dgaps, key=dgaps.get), dp_gaps=dgaps)
+        del state, b, local, step
+    del one
+    torch.cuda.empty_cache()
+    c32 = with_model(cfg, compute_dtype="float32")
+    rec["f32_parity"] = tp_f32_parity(mesh, dev, seed, c32, f32_batch)
+    return rec
+
+
+def tp_decode(kernel, mesh, dev, seed, runs) -> dict:
+    """For each (name, config, videos) of ``runs``: the TP beam decode of
+    the videos (EOS suppressed, every caption runs all maxlen steps)
+    through ``make_tp_beam_decode(tail='auto')`` and through
+    ``generate_captions(..., mesh)``, each with its launches counted from
+    zero, against the single-device kernel decode (share of equal
+    captions, on rank 0)."""
+    from stvd_torch.data.bank import synthetic_bank, to_device
+    from stvd_torch.decode import parallel as dparallel
+    from stvd_torch.decode.beam import beam_decode
+    from stvd_torch.model.decoder import init_params
+    from stvd_torch.model.step import compute_dtype
+    from stvd_torch.train import parallel
+    from stvd_torch.train.evaluate import generate_captions
+    out = {}
+    for name, c, n in runs:
+        m = c.model
+        full = eos_weights(init_params(
+            m, torch.Generator(device=dev).manual_seed(seed + 1), dev),
+            "eos_suppressed")
+        bank = to_device(synthetic_bank(n, k=m.n_frames, d=m.ctx_dim,
+                                        seed=seed + 9), dev,
+                         compute_dtype(m))
+        p = dparallel.shard_decode_params(full, mesh)
+        mine = parallel.shard_batch(bank, mesh)
+        d = c.decode
+        steps = [0]
+        step_fn = counted_step(kernel.step_kernels, steps)
+        run = dparallel.make_tp_beam_decode(
+            m, mesh, d.beam_size, d.maxlen, d.length_norm, tail="auto",
+            step_fn=step_fn)
+        with torch.no_grad():
+            res, rec = dp_counts(kernel, steps, lambda: run(p, mine))
+            dcfg = dataclasses.replace(d, decode_batch=n)
+            gen, gen_rec = dp_counts(kernel, steps, lambda: generate_captions(
+                p, m, bank, n, dcfg, step_fn, mesh))
+            toks = parallel.all_gather_rows(res.tokens, mesh)
+            single = nudged = None
+            if parallel.is_first_rank(mesh):
+                single = beam_decode(full, m, bank, d.beam_size, d.maxlen,
+                                     d.length_norm,
+                                     step_fn=kernel.step_kernels).tokens
+                # the floor: the same decode with the gates bias moved by
+                # float32 noise of the size of a reorder's rounding
+                gen_b = torch.Generator(device=dev).manual_seed(seed + 5)
+                nudged = beam_decode(
+                    dict(full, b=full["b"] + TP_NUDGE * torch.randn(
+                        full["b"].shape, generator=gen_b, device=dev)),
+                    m, bank, d.beam_size, d.maxlen, d.length_norm,
+                    step_fn=kernel.step_kernels).tokens
+        rows = toks.cpu().numpy().tolist()
+        rec.update(videos=n, rows=int(mine["frames"].shape[0]) * d.beam_size,
+                   tail_shape=[int(mine["frames"].shape[0]) * d.beam_size,
+                               int(p["ff_logit_W"].shape[0]),
+                               int(p["ff_logit_W"].shape[1])],
+                   tokens_digest=param_digest({"t": toks}),
+                   generate_captions_equal=rows == gen,
+                   generate_captions=gen_rec)
+        if single is not None:
+            want = single.cpu().numpy().tolist()
+            rec["share_vs_single_device"] = float(np.mean(
+                [a == b for a, b in zip(rows, want)]))
+            rec["nudged_share"] = float(np.mean(
+                [a == b for a, b in zip(nudged.cpu().numpy().tolist(),
+                                        want)]))
+        parallel.broadcast_value(0.0, mesh)
+        out[name] = rec
+        del full, p, bank, mine, res, toks, single, nudged
+        torch.cuda.empty_cache()
+    return out
+
+
+def tp_cli(kernel, mesh, dev, corpus) -> dict:
+    """``cli.train --config <preset 3 float32 on the corpus>
+    --model-parallel 2`` on this rank: 3 updates and a validation round;
+    on rank 0 its ``ckpt.pt`` loaded in one process decodes the valid
+    split to the run's valid samples."""
+    from stvd_torch.cli import train
+    from stvd_torch.config import Config
+    from stvd_torch.data.corpus import load_splits
+    from stvd_torch.model.convert import params_from_numpy
+    from stvd_torch.train import parallel
+    from stvd_torch.train.evaluate import evaluate_split
+    steps = [0]
+    real = kernel.step_kernels
+    kernel.step_kernels = counted_step(real, steps)
+    try:
+        rc, rec = dp_counts(kernel, steps, lambda: train.main(
+            ["--config", os.path.join(corpus, "config_tp.json"),
+             "--model-parallel", str(TP_MODEL), "--max-updates", "3"]))
+    finally:
+        kernel.step_kernels = real
+    with open(os.path.join(corpus, "config_tp.json")) as f:
+        cfg = Config.from_json(f.read())
+    rec.update(rc=rc, save_dir=cfg.train.save_dir)
+    if parallel.is_first_rank(mesh):
+        run = cfg.train.save_dir
+        blob = torch.load(os.path.join(run, "ckpt.pt"), weights_only=True)
+        params = params_from_numpy({k: v.numpy() for k, v in
+                                    blob["params"].items()}, dev)
+        rec["ckpt_full_width"] = (
+            tuple(blob["params"]["U"].shape) == (cfg.model.dim,
+                                                 4 * cfg.model.dim)
+            and tuple(blob["params"]["ff_logit_W"].shape)
+            == (cfg.model.dim_word, cfg.model.n_words))
+        with open(os.path.join(run, "valid_samples.json")) as f:
+            tp_caps = {d["image_id"]: d["caption"] for d in json.load(f)}
+        one = os.path.join(corpus, "one_process")
+        evaluate_split(params, cfg, load_splits(cfg)["valid"], "valid",
+                       one, step_fn=real, device=dev)
+        with open(os.path.join(one, "valid_samples.json")) as f:
+            one_caps = {d["image_id"]: d["caption"] for d in json.load(f)}
+        rec["valid_captions"] = len(tp_caps)
+        rec["valid_equal_one_process"] = sum(
+            tp_caps[k] == one_caps.get(k) for k in tp_caps)
+    parallel.broadcast_value(0.0, mesh)
+    return rec
+
+
+def tp_rank(mesh1, seed, corpus) -> dict:
+    """Everything one rank of the 1 x 2 mesh of ``tensor_parallel`` runs."""
+    import contextlib
+    import io
+    import torch.distributed as dist
+    from stvd_torch import _build, api
+    from stvd_torch.model import kernel
+    from stvd_torch.train import parallel
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", torch.cuda.current_device())
+    _build.lib()                   # the parent built it: this loads it
+    mesh = parallel.make_mesh_2d("cuda", model_parallel=TP_MODEL)
+    cfg = with_model(api.preset(NAME), train_tail_kernel="off")
+    cfg_sp = api.preset(SPATIAL)
+    out = {"rank": dist.get_rank(), "model_rank": parallel.model_rank(mesh),
+           "backend": dist.get_backend(), "device": str(dev)}
+    with contextlib.redirect_stdout(io.StringIO()):
+        out["train"] = tp_train(kernel, mesh, dev, seed, cfg, TP_UPDATES,
+                                TP_F32_BATCH, data_mesh=mesh1)
+        out["train_spatial"] = tp_train(kernel, mesh, dev, seed, cfg_sp, 2,
+                                        TP_F32_BATCH // 2)
+        out["decode"] = tp_decode(kernel, mesh, dev, seed, (
+            ("bf16", cfg, cfg.decode.decode_batch),
+            ("f32", with_model(cfg, compute_dtype="float32"), 64)))
+        out["cli"] = tp_cli(kernel, mesh, dev, corpus)
+    out["modules"] = sorted(m for m in sys.modules if m in ("jax", "stvd")
+                            or m.startswith(("jax.", "stvd.")))
+    return out
+
+
+def tp_rank_2x2(mesh1, seed) -> dict:
+    """A rank of the 2 x 2 mesh: 2 float32 updates at batch 16 against
+    one process's, and a 64-video float32 decode against the
+    single-device decode."""
+    import contextlib
+    import io
+    from stvd_torch import _build, api
+    from stvd_torch.model import kernel
+    from stvd_torch.train import parallel
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", torch.cuda.current_device())
+    _build.lib()
+    mesh = parallel.make_mesh_2d("cuda", model_parallel=TP_MODEL)
+    c32 = with_model(api.preset(NAME), compute_dtype="float32")
+    out = {"data_rank": parallel.axis_rank(mesh),
+           "model_rank": parallel.model_rank(mesh)}
+    with contextlib.redirect_stdout(io.StringIO()):
+        out["train_f32"] = tp_f32_parity(mesh, dev, seed, c32,
+                                         TP_F32_BATCH, 2)
+        out["decode_f32"] = tp_decode(kernel, mesh, dev, seed,
+                                      (("f32", c32, 64),))["f32"]
+    return out
+
+
+def phase_tensor_parallel(kernel, dev, seed, info) -> dict:
+    """Tensor parallelism at full width (preset 3: dim 3584, dim_word 512,
+    ctx = attn 1024, K 28, vocab 13056, bf16) on ranks that share the one
+    card over gloo (``parallel.spawn``: NCCL refuses two ranks on one
+    card), the kernels built by this process before the launch.  On a
+    1 x 2 (data x model) mesh:
+
+    a. preset 3's TP update, batch 64, T 30, adadelta, clip 10, the hand
+       VJP (the train-scan tail off, as a model axis requires): a
+       warm-up and 5 updates, the replicated leaves bitwise equal on the
+       ranks, the rank's parameter bytes as ``TP_RULES`` reckon them;
+       the gathered bf16 weights against the single-process run of the
+       same updates, held to TP_VS_DP times the gap of the same updates
+       data-parallel over the same ranks (another order of the same
+       float32 sums, which bf16 casts and adadelta's first steps amplify
+       to ~2e-2 of a zero-init bias: GRAD_TOL cannot hold there); one
+       float32 update at batch 16 against one process's (loss within
+       1e-5 relative, ``leaf_gaps`` of the weights within GRAD_TOL);
+    b. preset 2's (2 updates): kernel 5 30 times an update on each rank,
+       kernel 7 once on the rank's Dr / 2 = 512 rows of Ws_att, the
+       float32 update at batch 8 against one process's;
+    c. preset 3's TP beam decode of 256 videos (beam 5, EOS suppressed)
+       through ``make_tp_beam_decode(tail='auto')`` and
+       ``generate_captions(..., mesh)``: kernel 2 once a step on each rank
+       on the (1280, 512) x (512, 6528) vocab shard, route wgmma, kernel
+       1 once a step on cluster, the ranks' tokens bitwise equal; the
+       share of captions equal to the single-device kernel decode at
+       least the share of that decode with its gates bias moved by
+       TP_NUDGE of float32 noise (the floor any reorder of a sum meets on
+       random weights, ~0.88 at bf16), less TP_SHARE_SLACK; every caption
+       at float32 on 64 videos;
+    e. ``cli.train --model-parallel 2`` (preset 3 float32 on a corpus on
+       disk): 3 updates and a validation round; its ``ckpt.pt`` holds the
+       full-width weights and, loaded in one process, decodes at least
+       TP_SHARE of the valid split to the run's captions.
+
+    Then (d) a 2 x 2 mesh of 4 ranks: 2 float32 updates at batch 16 and a
+    64-video float32 decode against one process's.  The times are of
+    ranks sharing one card over gloo: no scaling figure."""
+    from stvd_torch import api
+    from stvd_torch.train import parallel
+    base = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(base, exist_ok=True)
+    torch.cuda.empty_cache()
+    cfg = api.preset(NAME)
+    with tempfile.TemporaryDirectory(dir=base) as corpus:
+        c = with_model(cfg, compute_dtype="float32")
+        write_corpus(corpus, c, seed)
+        c = c.replace(
+            train=dataclasses.replace(
+                c.train, metric="meteor", valid_freq=3, sample_freq=0,
+                disp_freq=1, save_dir=os.path.join(corpus, "run")),
+            data=dataclasses.replace(
+                c.data, dataset="youtube2text", data_dir=corpus,
+                feature_file="feats.npz", captions_file="captions.json",
+                vocab_file="vocab.pkl"))
+        with open(os.path.join(corpus, "config_tp.json"), "w") as f:
+            f.write(c.to_json())
+        t0 = time.perf_counter()
+        ranks = parallel.spawn(tp_rank, TP_MODEL, (seed, corpus),
+                               device="cuda:0", backend="gloo",
+                               timeout=TP_TIMEOUT)
+        wall = time.perf_counter() - t0
+        files = sorted(os.listdir(os.path.join(corpus, "run")))
+        records = [json.loads(ln)["kind"] for ln in open(
+            os.path.join(corpus, "run", "metrics.jsonl"))]
+    t0 = time.perf_counter()
+    ranks_2x2 = parallel.spawn(tp_rank_2x2, 2 * TP_MODEL, (seed,),
+                               device="cuda:0", backend="gloo",
+                               timeout=TP_TIMEOUT)
+    wall_2x2 = time.perf_counter() - t0
+    out = {"phase": "tensor_parallel", "card": info["nvidia_smi"],
+           "setting": f"ranks sharing one card over gloo, meshes 1 x "
+                      f"{TP_MODEL} and 2 x {TP_MODEL} (no scaling figure)",
+           "launch_seconds": wall, "launch_seconds_2x2": wall_2x2,
+           "ranks": ranks, "ranks_2x2": ranks_2x2}
+    # the record first: a failed check below still leaves its numbers
+    emit(out)
+    none = {k: 0 for k in KERNELS}
+    r0 = ranks[0]
+    for r in ranks:
+        require(r["backend"] == "gloo", f"rank backend {r['backend']}")
+        require(r["modules"] == [], f"a rank imported {r['modules']}")
+        for name in ("train", "train_spatial"):
+            s = r[name]
+            want = dict(none)
+            if name == "train_spatial":
+                n_up = len(s["loss_per_update"])
+                want.update(spatial_bwd=n_up * s["steps_T"], dws_gemm=n_up)
+                require(s["launches_by_route"]["dws_gemm"]["wgmma"] == n_up
+                        and s["local_shapes"]["Ws_att"] == [512, 1024],
+                        f"tp {name}: kernel 7 on {s['local_shapes']['Ws_att']}"
+                        f" by route {s['launches_by_route']['dws_gemm']}")
+            require(s["launches"] == want,
+                    f"tp {name}: launches {s['launches']} != {want}")
+            losses = [s["loss_warmup"]] + s["loss_per_update"]
+            require(all(np.isfinite(losses)) and losses[-1] < losses[0],
+                    f"tp {name}: loss {losses}")
+            require(s["replicated_digest"] == r0[name]["replicated_digest"],
+                    f"tp {name}: the ranks' replicated leaves differ")
+            pb = s["param_bytes"]
+            require(pb["reckoned"] == pb["held"],
+                    f"tp {name}: parameter bytes {pb}")
+        dec = r["decode"]
+        for name, sub in dec.items():
+            steps = sub["decode_steps"]
+            want = dict(none, attention_core=steps, logit_tail=steps)
+            require(steps == cfg.decode.maxlen and sub["launches"] == want,
+                    f"tp decode {name}: launches {sub['launches']} != {want}")
+            gen = sub["generate_captions"]
+            require(gen["launches"] == dict(none, attention_core=steps,
+                                            logit_tail=steps)
+                    and gen["decode_steps"] == steps,
+                    f"tp decode {name} generate_captions: {gen}")
+            route = {"bf16": "wgmma", "f32": "f32"}[name]
+            require(sub["launches_by_route"]["logit_tail"][route] == steps
+                    and sub["launches_by_route"]["attention_core"]["cluster"]
+                    == steps, f"tp decode {name}: routes "
+                    f"{sub['launches_by_route']}")
+            require(sub["tokens_digest"] == r0["decode"][name]["tokens_digest"]
+                    and sub["generate_captions_equal"],
+                    f"tp decode {name}: the ranks' tokens differ")
+        require(dec["bf16"]["tail_shape"] == [1280, 512, 6528],
+                f"tp decode: kernel 2 on {dec['bf16']['tail_shape']}")
+        cli = r["cli"]
+        require(cli["rc"] == 0, "tp cli.train failed")
+        want = dict(none, attention_core=cli["decode_steps"],
+                    logit_tail=cli["decode_steps"])
+        require(cli["decode_steps"] > 0 and cli["launches"] == want,
+                f"tp cli: launches {cli['launches']} != {want}")
+    s = r0["train"]["single_process"]
+    require(s["weight_rel_err"] <= TP_VS_DP * s["dp_weight_rel_err"],
+            f"tp update vs single-process, beside the DP order's: {s}")
+    for name in ("train", "train_spatial"):
+        p = r0[name]["f32_parity"]
+        require(p["loss_rel_err"] <= 1e-5 and p["weight_rel_err"] <= GRAD_TOL,
+                f"tp {name} float32 update vs single-process: {p}")
+    dec = r0["decode"]
+    require(dec["bf16"]["share_vs_single_device"]
+            >= dec["bf16"]["nudged_share"] - TP_SHARE_SLACK
+            and dec["f32"]["share_vs_single_device"] == 1.0,
+            "tp decode vs single-device: "
+            + str({k: (v["share_vs_single_device"], v["nudged_share"])
+                   for k, v in dec.items()}))
+    cli = r0["cli"]
+    require(cli["ckpt_full_width"] and cli["valid_captions"] > 0
+            and cli["valid_equal_one_process"]
+            >= TP_SHARE * cli["valid_captions"],
+            f"tp cli checkpoint in one process: {cli}")
+    require({"config.json", "vocab.pkl", "ckpt.pt", "ckpt_best.pt",
+             "metrics.jsonl", "valid_samples.json"} <= set(files),
+            f"tp cli run dir {files}")
+    require(records.count("train") == 3 and records.count("valid") == 1,
+            f"tp cli records {records}")
+    q0 = ranks_2x2[0]
+    require(q0["train_f32"]["loss_rel_err"] <= 1e-5
+            and q0["train_f32"]["weight_rel_err"] <= GRAD_TOL,
+            "tp 2x2 float32 updates vs single-process: "
+            + str({k: v for k, v in q0["train_f32"].items() if k != "gaps"}))
+    require(q0["decode_f32"]["share_vs_single_device"] == 1.0,
+            f"tp 2x2 decode: {q0['decode_f32']}")
+    for q in ranks_2x2:
+        mate = ranks_2x2[q["data_rank"] * TP_MODEL]["decode_f32"]
+        require(q["decode_f32"]["tokens_digest"] == mate["tokens_digest"],
+                "tp 2x2 decode: a model group's tokens differ")
+    return out
+
+
 def with_model(cfg, **kw):
     return cfg.replace(model=dataclasses.replace(cfg.model, **kw))
 
@@ -3352,6 +3886,16 @@ def main() -> int:
     tail_dp = phase_tail(kernel, dev, g, args.seed, cfg_dp_rank,
                          phase="kernel_logit_tail_dp")
     dp = phase_data_parallel(kernel, dev, args.seed, cfg_dp, info)
+    # kernels 2 and 7 at a rank's shard of a model axis of 2 (the vocab
+    # columns 6528, the Dr rows 512), then tensor parallelism on ranks
+    # sharing the card
+    tail_tp = phase_tail(kernel, dev, g, args.seed,
+                         with_model(cfg, n_words=cfg.model.n_words // TP_MODEL),
+                         phase="kernel_logit_tail_tp")
+    dws_tp = phase_dws(kernel, dev, g, cfg_sp, batch,
+                       dr=cfg_sp.model.region_dim // TP_MODEL,
+                       phase="kernel_dws_tp")
+    tp = phase_tensor_parallel(kernel, dev, args.seed, info)
     if args.profile:
         phase_train_profile(dev, args.seed, cfg_sp, "profile_train_spatial")
         phase_train_profile(dev, args.seed,
@@ -3427,6 +3971,22 @@ def main() -> int:
         row("train_tail_dp", "train_tail.cu", "stvd/model/kernel.py:1032",
             dp["ranks"][0]["train"]["update"]["launches"]["train_tail"],
             train_tail),
+        # rank 0 of the tensor_parallel phase's 1 x 2 mesh: kernels 1 and
+        # 2 in the 256-video TP decode (kernel 2 on its vocab shard),
+        # kernels 5 and 7 in preset 2's TP updates (kernel 7 on the
+        # rank's 512 rows of Dr)
+        row("attention_core_tp", "attn_core.cu", "stvd/model/kernel.py:45",
+            tp["ranks"][0]["decode"]["bf16"]["launches"]["attention_core"],
+            attn),
+        row("logit_tail_tp", "logit_tail.cu", "stvd/model/kernel.py:593",
+            tp["ranks"][0]["decode"]["bf16"]["launches"]["logit_tail"],
+            tail_tp),
+        row("spatial_bwd_tp", "spatial_bwd.cu", "stvd/model/kernel.py:385",
+            tp["ranks"][0]["train_spatial"]["launches"]["spatial_bwd"],
+            spatial_bwd),
+        row("dws_gemm_tp", "dws_gemm.cu", "tools/probe_dws_gemm.py:87",
+            tp["ranks"][0]["train_spatial"]["launches"]["dws_gemm"],
+            dws_tp),
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": info["name"],
                                  "count": info["count"]}})
