@@ -19,10 +19,12 @@ and id-addressed requests against a feature bank resident on the device
 swaps in new weights of the same shapes between requests
 (``swap_params``).  The weights are an input of every decode call, so a
 swap is the assignment of a new dict.  A bank too large for one device
-is sharded over a 1-D ``('data',)`` mesh of ranks
-(``attach_bank(bank, mesh=mesh)``, ``train.parallel``): every rank holds
-its share of the videos and calls each id request with the same
-arguments, and every rank gets every caption.
+is sharded over the data axis of a mesh of ranks
+(``attach_bank(bank, mesh=mesh)``, ``train.parallel``; a 1-D
+``('data',)`` mesh, or a sharded artifact's 2-D ``('data', 'model')``
+one, whose model ranks hold the same rows): every rank holds its share
+of the videos and calls each id request with the same arguments, and
+every rank gets every caption.
 """
 
 from __future__ import annotations
@@ -166,7 +168,8 @@ def _bank_local_gather(bank: Dict[str, torch.Tensor], rows: torch.Tensor,
     """The row gather of a bank sharded over the data axis
     (``to_device_sharded``; every rank calls it with the same global
     ``rows``): each rank looks up the rows it owns, the others clamped to
-    a valid index and set to zero, and one sum over the axis a stream
+    a valid index and set to zero, and one sum over the data axis a
+    stream (each model rank of a 2-D mesh in its own data group)
     assembles the chunk, only this rank's contiguous slice of it with
     ``scatter`` (the chunk divides the axis; the JAX package's
     ``psum_scatter``), all of it otherwise (its ``psum``)."""
@@ -200,11 +203,13 @@ class BankResident:
         ``dtype`` (default: the compute dtype); returns the number of
         resident videos.  The copy is ``to_device``'s cached one.
 
-        ``mesh`` (a 1-D ``('data',)`` mesh, ``parallel.make_mesh``)
-        shards the video rows over the ranks, for a bank larger than one
-        device holds: each rank keeps ``ceil(N / n)`` of them
-        (``to_device_sharded``), and every rank calls this and each later
-        id request with the same arguments.  A chunk of ids is gathered
+        ``mesh`` (a 1-D ``('data',)`` mesh, ``parallel.make_mesh``, or
+        a 2-D ``('data', 'model')`` one) shards the video rows over the
+        data axis, for a bank larger than one device holds: each rank
+        keeps ``ceil(N / n)`` of them (``to_device_sharded``; the ranks
+        of a model group the same ones), and every rank calls this and
+        each later id request with the same arguments.  A mesh without a
+        data axis raises ``ValueError``.  A chunk of ids is gathered
         by one sum over the ranks; a chunk that divides the axis is then
         decoded data-parallel (each rank its slice, the tokens gathered),
         any other chunk whole on every rank."""

@@ -8,8 +8,18 @@ stvd/cli/export.py; see stvd_torch/export_aot.py).
 ``--check`` loads the artifact and holds its captions of decode_batch + 1
 random videos (a padded chunk) to the live Captioner's on ``--device``
 (whose type must be one of the exported platforms); it exits 1 on any
-difference.  ``--data-parallel`` / ``--model-parallel`` raise
-``NotImplementedError``: sharded serving graphs are not ported.
+difference.
+
+``--data-parallel N`` exports the graphs of a 1-D data mesh of N ranks
+(every batch size divisible by N), ``--model-parallel M`` those of a 2-D
+data x model mesh of N x M ranks (N default 1) with the weights sharded
+by ``TP_RULES`` (see ``export_aot``).  The export runs on those ranks,
+launched by ``torchrun``, each rank on ``cuda:LOCAL_RANK`` (NCCL) or on
+the CPU (``--device cpu``, gloo); rank 0 writes the shared files and
+prints, and ``--check`` runs on every rank::
+
+    torchrun --nproc-per-node 2 -m stvd_torch.cli.export --run-dir R \
+        --out A --data-parallel 2 --batch 2,256 [--device cpu]
 """
 
 from __future__ import annotations
@@ -44,11 +54,13 @@ def main(argv=None) -> int:
                     help="also export the full-beam n-best graph per "
                          "batch size (requires beam_size > 1)")
     ap.add_argument("--data-parallel", type=int, default=0,
-                    help="sharded serving over N devices (not ported "
-                         "yet: N above 0 raises)")
+                    help="export sharded over a 1-D data mesh of N "
+                         "ranks (batch sizes must divide by N; launch N "
+                         "ranks with torchrun; the loader needs N)")
     ap.add_argument("--model-parallel", type=int, default=0,
-                    help="tensor-parallel serving (not ported yet: M "
-                         "above 1 raises)")
+                    help="export tensor-parallel over a 2-D data x model "
+                         "mesh of N x M ranks (weights sharded per "
+                         "TP_RULES; combines with --data-parallel)")
     ap.add_argument("--best", action="store_true", default=True)
     ap.add_argument("--check", action="store_true",
                     help="roundtrip-verify against the live Captioner")
@@ -57,11 +69,16 @@ def main(argv=None) -> int:
                          "check (default cuda; cpu for a CPU run)")
     args = ap.parse_args(argv)
 
+    import torch.distributed as dist
+
     from . import device
     from ..api import Captioner
     from ..export_aot import load_artifact, save_artifact
+    from ..train import parallel
 
     dev = device(args.device)
+    if parallel.visible_ranks() > 1:
+        dev = parallel.rank_device(dev)     # cuda:LOCAL_RANK under torchrun
     platforms = tuple(p.strip() for p in args.platforms.split(",")
                       if p.strip())
     cap = Captioner.from_run_dir(args.run_dir, best=args.best,
@@ -75,8 +92,11 @@ def main(argv=None) -> int:
                              use_kernel=use_kernel,
                              nbest=args.nbest,
                              data_parallel=args.data_parallel,
-                             model_parallel=args.model_parallel)
-    print(f"exported {args.run_dir} -> {args.out} "
+                             model_parallel=args.model_parallel,
+                             device=dev)
+    first = not dist.is_initialized() or dist.get_rank() == 0
+    say = print if first else (lambda *a, **k: None)
+    say(f"exported {args.run_dir} -> {args.out} "
           f"(platforms={manifest['platforms']} "
           f"batch_sizes={manifest['batch_sizes']} "
           f"beam={manifest['beam_size']} "
@@ -86,7 +106,7 @@ def main(argv=None) -> int:
     if args.check:
         import numpy as np
         if dev.type not in platforms:
-            print(f"check skipped: device {dev.type!r} not in exported "
+            say(f"check skipped: device {dev.type!r} not in exported "
                   f"platforms {platforms}")
             return 0
         m = cap.cfg.model
@@ -103,7 +123,7 @@ def main(argv=None) -> int:
         got = served.caption(feats, regs, mots)
         live = cap.caption(feats, regs, mots)
         ok = got == live
-        print(f"check: {'OK: artifact captions match live' if ok else 'MISMATCH'}"
+        say(f"check: {'OK: artifact captions match live' if ok else 'MISMATCH'}"
               f" ({sum(a == b for a, b in zip(got, live))}/{n} equal; "
               f"load {load_s} s)")
         return 0 if ok else 1

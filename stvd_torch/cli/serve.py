@@ -54,9 +54,23 @@ accepts requests.
 ``--artifact`` serves the graphs of ``stvd_torch.cli.export`` (mode
 "aot"): weights are call-time inputs, so ``--params`` and /swap_params
 change them without re-export; quantization is baked in at export time
-(``--quant`` is refused).  Not ported: a bank sharded over several
-devices (``--bank-shards`` above 1; a multi-rank daemon) raises
-``NotImplementedError`` (ROADMAP.md Queue 1 item 8c).
+(``--quant`` is refused).
+
+A daemon of several ranks (``torchrun --nproc-per-node W -m
+stvd_torch.cli.serve ...``) serves a bank sharded over N of them
+(``--bank-shards N``: a 1-D data mesh in live mode or under a one-device
+artifact, the artifact's own mesh, whose data degree must be N, under a
+sharded one) or a sharded artifact.  It is SPMD: rank 0 owns the
+listener and the files, the other ranks bind no socket and follow, and
+every call that touches the mesh (the warm-up, /caption_ids,
+/nbest_ids, /caption and /nbest of a sharded artifact, /swap_params with
+rank 0's arrays, /shutdown) is broadcast from rank 0 in the order rank 0
+makes it, under one lock, after rank 0 has validated the request (an
+unknown id is a 400 and nothing is sent).  /caption of raw features in
+live mode decodes on rank 0 alone.  An error that every rank raises
+alike (a ValueError) is answered once by rank 0; any other error of a
+mesh call, or a rank that stops answering (rank 0 sends a heartbeat
+while idle), ends the daemon with a non-zero exit.
 
 ``request_captions`` is the matching client helper (raw wire format by
 default; ``wire='npz'`` for the portable container).
@@ -490,23 +504,17 @@ class CaptionServer(HTTPServer):
         return out
 
     def warmup(self) -> float:
-        """One zeros-batch caption at decode_batch, so the kernels are
-        built and the first real request never pays first-call costs.
-        Returns wall seconds."""
-        m = self.captioner.cfg.model
+        """One zeros-batch caption a batch size (``_warm``; on every rank
+        of a daemon of several), so the kernels are built and the first
+        real request never pays first-call costs.  Returns wall
+        seconds."""
         sizes = self.manifest.get("batch_sizes") or [
             self.captioner.cfg.decode.decode_batch]
         t0 = time.perf_counter()
-        for b in sizes:
-            feats = np.zeros((b, m.n_frames, m.ctx_dim), np.float32)
-            regs = (np.zeros((b, m.n_frames, m.n_regions, m.region_dim),
-                             np.float32) if m.use_spatial else None)
-            mots = (np.zeros((b, m.n_frames, m.motion_dim), np.float32)
-                    if m.use_motion else None)
-            self.captioner.caption(feats, regions=regs, motion=mots)
-        if self.captioner.device.type == "cuda":
-            import torch
-            torch.cuda.synchronize(self.captioner.device)
+        if isinstance(self.captioner, _MeshCalls):
+            self.captioner.warmup(sizes)
+        else:
+            _warm(self.captioner, sizes)
         return time.perf_counter() - t0
 
 
@@ -617,24 +625,303 @@ def request_caption_ids(host: str, port: int, ids: Sequence[str],
 def _attach_bank(cap, bank_path: str, manifest: Dict,
                  shards: int = 0) -> None:
     from ..data.bank import FeatureBank
+    from ..train import parallel
+    mesh = None
     if shards and shards > 1:
-        raise NotImplementedError(
-            "--bank-shards above 1 (a bank sharded over several devices, "
-            "on a data mesh or a mesh with a model axis) is not ported "
-            "yet (ROADMAP.md Queue 1 item 8c)")
-    n = cap.attach_bank(FeatureBank.load(bank_path))
+        # a sharded artifact's bank rides its serving mesh (whose data
+        # degree must be N); otherwise a 1-D data mesh over N ranks
+        mesh = getattr(cap, "_mesh", None)
+        if mesh is not None:
+            if parallel.axis_size(mesh) != shards:
+                raise ValueError(
+                    f"--bank-shards {shards} != the artifact's "
+                    f"data-parallel degree {parallel.axis_size(mesh)} "
+                    "(a sharded bank rides the artifact's serving mesh)")
+        else:
+            world = parallel.visible_ranks()
+            if world != shards:
+                raise ValueError(f"--bank-shards {shards} needs {shards} "
+                                 f"devices; {world} visible")
+            mesh = parallel.make_mesh(cap.device.type)
+    n = cap.attach_bank(FeatureBank.load(bank_path), mesh=mesh)
     manifest["bank_videos"] = n
     manifest["bank_ids"] = cap.bank_ids
     manifest["bank_shards"] = int(shards or 0)
-    print(f"bank resident: {n} videos from {bank_path} "
-          "(POST /caption_ids)")
+    _say(f"bank resident: {n} videos from {bank_path} "
+         + (f"sharded over {shards} ranks " if mesh is not None else "")
+         + "(POST /caption_ids)")
 
 
-def build_server(args) -> CaptionServer:
+def _say(*args) -> None:
+    """print on rank 0 (or a lone process) only."""
+    import torch.distributed as dist
+    if not dist.is_initialized() or dist.get_rank() == 0:
+        print(*args)
+
+
+def _warm(captioner, sizes: Sequence[int]) -> None:
+    """One zeros-batch caption a size, so the kernels are built and the
+    first real request never pays first-call costs."""
+    m = captioner.cfg.model
+    for b in sizes:
+        feats = np.zeros((b, m.n_frames, m.ctx_dim), np.float32)
+        regs = (np.zeros((b, m.n_frames, m.n_regions, m.region_dim),
+                         np.float32) if m.use_spatial else None)
+        mots = (np.zeros((b, m.n_frames, m.motion_dim), np.float32)
+                if m.use_motion else None)
+        captioner.caption(feats, regions=regs, motion=mots)
+    if captioner.device.type == "cuda":
+        import torch
+        torch.cuda.synchronize(captioner.device)
+
+
+class _Slot:
+    """A tensor's place in a broadcast message: its shape and dtype."""
+
+    def __init__(self, t):
+        self.shape, self.dtype = tuple(t.shape), t.dtype
+
+
+def _map(tree, kind, fn):
+    """``tree`` (dicts, lists, tuples) with each leaf of type ``kind``
+    replaced by ``fn(leaf)``, in order."""
+    if isinstance(tree, kind):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: _map(v, kind, fn) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map(v, kind, fn) for v in tree)
+    return tree
+
+
+def _send(mesh, msg) -> None:
+    """Rank 0's message ``(name, args, kwargs)`` to every rank: its plain
+    values pickled in one broadcast, its tensors broadcast in place."""
+    import torch
+    from ..train import parallel
+    tensors: List = []
+
+    def slot(t):
+        tensors.append(t.contiguous())
+        return _Slot(t)
+
+    parallel.broadcast_object(_map(msg, torch.Tensor, slot), mesh)
+    if tensors:
+        parallel.replicate(tensors, mesh)
+
+
+def _receive(mesh, device):
+    """The message of rank 0's ``_send``, its tensors on ``device``."""
+    import torch
+    from ..train import parallel
+    tensors: List = []
+
+    def tensor(sl):
+        tensors.append(torch.empty(sl.shape, dtype=sl.dtype, device=device))
+        return tensors[-1]
+
+    msg = _map(parallel.broadcast_object(None, mesh), _Slot, tensor)
+    if tensors:
+        parallel.replicate(tensors, mesh)      # fills them in place
+    return msg
+
+
+# idle seconds between rank 0's heartbeats: a follower waits in a
+# collective, which fails after the group's timeout without one
+_HEARTBEAT_S = 10.0
+
+
+class _MeshCalls:
+    """Rank 0's captioner in a daemon of several ranks: each call that
+    touches the mesh is validated here, then sent to every rank and run
+    by each (``_Follower`` on the others) under one lock, so two handler
+    threads never interleave their messages.  Every other attribute is
+    the captioner's."""
+
+    def __init__(self, captioner, mesh, sharded_graphs: bool):
+        self._cap = captioner
+        self._mesh = mesh
+        self._sharded_graphs = sharded_graphs
+        self._lock = threading.Lock()
+        self._last = time.monotonic()
+        self._stopped = False
+        self.failed: Optional[BaseException] = None
+        self.on_failure = None
+
+    def __getattr__(self, name):
+        return getattr(self._cap, name)
+
+    def _run(self, name: str, *args, **kwargs):
+        """Send ``name(*args, **kwargs)`` to every rank, then run it
+        here: a ValueError or KeyError comes alike from every rank and is
+        the caller's; anything else ends the daemon."""
+        with self._lock:
+            if self.failed is not None:
+                raise RuntimeError(f"the ranks are gone: {self.failed}")
+            if self._stopped:
+                raise RuntimeError("the daemon has released its ranks")
+            try:
+                _send(self._mesh, (name, args, kwargs))
+                self._last = time.monotonic()
+                if name == "warmup":
+                    return _warm(self._cap, *args)
+                if name == "ping":
+                    return None
+                return getattr(self._cap, name)(*args, **kwargs)
+            except (ValueError, KeyError):
+                raise
+            except BaseException as e:
+                self._fail(e)
+                raise
+
+    def _fail(self, e: BaseException) -> None:
+        self.failed = e
+        sys.stderr.write(f"serve: a mesh call failed, stopping: "
+                         f"{type(e).__name__}: {e}\n")
+        if self.on_failure is not None:
+            threading.Thread(target=self.on_failure, daemon=True).start()
+
+    def heartbeat(self, stop: threading.Event) -> None:
+        """Send a no-op to every rank whenever the mesh has been idle
+        for ``_HEARTBEAT_S`` seconds, until ``stop`` is set."""
+        while not stop.wait(_HEARTBEAT_S / 4):
+            if time.monotonic() - self._last >= _HEARTBEAT_S:
+                try:
+                    self._run("ping")
+                except BaseException:
+                    return
+
+    def stop(self) -> None:
+        """Release the other ranks (once; not after a failure): no mesh
+        call is sent after this."""
+        with self._lock:
+            if self._stopped or self.failed is not None:
+                return
+            self._stopped = True
+            _send(self._mesh, ("shutdown", (), {}))
+
+    def warmup(self, sizes: Sequence[int]) -> None:
+        self._run("warmup", list(sizes))
+
+    def caption_ids(self, ids: Sequence[str]) -> List[str]:
+        self._cap._rows_for(ids)          # a 400 before anything is sent
+        return self._run("caption_ids", list(ids))
+
+    def nbest_ids(self, ids: Sequence[str], n: Optional[int] = None,
+                  norm: bool = True) -> List[List[tuple]]:
+        self._cap._rows_for(ids)
+        return self._run("nbest_ids", list(ids), n=n, norm=norm)
+
+    def _packed(self, features, regions, motion):
+        from ..api import pack_request
+        return pack_request(self._cap.cfg.model, features, regions, motion,
+                            device=self._cap.device)
+
+    def caption(self, features, regions=None, motion=None) -> List[str]:
+        """A sharded artifact's captions: the packed batch goes to every
+        rank; in live mode rank 0 decodes alone."""
+        if not self._sharded_graphs:
+            with self._lock:
+                return self._cap.caption(features, regions, motion)
+        return self._run("caption_batch",
+                         self._packed(features, regions, motion))
+
+    def nbest(self, features, regions=None, motion=None,
+              n: Optional[int] = None, norm: bool = True):
+        if not self._sharded_graphs:
+            with self._lock:
+                return self._cap.nbest(features, regions, motion, n=n,
+                                       norm=norm)
+        return self._run("caption_nbest",
+                         self._packed(features, regions, motion), n=n,
+                         norm=norm)
+
+    def swap_params(self, params) -> None:
+        """Rank 0's arrays, checked here, then sent to every rank."""
+        import torch
+        from ..api import _check_swap_compatible
+        _check_swap_compatible(getattr(self._cap, "_shapes",
+                                       self._cap.params), params)
+        self._run("swap_params", {
+            k: torch.as_tensor(np.asarray(v, np.float32)).to(
+                self._cap.device) for k, v in params.items()})
+
+
+class _Follower:
+    """A rank above 0 of a daemon of several ranks: no socket; it runs
+    each call rank 0 sends, in order, until rank 0 sends ``shutdown``
+    (the server's ``warmup`` / ``serve_forever`` / ``server_close``
+    shape, so ``main`` drives either)."""
+
+    def __init__(self, captioner, mesh):
+        self.captioner = captioner
+        self.mesh = mesh
+        self.mode = "follower"
+        self.manifest: Dict = {}
+
+    def warmup(self) -> float:
+        return 0.0      # rank 0's warm-up arrives as a message
+
+    def serve_forever(self) -> None:
+        import torch.distributed as dist
+        while True:
+            name, args, kwargs = _receive(self.mesh, self.captioner.device)
+            if name == "shutdown":
+                return
+            if name == "ping":
+                continue
+            try:
+                if name == "warmup":
+                    _warm(self.captioner, *args)
+                else:
+                    getattr(self.captioner, name)(*args, **kwargs)
+            except (ValueError, KeyError) as e:   # rank 0 answers it
+                sys.stderr.write(f"rank {dist.get_rank()}: {name}: {e}\n")
+
+    def server_close(self) -> None:
+        pass
+
+
+def _on_ranks(cap, server_for):
+    """On a daemon of several ranks, rank 0's server over ``_MeshCalls``
+    (``server_for(captioner)``) or a ``_Follower``; a lone process's
+    server as it is.  The mesh the ranks follow is the artifact's, else
+    the bank's: one of them spans every rank."""
+    import torch.distributed as dist
+    if not dist.is_initialized() or dist.get_world_size() == 1:
+        return server_for(cap)
+    mesh = getattr(cap, "_mesh", None)
+    sharded_graphs = mesh is not None
+    mesh = mesh if mesh is not None else getattr(cap, "_bank_mesh", None)
+    if mesh is None:
+        raise ValueError(
+            f"{dist.get_world_size()} ranks serve a sharded artifact or a "
+            "bank sharded over them (--bank-shards); this daemon has "
+            "neither")
+    if dist.get_rank():
+        return _Follower(cap, mesh)
+    calls = _MeshCalls(cap, mesh, sharded_graphs)
+    server = server_for(calls)
+    calls.on_failure = server.shutdown
+    return server
+
+
+def build_server(args):
+    """The daemon of ``args``: a ``CaptionServer``, or on a rank above 0
+    of a daemon of several ranks its ``_Follower``."""
     if bool(getattr(args, "artifact", None)) == bool(args.run_dir):
         raise ValueError("exactly one of --artifact / --run-dir required")
     wait_ms = float(getattr(args, "coalesce_wait_ms", 0) or 0)
     cls = ThreadedCaptionServer if wait_ms > 0 else CaptionServer
+    dev = getattr(args, "device", "cuda")
+    from ..train import parallel
+    if parallel.visible_ranks() > 1:
+        # each rank on its device (cuda:LOCAL_RANK under torchrun)
+        dev = parallel.rank_device(dev)
+    kw = dict(verbose=args.verbose,
+              allow_shutdown=getattr(args, "allow_shutdown", False),
+              coalesce_wait_ms=wait_ms,
+              allow_swap=getattr(args, "allow_swap", False))
     if args.artifact:
         if getattr(args, "quant", None) not in (None, "none"):
             raise ValueError(
@@ -646,20 +933,15 @@ def build_server(args) -> CaptionServer:
         if getattr(args, "params", None):
             with np.load(args.params) as z:
                 params = {k: z[k] for k in z.files}
-        cap = load_artifact(args.artifact, params=params,
-                            device=getattr(args, "device", "cuda"))
+        cap = load_artifact(args.artifact, params=params, device=dev)
         manifest = dict(cap.manifest)
         if getattr(args, "bank", None):
             _attach_bank(cap, args.bank, manifest,
                          shards=getattr(args, "bank_shards", 0))
-        return cls(cap, args.host, args.port, mode="aot",
-                   manifest=manifest, verbose=args.verbose,
-                   allow_shutdown=getattr(args, "allow_shutdown", False),
-                   coalesce_wait_ms=wait_ms,
-                   allow_swap=getattr(args, "allow_swap", False))
+        return _on_ranks(cap, lambda c: cls(
+            c, args.host, args.port, mode="aot", manifest=manifest, **kw))
     from ..api import Captioner
-    cap = Captioner.from_run_dir(args.run_dir, quant=args.quant,
-                                 device=getattr(args, "device", "cuda"))
+    cap = Captioner.from_run_dir(args.run_dir, quant=args.quant, device=dev)
     summary = {"mode": "live", "run_dir": args.run_dir,
                "beam_size": cap.cfg.decode.beam_size,
                "decode_batch": cap.cfg.decode.decode_batch,
@@ -667,11 +949,8 @@ def build_server(args) -> CaptionServer:
     if getattr(args, "bank", None):
         _attach_bank(cap, args.bank, summary,
                      shards=getattr(args, "bank_shards", 0))
-    return cls(cap, args.host, args.port, mode="live",
-               manifest=summary, verbose=args.verbose,
-               allow_shutdown=getattr(args, "allow_shutdown", False),
-               coalesce_wait_ms=wait_ms,
-               allow_swap=getattr(args, "allow_swap", False))
+    return _on_ranks(cap, lambda c: cls(
+        c, args.host, args.port, mode="live", manifest=summary, **kw))
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
@@ -686,8 +965,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                          "/caption_ids {\"ids\": [...]}) — no feature "
                          "transfer per request")
     ap.add_argument("--bank-shards", type=int, default=0, metavar="N",
-                    help="shard the resident bank over N devices (not "
-                         "ported yet: N above 1 raises)")
+                    help="shard the resident bank's videos over N ranks "
+                         "(torchrun --nproc-per-node N; under a sharded "
+                         "artifact N must be its data-parallel degree)")
     ap.add_argument("--params", default=None,
                     help="override weights: an .npz of same-architecture "
                          "params (aot mode; no re-export needed)")
@@ -717,17 +997,29 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     server = build_server(args)
     if not args.no_warmup:
         secs = server.warmup()
-        print(f"warmup: {secs:.1f}s "
-              f"(sizes {server.manifest.get('batch_sizes') or 'live'})")
-    print(f"serving {server.mode} on http://{args.host}:"
-          f"{server.server_port}  (POST /caption, GET /healthz)")
+        _say(f"warmup: {secs:.1f}s "
+             f"(sizes {server.manifest.get('batch_sizes') or 'live'})")
+    if isinstance(server, _Follower):
+        server.serve_forever()
+        return 0
+    _say(f"serving {server.mode} on http://{args.host}:"
+         f"{server.server_port}  (POST /caption, GET /healthz)")
+    calls = server.captioner if isinstance(server.captioner,
+                                           _MeshCalls) else None
+    stop = threading.Event()
+    if calls is not None:
+        threading.Thread(target=calls.heartbeat, args=(stop,),
+                         daemon=True).start()
     try:
         server.serve_forever()
     except KeyboardInterrupt:
         pass
     finally:
+        stop.set()
+        if calls is not None:
+            calls.stop()
         server.server_close()
-    return 0
+    return 1 if calls is not None and calls.failed is not None else 0
 
 
 if __name__ == "__main__":

@@ -126,7 +126,7 @@ dws_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
     fence_acc(d);
 
     // fragment layout of m64nNk16: d[4c + 2i + j] is row 16 warp + lane/4
-    // + 8i, column 8c + 2 (lane % 4) + j of this warpgroup's 64 x 256
+    // + 8i, column 8 * c + 2 (lane % 4) + j of this warpgroup's 64 x 256
     float* out = part + static_cast<long long>(blockIdx.z) * dr * s;
     const int row0 = m0 + wg * 64 + ((threadIdx.x & 127) >> 5) * 16 +
                      (lane >> 2);

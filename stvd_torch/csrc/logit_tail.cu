@@ -457,7 +457,7 @@ tail_wgmma_kernel(const __grid_constant__ CUtensorMap map_x,
     if (lane == 0) mbar_arrive(empty + 8 * ((it - 1) % kWgRing));
 
     // Epilogue in registers.  d[4c + 2i + j] is row r_i = 16 warp + lane/4
-    // + 8i of this warpgroup's 64, column 8c + 2q + j of the strip: a
+    // + 8i of this warpgroup's 64, column 8 * c + 2q + j of the strip: a
     // thread holds 64 columns of each of its two rows, in ascending order
     // of (c, j), and the quad's four lanes hold the whole strip.
     const int r0 = m0 + wg * 64 + ((threadIdx.x & 127) >> 5) * 16 + (lane >> 2);

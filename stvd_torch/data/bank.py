@@ -61,6 +61,19 @@ class FeatureBank:
             arrs["motion"] = self.motion
         np.savez_compressed(path, **arrs)
 
+    def to_device(self, dtype: Optional[torch.dtype] = None, *,
+                  device: torch.device | str = "cuda"
+                  ) -> Dict[str, torch.Tensor]:
+        """The JAX package's method: ``to_device(self, device, dtype)``."""
+        return to_device(self, device, dtype)
+
+    def to_device_sharded(self, mesh, dtype: Optional[torch.dtype] = None,
+                          *, device: torch.device | str = "cuda"
+                          ) -> Dict[str, torch.Tensor]:
+        """The JAX package's method: ``to_device_sharded(self, mesh,
+        device, dtype)``."""
+        return to_device_sharded(self, mesh, device, dtype)
+
     @staticmethod
     def load(path: str) -> "FeatureBank":
         z = np.load(path, allow_pickle=False)
@@ -187,12 +200,14 @@ def to_device(bank: FeatureBank, device: torch.device | str,
 def to_device_sharded(bank: FeatureBank, mesh, device: torch.device | str,
                       dtype: Optional[torch.dtype] = None
                       ) -> Dict[str, torch.Tensor]:
-    """This rank's shard of the bank's video rows over the 1-D
-    ``('data',)`` mesh (``train.parallel``): with N videos over n ranks
-    and ``sn = ceil(N / n)``, rank r holds rows ``[r*sn, (r+1)*sn)`` of
-    the bank zero-padded to ``n*sn`` rows, so every shard has ``sn``
-    rows; padded rows are never addressed (ids are checked against the
-    real index).  Streams as in ``to_device``; cached on the bank per
+    """This rank's shard of the bank's video rows over the data axis of
+    ``mesh`` (``train.parallel``; 1-D ``('data',)`` or 2-D ``('data',
+    'model')``, on which every rank of a model group holds the same
+    rows, the JAX package's ``P('data')``): with N videos over n data
+    ranks and ``sn = ceil(N / n)``, data rank r holds rows ``[r*sn,
+    (r+1)*sn)`` of the bank zero-padded to ``n*sn`` rows, so every shard
+    has ``sn`` rows; padded rows are never addressed (ids are checked
+    against the real index).  Streams as in ``to_device``; cached on the bank per
     (device, dtype, axis size, rank) like ``to_device``.  Every rank
     calls this; nothing crosses between ranks."""
     from ..train import parallel

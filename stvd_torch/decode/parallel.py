@@ -23,7 +23,8 @@ same beams and the same early exit.
 Kernels 1 and 4 (attention and spatial cores) run whole on every rank
 over the replicated activations; kernel 3 (gates + LSTM) is refused under
 a model axis (``tp.check_options``), as the JAX package's TP decode runs
-its plain step.
+its plain step; so does an int8 decode (``step._int8_gates_sharded``:
+the whole stack's scales, the int32 partial sums reduced as int32).
 """
 
 from __future__ import annotations

@@ -9,6 +9,7 @@ JAX key), so parity tests share weights through ``convert`` instead.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Callable, Dict, NamedTuple, Optional
 
 import torch
@@ -90,6 +91,11 @@ def init_params(cfg, generator: torch.Generator,
     p["ff_logit_W"] = norm(dw, cfg.n_words)
     p["ff_logit_b"] = zeros(cfg.n_words)
     return p
+
+
+def param_count(params: Params) -> int:
+    """The number of weights in a parameter dict (tensors or arrays)."""
+    return sum(math.prod(v.shape) for v in params.values())
 
 
 def encode_context(params: Params, cfg, frames: torch.Tensor,

@@ -177,7 +177,7 @@ def _gates_weights(params: Params) -> torch.Tensor:
     return torch.cat([params["W"], params["U"], params["Wc"]], dim=0)
 
 
-def quantize_weights(w: torch.Tensor
+def quantize_weights(w: torch.Tensor, reduce_max=None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-output-column symmetric int8 grid of a (K, N) weight stack:
     (w_q int8, scale (N,) f32) with scale = max(max|w|, 1e-8) / 127 and
@@ -185,9 +185,14 @@ def quantize_weights(w: torch.Tensor
     ``w_q`` is the (K, N) view of a K-major (N, K) tensor: the gates
     kernel's wgmma takes int8 operands only K-major, and the plain path
     multiplies the view as it is (on the card cuBLASLt takes it as a
-    transposed operand)."""
+    transposed operand).  ``reduce_max`` turns the column maxima of
+    ``w`` into those of the whole stack when ``w`` holds some of its
+    rows (the maximum over the model axis)."""
     w32 = w.to(torch.float32)
-    scale = w32.abs().amax(dim=0).clamp_min(1e-8) / 127.0
+    amax = w32.abs().amax(dim=0)
+    if reduce_max is not None:
+        amax = reduce_max(amax)
+    scale = amax.clamp_min(1e-8) / 127.0
     w_q = torch.clamp(torch.round(w32 / scale[None, :]), -127, 127)
     return w_q.to(torch.int8).t().contiguous().t(), scale
 
@@ -242,12 +247,14 @@ def precompute(params: Params, cfg, ctx: torch.Tensor,
     if train:
         h_proj_w = _h_projection_weights(params, cfg)
     elif tp.current() is not None:
-        # the step takes W, U and Wc apart, each row-parallel
+        # the step takes W, U and Wc apart, each row-parallel; under int8
+        # this rank's rows of [W; U; Wc] go on the whole stack's grid, its
+        # column maxima reduced over the model axis
         if cfg.decode_quant == "int8":
-            raise ValueError(
-                "decode_quant='int8' cannot run under a model axis: each "
-                "rank holds a row slice of the gates stack, whose per-column "
-                "scales are maxima over all of its rows")
+            axis = tp.current()
+            gates_w_q, gates_scale = quantize_weights(
+                _gates_weights(params),
+                lambda m: tp.all_reduce(m.contiguous(), axis, "max"))
     else:
         gates_w = _gates_weights(params)
         if cfg.decode_quant == "int8":
@@ -372,6 +379,35 @@ def _gates_lstm(x, w, b, c, s_r=None, scale=None
     return lstm_update(preact, c)
 
 
+def _int8_gates_sharded(params: Params, sc: StepContext,
+                        emb_t: torch.Tensor, h: torch.Tensor,
+                        ctx_t: torch.Tensor, cdtype: torch.dtype
+                        ) -> torch.Tensor:
+    """The W8A8 preactivation under a model axis, equal to one device's:
+    the row scale of the whole [emb | h | ctx] row (replicated, so taken
+    before the rank's features are cut), this rank's features of each
+    block against its int8 rows of [W; U; Wc] (``precompute``), the
+    partial int32 sums reduced as int32 (exact: the float32 sum of K
+    products of up to 127^2 would round), then one dequantization.  A
+    block whose weight is whole on every rank (a width the model axis
+    does not divide) counts on rank 0 alone."""
+    axis = tp.current()
+    x_q, s_r = quantize_rows(torch.cat(
+        [emb_t.to(cdtype), h.to(cdtype), ctx_t.to(cdtype)], dim=1))
+    blocks = torch.split(x_q, [emb_t.shape[1], h.shape[1], ctx_t.shape[1]],
+                         dim=1)
+    cols = []
+    for x, name in zip(blocks, ("W", "U", "Wc")):
+        rows = params[name].shape[0]
+        if rows == x.shape[1] and axis.rank:
+            x = torch.zeros_like(x)
+        cols.append(tp.local_cols(x, rows))
+    acc = tp.all_reduce(_int8_mm(torch.cat(cols, dim=1),
+                                 sc.gates_w_q).contiguous(), axis)
+    return (acc.to(torch.float32) * (s_r * sc.gates_scale[None, :])
+            + params["b"])
+
+
 def step_with_core(params: Params, cfg, state: StepState, sc: StepContext,
                    emb_t: torch.Tensor, x_pre: Optional[torch.Tensor] = None,
                    attention_core=_attention_core,
@@ -427,8 +463,11 @@ def step_with_core(params: Params, cfg, state: StepState, sc: StepContext,
         # under a model axis the gates are three row-parallel products
         # with one reduce; the gates kernel, which fuses them with the
         # LSTM, is refused there (tp.check_options)
-        preact = tp.row_sum([(emb_t, params["W"]), (h, params["U"]),
-                             (ctx_t, params["Wc"])], cdtype) + params["b"]
+        if sc.gates_w_q is not None:
+            preact = _int8_gates_sharded(params, sc, emb_t, h, ctx_t, cdtype)
+        else:
+            preact = tp.row_sum([(emb_t, params["W"]), (h, params["U"]),
+                                 (ctx_t, params["Wc"])], cdtype) + params["b"]
     if preact is not None:
         h_t, c_t = lstm_update(preact, c)
         return StepOut(h=h_t, c=c_t, ctx_t=ctx_t, alpha=alpha,

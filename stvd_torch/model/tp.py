@@ -28,6 +28,10 @@ give every rank the same sum), so the nonlinearities, the attention
 kernels and the decode loops run whole on every rank.  The axis is set
 for a block by ``model_axis(mesh, cfg)``; outside one, or on a mesh whose
 model axis has one rank, every function here is the plain product.
+
+The collectives have a second spelling that ``torch.export`` records
+(``functional_collectives``, entered by a sharded artifact's export):
+the same reductions on the same bytes, so the same bits.
 """
 
 from __future__ import annotations
@@ -111,16 +115,78 @@ def using(axis: Optional[Axis]):
 # Collectives (float32 on the wire for bf16: the gathers stay exact)
 # ---------------------------------------------------------------------------
 
-def all_reduce(t: torch.Tensor, axis: Axis) -> torch.Tensor:
-    """The sum of ``t`` over the axis, in place of a contiguous ``t``."""
-    dist.all_reduce(t, group=axis.group)
+_FUNCTIONAL: contextvars.ContextVar = contextvars.ContextVar(
+    "functional_collectives", default=False)
+
+_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
+
+# the integer type of each float type's bits
+_BITS = {torch.float32: torch.int32, torch.float64: torch.int64}
+
+
+@contextlib.contextmanager
+def functional_collectives():
+    """Within the block the collectives below take their traceable
+    spelling, which ``torch.export`` records as ``_c10d_functional`` ops
+    (an exported graph of the model axis holds them): the same
+    reductions on the same bytes, so the same bits as the in-place c10d
+    calls of the live path.  An export enters it."""
+    token = _FUNCTIONAL.set(True)
+    try:
+        yield
+    finally:
+        _FUNCTIONAL.reset(token)
+
+
+def _functional() -> bool:
+    return _FUNCTIONAL.get() or torch.compiler.is_exporting()
+
+
+def all_reduce(t: torch.Tensor, axis: Axis, op: str = "sum"
+               ) -> torch.Tensor:
+    """The sum (or, with ``op='max'``, the maximum) of ``t`` over the
+    axis: in place of a contiguous ``t`` on the live path, a new tensor
+    in the traceable spelling."""
+    if _functional():
+        from torch.distributed import _functional_collectives as funcol
+        return _waited(funcol.all_reduce(t, op, axis.group))
+    dist.all_reduce(t, op=_OPS[op], group=axis.group)
     return t
+
+
+def _waited(t: torch.Tensor) -> torch.Tensor:
+    """A functional collective's result as a plain tensor (run eagerly it
+    is an ``AsyncCollectiveTensor``; traced, already one)."""
+    from torch.distributed._functional_collectives import (
+        AsyncCollectiveTensor)
+    return t.wait() if isinstance(t, AsyncCollectiveTensor) else t
+
+
+def _gather_by_sum(t: torch.Tensor, axis: Axis, dim: int) -> torch.Tensor:
+    """The traceable gather: each rank places ``t`` in its own block of a
+    zero buffer and one ``all_reduce`` sums the buffers, as the integers
+    of their bits (adding zeros is exact, and an integer sum also keeps
+    -0.0).  Gloo has no ``all_gather_into_tensor`` for CUDA tensors."""
+    from torch.distributed import _functional_collectives as funcol
+    dim = dim % t.dim()
+    width = t.shape[dim]
+    pad = [list(t.shape), list(t.shape)]
+    pad[0][dim] = axis.rank * width
+    pad[1][dim] = (axis.size - 1 - axis.rank) * width
+    buf = torch.cat([t.new_zeros(pad[0]), t, t.new_zeros(pad[1])], dim=dim)
+    bits = _BITS.get(buf.dtype)
+    if bits is None:
+        return _waited(funcol.all_reduce(buf, "sum", axis.group))
+    return _waited(funcol.all_reduce(buf.view(bits), "sum",
+                                     axis.group)).view(t.dtype)
 
 
 def gather(t: torch.Tensor, axis: Axis, dim: int) -> torch.Tensor:
     """The ranks' ``t`` concatenated along ``dim``, in rank order."""
     wire = t.float() if t.dtype == torch.bfloat16 else t
     wire = wire.contiguous()
+    if _functional():
+        return _gather_by_sum(wire, axis, dim).to(t.dtype)
     parts = [torch.empty_like(wire) for _ in range(axis.size)]
     dist.all_gather(parts, wire, group=axis.group)
     return torch.cat(parts, dim=dim).to(t.dtype)

@@ -387,6 +387,22 @@ def make_train_step(mcfg, tcfg, step_fn=None, mesh=None,
     return train_step
 
 
+def make_eval_nll(mcfg, step_fn=None, mesh=None):
+    """The validation NLL terms of a batch, ``eval_step(params, batch) ->
+    (nll_num, ex_den, tok_den)`` (0-d tensors), without dropout: the JAX
+    package's ``make_eval_nll``, with nothing to compile or cache.  With
+    a 2-D ``mesh`` the products run over its model axis."""
+
+    @torch.no_grad()
+    def eval_step(params: Params, batch):
+        with tp.model_axis(mesh, mcfg):
+            t = loss_terms(params, mcfg, batch, train=False,
+                           step_fn=step_fn)
+        return t["nll_num"], t["ex_den"], t["tok_den"]
+
+    return eval_step
+
+
 @torch.no_grad()
 def evaluate_nll_stats(params: Params, mcfg, ds: Dataset, batch_size: int,
                        step_fn=None, *, device: torch.device | str = "cuda",
@@ -399,6 +415,7 @@ def evaluate_nll_stats(params: Params, mcfg, ds: Dataset, batch_size: int,
     ``mesh`` ``params`` is the rank's share and the products run over the
     model axis; every rank of a model group calls this, each group takes
     the whole split."""
+    ev = make_eval_nll(mcfg, step_fn, mesh)
     dev = to_device(ds.bank, device, compute_dtype(mcfg))
     it = BatchIterator(ds.captions.n, min(batch_size, ds.captions.n),
                        shuffle=False)
@@ -406,12 +423,8 @@ def evaluate_nll_stats(params: Params, mcfg, ds: Dataset, batch_size: int,
     for idx, w in it.epoch():
         batch = gather_batch(dev, ds.captions, idx)
         batch["weight"] = torch.from_numpy(w).to(device)
-        with tp.model_axis(mesh, mcfg):
-            t = loss_terms(params, mcfg, batch, train=False,
-                           step_fn=step_fn)
-        num += float(t["nll_num"])
-        ex += float(t["ex_den"])
-        tok += float(t["tok_den"])
+        n, d, t = ev(params, batch)
+        num, ex, tok = num + float(n), ex + float(d), tok + float(t)
     return num, ex, tok
 
 

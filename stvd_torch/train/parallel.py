@@ -89,6 +89,18 @@ def _init_group(devices, backend: Optional[str]) -> str:
     return kind
 
 
+def rank_device(devices: Optional[str | torch.device] = None,
+                backend: Optional[str] = None) -> torch.device:
+    """This rank's device, after joining the process group as
+    ``make_mesh`` does (from ``torchrun``'s environment when there is
+    none yet, on ``cuda:LOCAL_RANK``): its current CUDA device, or the
+    CPU."""
+    kind = _init_group(devices, backend)
+    if kind == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(kind)
+
+
 def make_mesh(devices: Optional[str | torch.device] = None,
               backend: Optional[str] = None):
     """The 1-D data mesh over every rank of the process group, as a
@@ -134,15 +146,52 @@ def has_model_axis(mesh) -> bool:
 
 
 def check_data_mesh(mesh) -> None:
-    """Raise unless ``mesh`` is a 1-D ``('data',)`` mesh: serving with a
-    bank sharded over a mesh with a model axis is not ported (ROADMAP.md
-    Queue 1 item 8c)."""
+    """Raise ``ValueError`` unless ``mesh`` has a ``'data'`` axis: a 1-D
+    ``('data',)`` mesh, or a 2-D ``('data', 'model')`` one, on which a
+    bank is sharded over the data axis and replicated over the model
+    axis (the JAX package's ``P('data')`` on either mesh)."""
     names = getattr(mesh, "mesh_dim_names", None)
-    if names is None or tuple(names) != (DATA_AXIS,):
-        raise NotImplementedError(
-            f"only a 1-D ('data',) mesh serves a sharded bank, not "
-            f"{names!r}: sharded serving on a mesh with a model axis is "
-            "not ported yet (ROADMAP.md Queue 1 item 8c)")
+    if names is None or tuple(names) not in ((DATA_AXIS,),
+                                             (DATA_AXIS, MODEL_AXIS)):
+        raise ValueError(
+            f"sharded serving needs a ('data',) or ('data', 'model') mesh, "
+            f"not one of axes {names!r}")
+
+
+def visible_ranks() -> int:
+    """The ranks of the process group, or of the one ``torchrun`` is
+    about to make (``WORLD_SIZE``); 1 for a lone process."""
+    if dist.is_initialized():
+        return dist.get_world_size()
+    return int(os.environ.get("WORLD_SIZE", "1"))
+
+
+def serving_mesh(data_parallel: int, devices=None,
+                 backend: Optional[str] = None):
+    """The 1-D ``('data',)`` mesh of a data-parallel artifact or bank
+    over exactly ``data_parallel`` ranks (the JAX package's
+    ``_serving_mesh`` over the first N devices: an SPMD world has no
+    ranks to leave out).  A world of another size raises ``ValueError``;
+    ``devices`` and ``backend`` are ``make_mesh``'s."""
+    world = visible_ranks()
+    if world != data_parallel:
+        raise ValueError(f"data_parallel={data_parallel} needs "
+                         f"{data_parallel} devices; only {world} visible")
+    return make_mesh(devices, backend)
+
+
+def serving_mesh_2d(data_parallel: int, model_parallel: int, devices=None,
+                    backend: Optional[str] = None):
+    """The 2-D ``('data', 'model')`` mesh of a tensor-parallel artifact
+    over exactly ``data_parallel * model_parallel`` ranks (the JAX
+    package's ``_serving_mesh_2d``); another world raises
+    ``ValueError``."""
+    need, world = data_parallel * model_parallel, visible_ranks()
+    if world != need:
+        raise ValueError(
+            f"data_parallel={data_parallel} x model_parallel="
+            f"{model_parallel} needs {need} devices; {world} visible")
+    return make_mesh_2d(devices, model_parallel, backend)
 
 
 def axis_size(mesh) -> int:

@@ -317,17 +317,39 @@ def test_bank_errors_match_jax():
 
 
 def test_sharded_bank_is_not_ported():
-    """A bank sharded over a 1-D ('data',) mesh is ported
-    (tests/test_torch_parallel.py); over any other mesh, such as a 2-D
-    (data x model) one, it comes with sharded serving, item 8c."""
+    """A bank is sharded over a mesh's data axis: a mesh without one is
+    refused; on a 2-D (data x model) mesh the ranks of a model group hold
+    the same rows, those of their data rank (the ranks' own runs are
+    tests/test_torch_sharded_serving.py's)."""
+    from stvd_torch.data.bank import to_device_sharded
+
     class Mesh2D:
+        """A 2 x 2 DeviceMesh's bookkeeping at rank (data, model)."""
         mesh_dim_names = ("data", "model")
 
+        def __init__(self, data, model):
+            self.ranks = {"data": data, "model": model}
+
+        def size(self, dim=None):
+            return 2
+
+        def get_local_rank(self, name=None):
+            return self.ranks[name]
+
     cap = port_captioner()
-    for mesh in (object(), Mesh2D()):
-        with pytest.raises(NotImplementedError, match="item 8c"):
-            cap.attach_bank(bank_of(request(n=2)), mesh=mesh)
+    with pytest.raises(ValueError, match="'data'"):
+        cap.attach_bank(bank_of(request(n=2)), mesh=object())
     assert cap.bank_ids == []
+    bank = bank_of(request(n=3))
+    shards = {(d, m): to_device_sharded(bank, Mesh2D(d, m), "cpu")
+              for d in (0, 1) for m in (0, 1)}
+    for d in (0, 1):
+        for k, v in shards[(d, 0)].items():
+            assert v.shape[0] == 2
+            assert torch.equal(v, shards[(d, 1)][k])
+    assert torch.equal(shards[(1, 0)]["frames"][0],
+                       torch.from_numpy(bank.frames[2]))
+    assert not shards[(1, 1)]["frame_mask"][1].any()     # the pad row
 
 
 def test_swap_params_matches_a_fresh_captioner():

@@ -515,7 +515,9 @@ def test_export_cli_cuda_platform_and_unported_flags(run_dirs, tmp_path,
                                                      capsys, monkeypatch):
     """--platforms cuda exports the kernel step's graph on a host without
     a card (the check is skipped on a CPU --device); sharded exports
-    raise; without --device the CLI wants the card."""
+    need their ranks (a lone process refuses them as the JAX package
+    refuses too few devices); without --device the CLI wants the
+    card."""
     from stvd_torch.cli import export as texport
     _, tdir = run_dirs
     out = str(tmp_path / "cuda")
@@ -525,11 +527,12 @@ def test_export_cli_cuda_platform_and_unported_flags(run_dirs, tmp_path,
     assert "kernel=True" in text and "check skipped" in text
     assert read_json(os.path.join(out, "manifest.json"))["custom_ops"] == [
         "stvd_torch::attention_core", "stvd_torch::logit_tail"]
-    for flag in ("--data-parallel", "--model-parallel"):
-        with pytest.raises(NotImplementedError, match="item 8"):
+    for flag, words in (("--data-parallel", "only 1 visible"),
+                        ("--model-parallel", "needs 2 devices; 1 visible")):
+        with pytest.raises(ValueError, match=words):
             texport.main(["--run-dir", tdir, "--out", str(tmp_path / "x"),
                           "--platforms", "cpu", "--device", "cpu", flag,
-                          "2"])
+                          "2", "--batch", "2"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="--device cpu"):
         texport.main(["--run-dir", tdir, "--out", str(tmp_path / "y")])

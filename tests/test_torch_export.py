@@ -289,12 +289,30 @@ def test_load_rejects_a_jax_artifact(tmp_path):
 @pytest.mark.parametrize("kw", [{"data_parallel": 2},
                                 {"model_parallel": 2}])
 def test_sharded_artifacts_raise(tmp_path, kw):
-    with pytest.raises(NotImplementedError, match="item 8"):
-        save(tmp_path, weights(), config(), **kw)
+    """Sharded artifacts are exported on their ranks
+    (tests/test_torch_sharded_serving.py).  In a lone process the JAX
+    package's refusals stand: a batch size the data degree does not
+    divide (the same words), and a world without the ranks."""
+    jout = str(tmp_path / "jax")
+    with pytest.raises(ValueError) as jerr:
+        jexport.save_artifact(jout, init_params(jax.random.PRNGKey(0), MCFG),
+                              config(), VOCAB, platforms=("cpu",),
+                              batch_sizes=(3,), data_parallel=2)
+    with pytest.raises(ValueError) as err:
+        save(tmp_path, weights(), config(), batch_sizes=(3,),
+             data_parallel=2, device="cpu")
+    assert str(err.value) == str(jerr.value)
+    with pytest.raises(ValueError, match=r"needs 2 devices; (only )?1 "
+                                         r"visible"):
+        save(tmp_path, weights(), config(), batch_sizes=(2,), device="cpu",
+             **kw)
 
 
 def test_sharded_graph_and_manifest_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 8"):
+    """A graph for a mesh needs one with a data axis; a sharded
+    artifact's manifest rebuilds its mesh, which a lone process cannot
+    hold (the JAX loader's refusal of too few devices)."""
+    with pytest.raises(ValueError, match="'data'"):
         export_aot.export_decoder(weights(), config(), platforms=("cpu",),
                                   mesh=object())
     out, _ = save(tmp_path, weights(), config())
@@ -304,7 +322,8 @@ def test_sharded_graph_and_manifest_raise(tmp_path):
     manifest["data_parallel"] = 2
     with open(path, "w") as f:
         json.dump(manifest, f)
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(ValueError, match="data_parallel=2 needs 2 devices; "
+                                         "only 1 visible"):
         export_aot.load_artifact(out, device="cpu")
 
 

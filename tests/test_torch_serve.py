@@ -322,15 +322,18 @@ def test_shutdown_endpoint(run_dirs):
 
 
 @pytest.mark.parametrize("kw,what", [
-    ({"artifact": True, "run_dir": None, "bank_shards": 2}, "item 8"),
-    ({"bank_shards": 2}, "item 8")])
+    ({"artifact": True, "run_dir": None, "bank_shards": 2},
+     "--bank-shards 2 needs 2 devices; 1 visible"),
+    ({"bank_shards": 2}, "--bank-shards 2 needs 2 devices; 1 visible")])
 def test_unported_modes_raise(run_dirs, artifact, kw, what):
-    """A bank sharded over several devices is not ported, over an
-    artifact or a run dir."""
+    """A bank sharded over N ranks needs a daemon of N ranks
+    (tests/test_torch_sharded_serving.py runs one); a lone process over
+    an artifact or a run dir refuses it as the JAX daemon refuses too few
+    devices."""
     _, tdir, bank, _ = run_dirs
     if kw.get("artifact"):
         kw = dict(kw, artifact=artifact[0])
-    with pytest.raises(NotImplementedError, match=what):
+    with pytest.raises(ValueError, match=what):
         build_server(server_args(**{"run_dir": tdir, "bank": bank, **kw}))
 
 
