@@ -158,6 +158,7 @@ def _errors(root, params, cfgj, bank_path, dp_cap, live_cap, tp_path):
     from stvd_torch import export_aot
     from stvd_torch.cli import serve
     from stvd_torch.config import Config
+    from stvd_torch.data.bank import FeatureBank
     from stvd_torch.data.text import Vocab
     cfg = Config.from_json(cfgj)
     out = {}
@@ -179,6 +180,9 @@ def _errors(root, params, cfgj, bank_path, dp_cap, live_cap, tp_path):
         dp_cap, bank_path, {}, shards=4))
     catch("shards_world", lambda: serve._attach_bank(
         live_cap, bank_path, {}, shards=4))
+    other = parallel.make_mesh_2d("cpu", model_parallel=2)
+    catch("other_mesh", lambda: dp_cap.attach_bank(
+        FeatureBank.load(bank_path), mesh=other))
     wrong = os.path.join(root, "wrong_world")
     if parallel.is_first_rank(live_cap._bank_mesh):
         shutil.copytree(tp_path, wrong)
@@ -759,8 +763,9 @@ def test_refusals_in_the_jax_package_s_words(world2, name):
 
 def test_bank_shards_refusals(world2):
     """--bank-shards against an artifact of another data degree, and
-    against a world of another size (the JAX daemon's words), and a
-    sharded artifact loaded in a world of the wrong size."""
+    against a world of another size (the JAX daemon's words), a sharded
+    artifact loaded in a world of the wrong size, and a bank sharded on
+    a mesh of another layout than the artifact's."""
     _, ranks = world2
     for r in ranks:
         e = r["errors"]
@@ -770,6 +775,7 @@ def test_bank_shards_refusals(world2):
         assert e["shards_world"] == "--bank-shards 4 needs 4 devices; 2 visible"
         assert e["load_world"] == ("data_parallel=2 x model_parallel=2 "
                                    "needs 4 devices; 2 visible")
+        assert "cannot ride the artifact's (2,) ('data',)" in e["other_mesh"]
 
 
 def test_a_graph_never_calls_a_group_it_does_not_know(world2):
