@@ -513,8 +513,6 @@ def save_artifact(out_dir: str, params, cfg: Config, vocab: Vocab,
         raise ValueError(f"data_parallel={dp} requires divisible batch "
                          f"sizes; got {bad}")
     mesh = _serving_mesh(dp, mp, device)
-    if nbest and cfg.decode.beam_size <= 1:
-        raise ValueError("n-best export requires decode.beam_size > 1")
     step_fn = _step(cfg, use_kernel, mesh)
     axis = _model_axis(cfg, mesh)
     programs = [("decode", _on_axis(_decode_run_fn(cfg, step_fn), axis))]
