@@ -76,8 +76,8 @@ vocab 13056, bf16):
   over gloo: ``cli.serve --bank-shards 2`` as a two-rank daemon driven
   over HTTP, ``cli.export --data-parallel 2`` and that artifact served
   by the daemon with the bank on its mesh, ``cli.export
-  --model-parallel 2`` graphs (float32; kernel 2 on each rank's vocab
-  shard from inside the graph) against the live TP decode, int8 decode under DP
+  --model-parallel 2`` graphs (kernel 2 on each rank's vocab shard from
+  inside the graph) against the live TP decode, int8 decode under DP
   (kernel 3 on each rank) and TP (the int32 reduce), the TP decode of
   ``eval_fit``'s fitted weights, and the 2 x 4 layout on 8 ranks.
 
@@ -3754,7 +3754,7 @@ def phase_tensor_parallel(kernel, dev, seed, info) -> dict:
 SS_RANKS = 2           # the data or model axis of the one-card phase
 SS_TIMEOUT = 900.0     # every collective, and the whole launch
 SS_NBEST = 16          # ids of the n-best requests
-SS_TP_VIDEOS = 256     # the float32 TP artifact's batch
+SS_F32_VIDEOS = 64     # the float32 TP artifact's batch (as tensor_parallel's)
 SS_2X4 = (2, 4)        # MULTICHIP_r05.json's TP mesh (data x model)
 
 
@@ -3904,14 +3904,14 @@ def ss_int8_gates_exact(mesh, dev, seed, m, full, part) -> dict:
 
 
 def ss_tp_artifacts(kernel, mesh, dev, seed, root, files, vocab) -> dict:
-    """(c): ``cli.export --model-parallel 2`` of the float32 run at 256
-    videos (one graph a model rank: the exports are the phase's cost, so
-    the bf16 TP graph's kernel 2 route is left to ``tensor_parallel``'s
-    live TP decode), loaded and decoding the bank's videos, against
+    """(c): ``cli.export --model-parallel 2`` of the bf16 run (256
+    videos: kernel 2 on the (1280, 512) x (512, 6528) shard) and of its
+    float32 twin (64 videos, ``tensor_parallel``'s float32 cell), each
+    loaded and decoding the bank's first videos, against
     ``make_tp_beam_decode`` at 1 x 2 bit for bit (the graph's launches of
-    kernels 1 and 2 counted from zero, kernel 2 on the (1280, 512) x
-    (512, 6528) shard), the single-device kernel decode and the plain TP
-    decode (tail 'off', plain step), every caption."""
+    kernels 1 and 2 counted from zero), and at float32 against the
+    single-device kernel decode and the plain TP decode (tail 'off',
+    plain step), every caption."""
     import hashlib
     from stvd_torch import export_aot
     from stvd_torch.cli import export as cexport
@@ -3923,7 +3923,8 @@ def ss_tp_artifacts(kernel, mesh, dev, seed, root, files, vocab) -> dict:
     from stvd_torch.train import parallel
     out = {}
     bank = FeatureBank.load(files["bank"])
-    for name, run, n in (("f32", files["run32"], SS_TP_VIDEOS),):
+    for name, run, n in (("bf16", files["run"], 256),
+                         ("f32", files["run32"], SS_F32_VIDEOS)):
         art = os.path.join(root, f"tp_{name}")
         t0 = time.perf_counter()
         rc = cexport.main(["--run-dir", run, "--out", art, "--batch", str(n),
@@ -4286,11 +4287,11 @@ def phase_sharded_serving(kernel, api, dev, seed, info, fitted) -> dict:
        raw-feature /caption (the packed batch broadcast), equal to the
        live single-device ``Captioner``; kernels 1 and 2 30 times a graph
        call from inside the loaded graphs; export and load seconds;
-    c. ``cli.export --model-parallel 2`` of the run's float32 twin at
-       256 videos (kernel 2 on the (1280, 512) x (512, 6528) shard from
-       inside the graph): captions equal to ``make_tp_beam_decode`` at
-       1 x 2 bit for bit, to the single-device decode and to the plain TP
-       decode;
+    c. ``cli.export --model-parallel 2`` of the bf16 run (256 videos:
+       kernel 2 on the (1280, 512) x (512, 6528) shard from inside the
+       graph, route wgmma) and of its float32 twin (64 videos): captions
+       equal to ``make_tp_beam_decode`` at 1 x 2 bit for bit, and at
+       float32 to the single-device decode and to the plain TP decode;
     d. int8: under DP with ``gates_kernel='on'`` (kernel 3 on each rank)
        against the single-device int8 kernel decode, every caption; under
        TP 1 x 2 (plain int8 products, the int32 reduce) the preactivation
@@ -4433,19 +4434,23 @@ def phase_sharded_serving(kernel, api, dev, seed, info, fitted) -> dict:
                 and b["custom_ops"] == ["stvd_torch::attention_core",
                                         "stvd_torch::logit_tail"],
                 f"sharded_serving (b) rank {r['rank']}: {b}")
-        c = r["tp_artifact"]["f32"]
-        require(c["rc"] == 0 and c["use_kernel"]
-                and c["launches"] == dict(none, attention_core=maxlen,
-                                          logit_tail=maxlen)
-                and c["launches_by_route"]["logit_tail"]["f32"] == maxlen
-                and c["launches_by_route"]["attention_core"]["cluster"]
-                == maxlen and c["tail_shape"] == [1280, 512, 6528]
-                and c["equal_live_tp"] == c["videos"] == SS_TP_VIDEOS
-                and c["equal_plain_tp"] == SS_TP_VIDEOS,
-                f"sharded_serving (c) rank {r['rank']}: {c}")
-        require(c["captions_digest"]
-                == r0["tp_artifact"]["f32"]["captions_digest"],
-                "sharded_serving (c): the ranks' captions differ")
+        for name, c in r["tp_artifact"].items():
+            require(c["rc"] == 0 and c["use_kernel"]
+                    and c["launches"] == dict(none, attention_core=maxlen,
+                                              logit_tail=maxlen)
+                    and c["launches_by_route"]["attention_core"]["cluster"]
+                    == maxlen and c["equal_live_tp"] == c["videos"],
+                    f"sharded_serving (c) {name} rank {r['rank']}: {c}")
+            require(c["captions_digest"]
+                    == r0["tp_artifact"][name]["captions_digest"],
+                    f"sharded_serving (c) {name}: the ranks' captions differ")
+        c = r["tp_artifact"]
+        require(c["bf16"]["tail_shape"] == [1280, 512, 6528]
+                and c["bf16"]["launches_by_route"]["logit_tail"]["wgmma"]
+                == maxlen and c["f32"]["equal_plain_tp"] == SS_F32_VIDEOS,
+                f"sharded_serving (c): {c['bf16']['tail_shape']} "
+                f"{c['bf16']['launches_by_route']} "
+                f"{c['f32'].get('equal_plain_tp')}")
         d = r["int8"]
         steps = d["dp"]["decode_steps"]
         require(steps == maxlen and d["dp"]["launches"] == dict(
@@ -4462,7 +4467,7 @@ def phase_sharded_serving(kernel, api, dev, seed, info, fitted) -> dict:
             none, attention_core=f["decode_steps"],
             logit_tail=f["decode_steps"]),
             f"sharded_serving (f): launches {f}")
-    require(r0["tp_artifact"]["f32"]["equal_single_device"] == SS_TP_VIDEOS,
+    require(r0["tp_artifact"]["f32"]["equal_single_device"] == SS_F32_VIDEOS,
             f"sharded_serving (c): float32 TP artifact vs single device "
             f"{r0['tp_artifact']['f32']['equal_single_device']}")
     require(r0["int8"]["dp"]["equal_single_device"] == 256,
