@@ -1038,3 +1038,72 @@ def test_artifact_equals_live_on_the_kernels(cuda, tmp_path, model,
         assert {r for r in by if by[r]} == {r for r in lby if lby[r]}
         assert ln <= n and (ln == 0) == (n == 0)
     assert live_steps <= 2 * cfg.decode.maxlen
+
+
+def _tp_graph_rank(mesh1, root, params, cfg_json, feats):
+    """One rank of a 1 x 2 mesh on the card: a tiny float32 decode
+    exported for the card with the kernel step and with the plain step
+    (``save_artifact(model_parallel=2)``), both loaded and captioning
+    ``feats``, beside the live TP decode with the kernels."""
+    import os
+    from stvd_torch import export_aot
+    from stvd_torch.api import pack_request
+    from stvd_torch.config import Config
+    from stvd_torch.data.text import Vocab
+    from stvd_torch.decode import parallel as dparallel
+    cfg = Config.from_json(cfg_json)
+    vocab = Vocab({f"w{i}": i for i in range(2, cfg.model.n_words)})
+    out = {}
+    for name, use in (("kernel", True), ("plain", False)):
+        path = os.path.join(root, name)
+        export_aot.save_artifact(path, params, cfg, vocab,
+                                 batch_sizes=(len(feats),), use_kernel=use,
+                                 model_parallel=2, device="cuda")
+        cap = export_aot.load_artifact(path, device="cuda")
+        out[name] = cap.caption(feats)
+        out[f"{name}_ops"] = cap.manifest["custom_ops"]
+    part = dparallel.shard_decode_params(
+        {k: torch.from_numpy(v).cuda() for k, v in params.items()},
+        cap._mesh)
+    d = cfg.decode
+    with torch.no_grad():
+        toks = dparallel.make_tp_beam_decode(
+            cfg.model, cap._mesh, d.beam_size, d.maxlen, d.length_norm,
+            tail="auto", step_fn=tkernel.step_kernels)(
+                part, pack_request(cfg.model, feats, device="cuda")).tokens
+    out["live"] = [" ".join(vocab.decode(r)) for r in toks.cpu().numpy()]
+    return out
+
+
+def test_tp_kernel_graph_gives_the_plain_graph_s_tokens(cuda, tmp_path):
+    """A tensor-parallel artifact for the card runs the live TP decode's
+    kernel step (kernel 1 whole, kernel 2 on the rank's vocab shard),
+    where the JAX package exports the plain step: at float32 its
+    captions equal the plain graph's, the live TP decode's and one
+    device's, on 2 ranks sharing the card over gloo."""
+    from stvd_torch.api import Captioner
+    from stvd_torch.config import Config, DecodeConfig, ModelConfig
+    from stvd_torch.data.text import Vocab
+    from stvd_torch.model.decoder import init_params
+    from stvd_torch.train import parallel
+    m = ModelConfig(n_words=48, dim_word=16, dim=32, ctx_dim=32,
+                    n_frames=6, compute_dtype="float32")
+    cfg = Config(model=m, decode=DecodeConfig(beam_size=3, maxlen=8,
+                                              decode_batch=4))
+    g = torch.Generator().manual_seed(5)
+    params = {k: ((torch.randn(v.shape, generator=g) / v.shape[0] ** 0.5)
+                  if v.ndim >= 2 else 0.5 * torch.randn(v.shape, generator=g)
+                  ).numpy()
+              for k, v in init_params(m, torch.Generator(), "cpu").items()}
+    feats = np.random.RandomState(3).randn(4, m.n_frames, m.ctx_dim).astype(
+        np.float32)
+    ranks = parallel.spawn(_tp_graph_rank, 2,
+                           (str(tmp_path), params, cfg.to_json(), feats),
+                           device="cuda:0", backend="gloo", timeout=600)
+    one = Captioner(params, cfg, Vocab({f"w{i}": i for i in range(2, 48)}),
+                    device=cuda).caption(feats)
+    for r in ranks:
+        assert r["kernel_ops"] == ["stvd_torch::attention_core",
+                                   "stvd_torch::logit_tail"]
+        assert r["plain_ops"] == []
+        assert r["kernel"] == r["plain"] == r["live"] == one
