@@ -26,6 +26,7 @@ choice it is NCCL on CUDA and gloo on the CPU.
 from __future__ import annotations
 
 import datetime
+import gc
 import os
 import shutil
 import tempfile
@@ -496,6 +497,14 @@ def _rank_main(rank: int, fn: Callable, world_size: int, args: tuple,
         out = fn(make_mesh(dev.type), *args)
         torch.save(out, os.path.join(root, f"rank{rank}.pt"))
     finally:
+        # Objects of fn still held only by reference cycles (rank 0 of
+        # cli.serve's daemon: its server and _MeshCalls reference each
+        # other) are freed here, while the group they hold is alive.
+        # Left to a later collection they can be freed as the
+        # interpreter finalizes, after the group's teardown, and the
+        # process then aborts ("terminate called without an active
+        # exception") with its work done.
+        gc.collect()
         dist.destroy_process_group()
 
 
