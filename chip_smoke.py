@@ -54,6 +54,18 @@ vocab 13056, bf16):
   step, a training update and float32 gradients of kernel and plain
   paths, ``cli.convert --motion`` and ``cli.serve`` with the motion bank
   resident;
+* the reference-exact recipes (``recipes``: ``recipes/msvd.json``, the
+  spatial model at vocab 13010, and ``recipes/msrvtt.json``, dual stream
+  at ctx 2048 and vocab 20000; both dim 3518, dim_word 468, loaded by
+  ``Config.from_json``): kernel 2 at (1280, 468, V) and kernel 3 at Kx
+  5010 / 6034 on the padded rows the decode stores, each against its
+  plain version and timed beside its wmma route, the library product
+  and ``torch.lstm_cell``; serving (beam 5, 256 videos, natural EOS and
+  EOS suppressed) with every kernel-2 launch on wgmma, the worst case
+  again with kernel 2 forced onto wmma; the int8 decode with the gates
+  kernel on (every kernel-3 launch on wgmma); the kernel step against
+  the plain step (float32; int8 against plain int8 gates and the
+  all-plain step, msvd's at 64 videos); one training update each;
 * preset 5 (``msvd-dp``, ``data_parallel``) on two ranks that share the
   card over gloo (spawned processes; NCCL refuses two ranks on one
   card): data-parallel training through ``make_train_step(..., mesh,
@@ -468,15 +480,25 @@ def exact_tail_inputs(rows, dw, v, dtype, dev, rng):
             torch.from_numpy(w).to(dev, dtype), torch.from_numpy(b).to(dev))
 
 
+def padded_tail_inputs(step_mod, x, w, b):
+    """Kernel 2's operands in the rows the decode gives it: x cast to W's
+    dtype by the wrapper into padded rows, W padded once a decode call
+    (``make_logit_tail``); both no-ops at widths of whole 16 bytes."""
+    return step_mod.pad_cols(x), step_mod.pad_cols(w), b
+
+
 def phase_tail(kernel, dev, g, seed, cfg, phase="kernel_logit_tail"
                ) -> dict:
     """Kernel 2 at the serving shapes (preset 3: rows=1280, dw=512,
-    V=13056) with k=5 and 1 in bf16, plus a ragged vocab, float32
-    operands and all-zero weights; each case reports its route (the
-    serving shapes must take wgmma, the ragged vocab wmma).  Timed beside
-    the plain version: the wmma route at the same shapes, and ``torch.mm``
-    of the product alone (``product_ms``: no one PyTorch call gives top-k
-    and logsumexp, so ``library_ms`` is null)."""
+    V=13056; or a recipe's dw 468, V 13010 / 20000) with k=5 and 1 in
+    bf16, plus a vocab 61 columns shorter, float32 operands and all-zero
+    weights, each on the padded rows the decode stores (``pad_cols``),
+    and one W one element past 16-byte alignment; each case reports its
+    route (padded operands must take wgmma, the unaligned W wmma).  Timed
+    beside the plain version: the wmma route on the dense operands, and
+    ``torch.mm`` of the product alone (``product_ms``: no one PyTorch call
+    gives top-k and logsumexp, so ``library_ms`` is null)."""
+    from stvd_torch.model import step as step_mod
     rows = cfg.decode.decode_batch * cfg.decode.beam_size
     dw, v = cfg.model.dim_word, cfg.model.n_words
     rng = np.random.RandomState(seed)
@@ -497,17 +519,26 @@ def phase_tail(kernel, dev, g, seed, cfg, phase="kernel_logit_tail"
         return err
 
     for k in (5, 1):
-        check(f"exact_bf16_k{k}",
-              *exact_tail_inputs(rows, dw, v, torch.bfloat16, dev, rng),
-              k, True, "wgmma")
-    check(f"exact_bf16_k5_v{v - 61}",
-          *exact_tail_inputs(rows, dw, v - 61, torch.bfloat16, dev, rng),
-          5, True, "wmma")
+        check(f"exact_bf16_k{k}", *padded_tail_inputs(
+            step_mod, *exact_tail_inputs(rows, dw, v, torch.bfloat16, dev,
+                                         rng)), k, True, "wgmma")
+    check(f"exact_bf16_k5_v{v - 61}", *padded_tail_inputs(
+        step_mod, *exact_tail_inputs(rows, dw, v - 61, torch.bfloat16, dev,
+                                     rng)), 5, True, "wgmma")
+    xu, wu, bu = padded_tail_inputs(step_mod, *exact_tail_inputs(
+        rows, dw, v, torch.bfloat16, dev, rng))
+    flat = torch.empty(wu.shape[0] * wu.stride(0) + 1, dtype=wu.dtype,
+                       device=dev)
+    wu = flat[1:].as_strided(wu.shape, wu.stride()).copy_(wu)
+    require(wu.data_ptr() % 16 != 0, "the unaligned W is aligned")
+    check("exact_bf16_k5_unaligned_w", xu, wu, bu, 5, True, "wmma")
+    del flat, xu, wu, bu
     check("exact_f32_k5",
           *exact_tail_inputs(rows, dw, v, torch.float32, dev, rng), 5, True,
           "f32")
     x = torch.tanh(torch.randn(rows, dw, generator=g, device=dev))
-    w = (0.1 * torch.randn(dw, v, generator=g, device=dev)).bfloat16()
+    wd = (0.1 * torch.randn(dw, v, generator=g, device=dev)).bfloat16()
+    w = step_mod.pad_cols(wd)
     b = torch.randn(v, generator=g, device=dev)
     check("gaussian_bf16_k5", x, w, b, 5, False, "wgmma")
     zeros = torch.zeros(dw, v, device=dev).bfloat16()
@@ -519,7 +550,8 @@ def phase_tail(kernel, dev, g, seed, cfg, phase="kernel_logit_tail"
             "logit tail: zero weights must give lse = log(V)")
     cases["zero_weights_k5"] = {"idx_equal": True}
 
-    xb = x.bfloat16()
+    xd = x.bfloat16()
+    xb = step_mod.pad_cols(xd)
     first = kernel.logit_tail(xb, w, b, 5)
     second = kernel.logit_tail(xb, w, b, 5)
     torch.cuda.synchronize()
@@ -527,13 +559,14 @@ def phase_tail(kernel, dev, g, seed, cfg, phase="kernel_logit_tail"
     require(same, "logit tail wgmma is not deterministic")
     err = max(c.get("max_abs_err", 0.0) for c in cases.values())
     ms = time_ms(lambda: kernel.logit_tail(xb, w, b, 5))
-    wmma_ms = time_ms(lambda: kernel._logit_tail_cuda(xb, w, b, 5,
+    wmma_ms = time_ms(lambda: kernel._logit_tail_cuda(xd, wd, b, 5,
                                                       route="wmma"))
     plain_ms = time_ms(lambda: kernel._logit_tail_plain(xb, w, b, 5))
     product_ms = time_ms(lambda: torch.mm(xb, w, out_dtype=torch.float32))
     # in: x, W, b; out: k values, k int64 ids and the lse per row
     traffic = nbytes(xb, w, b) + rows * (5 * 12 + 4)
     out = {"phase": phase, "shape": [rows, dw, v, 5],
+           "row_strides": [xb.stride(0), w.stride(0)],
            "max_abs_err": err, "cases": cases, "tol": KERNEL_TOL,
            "route": cases["exact_bf16_k5"]["route"],
            "bitwise_repeatable": same, "ms": ms, "wmma_ms": wmma_ms,
@@ -610,7 +643,9 @@ def phase_spatial(kernel, step_mod, dev, g, cfg) -> dict:
 
 
 def gates_operands(step_mod, rows, kx, dim, mode, dev, g):
-    """(x, w, b, c, s_r, scale) of one gates+LSTM call; int8 operands are
+    """(x, w, b, c, s_r, scale) of one gates+LSTM call, in the layouts
+    the decode step stores (x in rows padded to 128 bytes, the stack as
+    its padded K-major transpose; float32 dense); int8 operands are
     quantized with the step's own helpers, as the step does."""
     x = torch.randn(rows, kx, generator=g, device=dev)
     w = torch.randn(kx, 4 * dim, generator=g, device=dev) / kx ** 0.5
@@ -620,8 +655,12 @@ def gates_operands(step_mod, rows, kx, dim, mode, dev, g):
         x_q, s_r = step_mod.quantize_rows(x)
         w_q, scale = step_mod.quantize_weights(w)
         return x_q, w_q, b, c, s_r, scale
-    dtype = torch.bfloat16 if mode == "bf16" else torch.float32
-    return x.to(dtype), w.to(dtype), b, c, None, None
+    if mode == "bf16":
+        x, w = x.bfloat16(), w.bfloat16()
+        if hasattr(step_mod, "kmajor"):   # a parent tree reads them dense
+            x, w = step_mod.pad_cols(x), step_mod.kmajor([w], w.dtype)
+        return x, w, b, c, None, None
+    return x, w, b, c, None, None
 
 
 def lstm_cell_operands(x, w, b, c, dw, dim):
@@ -640,10 +679,12 @@ def lstm_cell_operands(x, w, b, c, dw, dim):
             torch.zeros_like(b, dtype=bf16))
 
 
-def phase_gates(kernel, step_mod, dev, g, cfg) -> dict:
-    """Kernel 3 at the path-B shapes (rows 1280, Kx 5120, 4 dim 14336)
-    and at a ragged 185 rows, in float32, bf16 and int8 mode, each
-    against the plain version on the same operands (the plain int8 path
+def phase_gates(kernel, step_mod, dev, g, cfg, phase="kernel_gates_lstm"
+                ) -> dict:
+    """Kernel 3 at the path-B shapes (rows 1280, Kx 5120, 4 dim 14336;
+    or a recipe's Kx 5010 / 6034, dim 3518) and at a ragged 185 rows,
+    in float32, bf16 and int8 mode, on the step's layouts, each against
+    the plain version on the same operands (the plain int8 path
     multiplies with torch._int_mm), each case with its route (bf16 and
     int8 must take wgmma).  Timed beside the plain version: the wmma route
     at the same shapes; in bf16 ``torch.lstm_cell`` (library_ms: the same
@@ -677,8 +718,9 @@ def phase_gates(kernel, step_mod, dev, g, cfg) -> dict:
             same = all(torch.equal(p, q) for p, q in zip(got, again))
             require(same, f"gates kernel {mode} is not deterministic")
             cases[name]["bitwise_repeatable"] = same
-            # the wmma route reads the (Kx, 4 dim) stack row-major
-            old = (ops[0], ops[1].contiguous(), *ops[2:])
+            # the wmma route reads dense x and the (Kx, 4 dim) stack
+            # row-major
+            old = (ops[0].contiguous(), ops[1].contiguous(), *ops[2:])
             t = {"ms": time_ms(lambda: kernel.gates_lstm(*ops), 20),
                  "wmma_ms": time_ms(lambda: kernel._gates_lstm_cuda(
                      *old, route="wmma"), 20),
@@ -715,7 +757,11 @@ def phase_gates(kernel, step_mod, dev, g, cfg) -> dict:
         t["product_ratio"] = t["ms"] / t["product_ms"]
         if t["library_ms"] is not None:
             t["library_ratio"] = t["ms"] / t["library_ms"]
-    out = {"phase": "kernel_gates_lstm", "shape": [rows, kx, 4 * dim],
+    out = {"phase": phase, "shape": [rows, kx, 4 * dim],
+           # of x and of the stack's K-major transpose, in elements
+           "row_strides": {m_: step_mod.padded(1, kx, dt, "meta").stride(0)
+                           for m_, dt in (("bf16", torch.bfloat16),
+                                          ("int8", torch.int8))},
            "max_abs_err": cases["int8_rows%d" % rows]["max_abs_err"],
            "cases": cases, "route": cases["int8_rows%d" % rows]["route"],
            "tol": {"f32": KERNEL_TOL, "bf16": KERNEL_TOL, "int8": INT8_TOL},
@@ -1178,6 +1224,21 @@ def simple_attention_step(kernel, step_mod):
     return step_fn
 
 
+def plain_spatial_step(kernel, step_mod):
+    """The kernel step with the spatial core's plain version, which
+    rounds its scores and its weighted sum to the compute dtype as the
+    JAX einsums do, where kernel 4 sums in float32: the witness that
+    separates that rounding from the other kernels under bf16."""
+    def step_fn(params, cfg, state, sc, emb_t):
+        return step_mod.step_with_core(
+            params, cfg, state, sc, emb_t,
+            attention_core=kernel.attention_core,
+            spatial_core=step_mod._spatial_core,
+            gates_core=kernel._gates_core(cfg))
+    step_fn.make_logit_tail = kernel.make_logit_tail
+    return step_fn
+
+
 def decode_all(api, dev, seed, params, vocab, cfg, runs):
     """Captions of one decode batch of videos (made from ``seed``)
     through each of ``runs`` ((name, step_fn, cfg) triples), and the
@@ -1211,13 +1272,22 @@ def phase_kernel_vs_plain(api, kernel, step_mod, dev, seed, params, vocab,
     other kernels' ~1e-6 differences from plain into whole quanta, so
     near-ties of random weights flip more beams there.  Beside it, as a
     witness on the same weights and videos, the share of the step with
-    the attention core's first design (route 'simple') against plain."""
+    the attention core's first design (route 'simple') against plain.
+    Under spatial attention the bar against the plain step holds the
+    kernel step with the plain spatial core (``plain_spatial_step``):
+    kernel 4 sums in float32 where the plain core rounds to bf16, a
+    difference int8 rounding turns into flipped beams; the share of the
+    whole kernel step is reported beside it."""
+    spatial = plain_cfg is not None and cfg.model.use_spatial
     runs = [("kernels", kernel.step_kernels, cfg),
             ("plain", step_mod.step, cfg)]
     if plain_cfg is not None:
         runs += [("reference", kernel.step_kernels, plain_cfg),
                  ("simple_attention", simple_attention_step(kernel, step_mod),
                   cfg)]
+    if spatial:
+        runs.append(("plain_spatial_core",
+                     plain_spatial_step(kernel, step_mod), cfg))
     caps, secs = decode_all(api, dev, seed, params, vocab, cfg, runs)
     same = share(caps, "kernels", "plain" if plain_cfg is None
                  else "reference")
@@ -1226,6 +1296,11 @@ def phase_kernel_vs_plain(api, kernel, step_mod, dev, seed, params, vocab,
         "share_vs_plain_bar": INT8_PLAIN_SHARE,
         "simple_attention_share_vs_plain": share(caps, "simple_attention",
                                                  "plain")}
+    if spatial:
+        extra["plain_spatial_core_share_vs_plain"] = share(
+            caps, "plain_spatial_core", "plain")
+    held = extra.get("plain_spatial_core_share_vs_plain",
+                     extra.get("share_vs_plain"))
     emit({"phase": phase, "videos": len(caps["kernels"]),
           "decode_batch": cfg.decode.decode_batch,
           "compute_dtype": cfg.model.compute_dtype,
@@ -1233,7 +1308,7 @@ def phase_kernel_vs_plain(api, kernel, step_mod, dev, seed, params, vocab,
           "token_match_share": same, "bar": 0.95, **extra, **secs})
     require(same >= 0.95, f"{phase}: kernel and plain paths agree on "
                           f"{same:.3f}")
-    require(plain_cfg is None or extra["share_vs_plain"] >= INT8_PLAIN_SHARE,
+    require(plain_cfg is None or held >= INT8_PLAIN_SHARE,
             f"{phase}: kernel and all-plain paths agree on {extra}")
     torch.cuda.empty_cache()
 
@@ -2394,6 +2469,166 @@ def phase_msrvtt(api, kernel, step_mod, dev, seed, info, profile) -> dict:
     emit(out)
     return {"attention": attn, "tail": tail, "train_tail": train_tail,
             "serving": serving, "train": train}
+
+
+# the reference-exact recipes: (file, decode batch of the float32 and
+# int8 comparisons, the kernels a training update launches and their
+# routes).  msvd's comparisons are cut from 256 videos to 64: the plain
+# spatial core's e_s is 7.2 GB a step at 256
+RECIPES = {
+    "msvd": (64, ("spatial_bwd", "dws_gemm"),
+             {"dws_gemm": "wgmma", "spatial_bwd": "vector"}),
+    "msrvtt": (256, (), {}),
+}
+
+
+def recipe_config(name):
+    from stvd_torch.config import Config
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "recipes", f"{name}.json")
+    with open(path) as f:
+        return Config.from_json(f.read())
+
+
+def tail_on_route(kernel, step_fn, route):
+    """``step_fn`` whose decode loops take kernel 2 on ``route`` (the
+    wgmma route's witness in the same run: the old route at the same
+    operands)."""
+    from stvd_torch.model import step as step_mod
+
+    def make_logit_tail(w, b, k_sel):
+        if k_sel > 8:
+            return None
+        wp, bf = step_mod.pad_cols(w), b.to(torch.float32)
+
+        def forced(act):
+            return kernel._logit_tail_cuda(act, wp, bf, k_sel, route=route)
+        return forced
+
+    def fn(*args, **kw):
+        return step_fn(*args, **kw)
+    fn.make_logit_tail = make_logit_tail
+    return fn
+
+
+def phase_recipes(api, kernel, step_mod, dev, seed, info) -> dict:
+    """The reference-exact recipes (``recipes/msvd.json``: the spatial
+    model, vocab 13010; ``recipes/msrvtt.json``: dual stream, ctx 2048,
+    vocab 20000; both dim 3518, dim_word 468, bf16), loaded by
+    ``Config.from_json``, random weights from ``seed``, through the
+    port's entry points at their published widths:
+
+    * kernel 2 at (1280, 468, V) and kernel 3 at the recipe's Kx (5010,
+      6034) and 4 dim 14072 against their plain versions on the padded
+      rows the decode stores, timed beside the wmma route on the dense
+      operands, the library product and ``torch.lstm_cell``;
+    * ``Captioner.caption`` of 1, 37 and 256 videos, beam 5, natural EOS
+      and EOS suppressed, every kernel-2 launch on wgmma; the same worst
+      case with kernel 2 forced onto wmma (seconds beside it);
+    * ``decode_quant='int8'``, ``gates_kernel='on'`` with EOS suppressed,
+      every kernel-3 and kernel-2 launch on wgmma;
+    * the kernel step against the plain step (float32, share >= 0.95)
+      and the int8 kernel step against plain int8 gates (>= 0.95) and
+      the all-plain step (>= INT8_PLAIN_SHARE);
+    * one ``make_train_step`` update at the recipe's batch and defaults.
+    """
+    from stvd_torch.model.decoder import init_params
+    out = {}
+    for i, (name, (cmp_batch, train_kernels, train_routes)) in enumerate(
+            RECIPES.items()):
+        t0 = time.perf_counter()
+        cfg = recipe_config(name)
+        m = cfg.model
+        cfg_q = with_model(cfg, decode_quant="int8", gates_kernel="on")
+        g = torch.Generator(device=dev).manual_seed(seed + 60 + i)
+        tail = phase_tail(kernel, dev, g, seed, cfg,
+                          phase=f"recipe_{name}_kernel_logit_tail")
+        gates = phase_gates(kernel, step_mod, dev, g, cfg_q,
+                            phase=f"recipe_{name}_kernel_gates_lstm")
+        vocab = api.Vocab({f"w{j}": j for j in range(2, m.n_words)})
+        params = init_params(
+            m, torch.Generator(device=dev).manual_seed(seed + 70 + i), dev)
+        serve_routes = {**SERVING_ROUTES, **(
+            {"spatial_core": "tma"} if m.use_spatial else {})}
+        engaged = ("attention_core", "logit_tail") + (
+            ("spatial_core",) if m.use_spatial else ())
+        serving = phase_serving(api, kernel, dev, seed, params, vocab, cfg,
+                                f"recipe_{name}_serving", engaged,
+                                routes=serve_routes)
+        serving_q = phase_serving(
+            api, kernel, dev, seed, params, vocab, cfg_q,
+            f"recipe_{name}_serving_int8_gates", engaged + ("gates_lstm",),
+            modes=("eos_suppressed",),
+            routes={**serve_routes, "gates_lstm": "wgmma"})
+        # the worst case again with kernel 2 forced onto its old route
+        feats = request(np.random.RandomState(seed), cfg.decode.decode_batch,
+                        m)
+        regs, mots = streams(feats, m, seed + cfg.decode.decode_batch)
+        cap = api.Captioner(params, cfg, vocab, device=dev)
+        cap.params["ff_logit_b"][0] = -1e9
+        ab = {}
+        for label, fn in (("wgmma", kernel.step_kernels),
+                          ("wmma", tail_on_route(kernel, kernel.step_kernels,
+                                                 "wmma"))):
+            cap.step_fn = fn
+            cap.caption(feats[:1], None if regs is None else regs[:1],
+                        None if mots is None else mots[:1])
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            cap.caption(feats, regs, mots)
+            torch.cuda.synchronize()
+            ab[label] = time.perf_counter() - t1
+        del cap
+        cmp_cfg = cfg.replace(decode=dataclasses.replace(
+            cfg.decode, decode_batch=cmp_batch))
+        phase_kernel_vs_plain(api, kernel, step_mod, dev, seed, params,
+                              vocab, with_model(cmp_cfg,
+                                                compute_dtype="float32"),
+                              f"recipe_{name}_kernel_vs_plain_f32")
+        cmp_q = with_model(cmp_cfg, decode_quant="int8", gates_kernel="on")
+        phase_kernel_vs_plain(api, kernel, step_mod, dev, seed, params,
+                              vocab, cmp_q,
+                              f"recipe_{name}_kernel_vs_plain_int8",
+                              plain_cfg=with_model(cmp_q,
+                                                   gates_kernel="off"))
+        del params
+        torch.cuda.empty_cache()
+        train = phase_train(kernel, dev, seed, cfg, f"recipe_{name}_train",
+                            train_kernels, updates=1, routes=train_routes)
+        rows = cfg.decode.decode_batch
+        res = {"phase": f"recipe_{name}", "card": info["nvidia_smi"],
+               "widths": {k: getattr(m, k) for k in (
+                   "dim", "dim_word", "n_words", "ctx_dim", "use_spatial",
+                   "use_motion", "compute_dtype")},
+               "kx": m.dim_word + m.dim + m.ctx_dim,
+               "logit_tail": {k: tail[k] for k in (
+                   "route", "row_strides", "ms", "wmma_ms", "plain_ms",
+                   "product_ms", "bound_ms", "bound_share", "wmma_ratio",
+                   "product_ratio", "max_abs_err")},
+               "gates_lstm": {md: {k: gates["times"][md][k] for k in (
+                   "ms", "wmma_ms", "plain_ms", "product_ms", "library_ms",
+                   "bound_ms", "bound_share", "wmma_ratio")}
+                   for md in ("bf16", "int8")},
+               "gates_routes": {c: gates["cases"][c]["route"]
+                                for c in gates["cases"]},
+               "worst_case_captions_per_s": serving["runs"][
+                   f"eos_suppressed_{rows}"]["captions_per_s"],
+               "natural_eos_captions_per_s": serving["runs"][
+                   f"natural_eos_{rows}"]["captions_per_s"],
+               "int8_worst_case_captions_per_s": serving_q["runs"][
+                   f"eos_suppressed_{rows}"]["captions_per_s"],
+               "worst_case_s_tail_wgmma": ab["wgmma"],
+               "worst_case_s_tail_wmma": ab["wmma"],
+               "launches_by_route": serving["launches_by_route"],
+               "int8_launches_by_route": serving_q["launches_by_route"],
+               "peak_mem_gib": serving["peak_mem_gib"],
+               "train_update_s": train["median_step_s"],
+               "train_launches": train["launches"],
+               "recipe_seconds": time.perf_counter() - t0}
+        emit(res)
+        out[name] = {"tail": tail, "gates": gates, "serving": serving,
+                     "serving_q": serving_q, "train": train}
+    return out
 
 
 def iid_features(b, dev, seed) -> None:
@@ -4628,6 +4863,7 @@ def main() -> int:
     phase_cli(kernel, dev, args.seed, cfg, info)
     msrvtt = phase_msrvtt(api, kernel, step_mod, dev, args.seed, info,
                           args.profile)
+    recipes = phase_recipes(api, kernel, step_mod, dev, args.seed, info)
     # kernels 1 and 2 at a rank's decode shape (128 of preset 5's
     # 256-video batches; kernel 1 also with 1-4 CTAs a row, split_ms),
     # then preset 5 on two ranks sharing the card
@@ -4708,6 +4944,18 @@ def main() -> int:
             "stvd/model/kernel.py:1032",
             msrvtt["train"]["launches"]["train_tail"],
             msrvtt["train_tail"]),
+        # kernels 2 and 3 at the reference recipes' widths (dim 3518,
+        # dim_word 468, vocab 13010 / 20000, Kx 5010 / 6034) on padded
+        # rows, launches of the recipe's worst-case-and-natural serving
+        # (kernel 2) and of its int8 decode (kernel 3, int8 times)
+        *[row(f"logit_tail_recipe_{n}", "logit_tail.cu",
+              "stvd/model/kernel.py:593",
+              recipes[n]["serving"]["launches"]["logit_tail"],
+              recipes[n]["tail"]) for n in RECIPES],
+        *[row(f"gates_lstm_recipe_{n}", "gates_lstm.cu",
+              "stvd/model/kernel.py:854",
+              recipes[n]["serving_q"]["launches"]["gates_lstm"],
+              recipes[n]["gates"]) for n in RECIPES],
         # kernels 1-4 as custom ops inside the loaded AOT graphs: 257
         # videos at preset 3 (two chunks), path B and preset 2 (one each)
         row("attention_core_aot", "attn_core.cu", "stvd/model/kernel.py:45",

@@ -42,13 +42,13 @@ _SIGNATURES = {
     "stvd_attn_core_max_beams": [],
     "stvd_tanh_f32": [_P, _P, _P, _L, _I, _P],
     "stvd_logit_tail": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                        _I, _I, _P],
+                        _I, _I, _I, _I, _P],
     "stvd_logit_tail_ntiles": [_I, _I],
     "stvd_spatial_core": [_P, _L, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I,
                           _I, _I, _I, _I, _P],
     "stvd_spatial_core_max_beams": [],
     "stvd_gates_lstm": [_P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                        _P],
+                        _I, _I, _P],
     "stvd_spatial_bwd": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P,
                          _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "stvd_train_tail": [_P, _P, _I, _P, _L, _P, _L, _P, _P, _P, _P, _I, _I,

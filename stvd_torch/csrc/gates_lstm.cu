@@ -20,8 +20,9 @@
 // the plain path's own torch ops, so both paths see the same x_q.  Outputs
 // h_t, c_t (rows, dim) float32; the (rows, 4 dim) preactivation never
 // reaches memory.  The TPU kernel needed a gate-interleaved copy of w for
-// Mosaic's block rule; here a block reads the i/f/o/g columns of the plain
-// stack at column g*dim + d, so precompute builds no interleaved copy.
+// Mosaic's block rule; here a block reads the i/f/o/g blocks of the plain
+// stack's transpose at rows g*dim + d, so precompute builds no interleaved
+// copy.
 //
 // Bound: at preset 3 (rows 1280, Kx 5120, 4 dim 14336) a step does 188
 // GFLOP and reads 147 MB of bf16 weights (73 MB int8): ~0.19 ms at the
@@ -30,30 +31,38 @@
 // by the caller from mode, widths and alignment
 // (stvd_torch/model/kernel.py:gates_route):
 //
-// * wgmma (bf16 and int8; TMA needs row strides of whole 16 bytes,
-//   16-byte aligned bases and, under bf16, gate blocks g*dim + d0 that
-//   start on a 16-byte boundary: dim % 8 == 0): a persistent,
-//   warp-specialised kernel on
+// * wgmma (bf16 and int8; TMA needs row strides of whole 16 bytes and
+//   16-byte aligned bases): a persistent, warp-specialised kernel on
 //   gates_wgmma.cuh's mainloop (shared with the train-scan tail).  A tile
-//   is 128 rows x a strip of 64 dims, all four gates: 256 columns of w
-//   read as four 64-wide TMA boxes at columns g*dim + d0.  One producer
-//   thread streams 128-byte-deep stages of x and w into a 4-stage
-//   mbarrier ring; two consumer warpgroups each run m64n256 wgmma on them
-//   (bf16 k16 with W MN-major, its transpose bit set; int8 k32, where
-//   wgmma takes only K-major operands, so the int8 grid is stored K-major,
-//   (4 dim, Kx), by step.quantize_weights).  In the accumulator layout a
-//   thread holds the same dim offsets in all four 64-wide gate blocks, so
-//   the dequant and the LSTM pointwise run in registers and h_t, c_t go
-//   out as float32 pairs: no trip of the accumulators through shared
-//   memory.  The epilogue's operands (c_prev into registers; bias and the
-//   int8 scales into a small shared buffer) are loaded before the tile's
-//   products, so their latency hides behind the mainloop.  The block walks
-//   tiles (row tiles fastest, so concurrent tiles share their weight
-//   strips in L2) with its ring running on across them.
-// * wmma (bf16 and int8 shapes TMA cannot describe: depths or dims off
-//   the 16-byte grid, unaligned bases): gates_mma.cuh's 128-row x 32-dim
-//   tiles through nvcuda::wmma and a 3-stage cp.async ring, with the
-//   epilogue through shared memory.  It masks any ragged shape.
+//   is 128 rows x a strip of 64 dims, all four gates: 256 rows of the
+//   stack's K-major (4 dim, Kx) transpose, read as four 64-row TMA boxes
+//   from rows g*dim + d0.  A box may start at any row, so any dim is
+//   served (an MN-major box would have to start its columns on a 16-byte
+//   boundary, which dim 3518 puts off it); a Kx off the 16-byte
+//   grid (the reference recipes' 5010 and 6034) comes in rows padded to
+//   128 bytes, x and the transpose alike (stvd_torch/model/step.py:
+//   padded, kmajor), the maps keeping the logical depth: rows a whole
+//   128 bytes apart keep each box row on one 128-byte line (a stride of
+//   16 bytes but not 128 made the bf16 kernel markedly slower).
+//   One producer thread streams 128-byte-deep stages of x and w into a
+//   4-stage mbarrier ring; two consumer warpgroups each run m64n256
+//   wgmma on them (bf16 k16, int8 k32, both operands K-major, as wgmma
+//   requires of 8-bit ones;
+//   step.precompute and step.quantize_weights store the stacks so).  In
+//   the accumulator layout a thread holds the same dim offsets in all
+//   four 64-wide gate blocks, so the dequant and the LSTM pointwise run
+//   in registers and h_t, c_t go out as float32 pairs: no trip of the
+//   accumulators through shared memory.  The epilogue's operands (c_prev
+//   into registers; bias and the int8 scales into a small shared buffer)
+//   are loaded before the tile's products, so their latency hides behind
+//   the mainloop; it masks dims past dim.  The block walks tiles (row
+//   tiles fastest, so concurrent tiles share their weight strips in L2)
+//   with its ring running on across them.
+// * wmma (bf16 and int8 operands TMA cannot describe: unaligned bases or
+//   row strides off the 16-byte grid): gates_mma.cuh's 128-row x 32-dim
+//   tiles through nvcuda::wmma and a 3-stage cp.async ring over dense x
+//   and the dense (Kx, 4 dim) stack, with the epilogue through shared
+//   memory.  It masks any ragged shape.
 // * f32: gates_mma.cuh's FMA kernel (float32 operands).
 
 #include "gates_mma.cuh"
@@ -206,30 +215,32 @@ struct GatesWgEpi {
   }
 };
 
-// x (rows, kx) is read K-major in boxes of 128 rows x 128 bytes.  w,
-// bf16: the (kx, 4 dim) stack, boxes of 64 depth rows x 64 columns; int8:
-// its (4 dim, kx) K-major grid, boxes of 64 rows x 128 bytes.
+// x (rows, kx), rows ldx elements apart, is read K-major in boxes of 128
+// rows x 128 bytes; w is the stack's K-major (4 dim, kx) transpose, rows
+// ldw elements apart, in boxes of 64 rows x 128 bytes (a gate's block
+// starts at row g dim).  Both maps keep the logical depth kx: TMA fills
+// zeros past it, whatever the padding of the rows holds.
 template <bool kQuant>
 cudaError_t launch_wgmma(const void* x, const void* w,
                          const GatesEpi<kQuant>& pre_op, const void* c_prev,
                          void* h_out, void* c_out, int rows, int kx, int dim,
-                         cudaStream_t stream) {
-  using S = WgShape<2, 64, kQuant>;
+                         int ldx, int ldw, cudaStream_t stream) {
+  using S = WgShape<2, 64, kQuant, true>;
   const CUtensorMapDataType type = kQuant ? CU_TENSOR_MAP_DATA_TYPE_UINT8
                                           : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  const CUtensorMapSwizzle sw = CU_TENSOR_MAP_SWIZZLE_128B;
   CUtensorMap map_x, map_w;
   const bool ok =
-      encode_map(&map_x, x, type, rows, kx, S::kDepth, S::kRows) &&
-      (kQuant ? encode_map(&map_w, w, type, 4LL * dim, kx, S::kDepth, 64)
-              : encode_map(&map_w, w, type, kx, 4LL * dim, 64, S::kDepth));
+      encode_map(&map_x, x, type, rows, kx, S::kDepth, S::kRows, sw, ldx) &&
+      encode_map(&map_w, w, type, 4LL * dim, kx, S::kDepth, 64, sw, ldw);
   if (!ok) return cudaErrorInvalidValue;
   const int vec2 = dim % 2 == 0 &&
                    (reinterpret_cast<unsigned long long>(c_prev) & 7) == 0;
   const GatesWgEpi<kQuant> epi{pre_op, static_cast<const float*>(c_prev),
                                static_cast<float*>(h_out),
                                static_cast<float*>(c_out), vec2};
-  return launch_wg_gates<2, 64, kQuant>(map_x, map_w, epi, rows, kx, dim,
-                                        stream);
+  return launch_wg_gates<2, 64, kQuant, true>(map_x, map_w, epi, rows, kx,
+                                              dim, stream);
 }
 
 // Route numbers shared with stvd_torch/model/kernel.py:GATES_ROUTES.
@@ -238,21 +249,24 @@ enum Route { kRouteWgmma = 0, kRouteMma = 1, kRouteF32 = 2 };
 }  // namespace
 
 // mode: 0 float32, 1 bf16, 2 int8 (W8A8; s_r and scale are read only
-// here).  route: kRouteWgmma (bf16 or int8; w bf16 the (kx, 4 dim) stack,
-// int8 its (4 dim, kx) K-major grid), kRouteMma (bf16 or int8, w the
-// (kx, 4 dim) stack), kRouteF32 (float32).  Returns the cudaError_t of the
-// launch (0 on success).
+// here).  route: kRouteWgmma (bf16 or int8; w the stack's K-major (4 dim,
+// kx) transpose; rows of x ldx and of w ldw elements apart, each a
+// multiple of 16 bytes), kRouteMma (bf16 or int8) and kRouteF32 (float32)
+// with x dense (ldx == kx) and w the dense (kx, 4 dim) stack (ldw == 4
+// dim).  Returns the cudaError_t of the launch (0 on success).
 extern "C" int stvd_gates_lstm(const void* x, const void* w, int mode,
                                int route, const void* bias, const void* s_r,
                                const void* scale, const void* c_prev,
                                void* h_out, void* c_out, int rows, int kx,
-                               int dim, void* stream) {
+                               int dim, int ldx, int ldw, void* stream) {
   if (rows < 1 || kx < 1 || dim < 1 || mode < 0 || mode > 2 ||
       (dim + kBD - 1) / kBD > 65535 || (route == kRouteF32) != (mode == 0))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (route == kRouteWgmma &&
-      (kx % (mode == 2 ? 16 : 8) != 0 || (mode == 1 && dim % 8 != 0) ||
-       !aligned16(x) || !aligned16(w)))
+  const int per16 = mode == 2 ? 16 : 8;   // elements in 16 bytes
+  if (route == kRouteWgmma
+          ? (ldx < kx || ldw < kx || ldx % per16 != 0 || ldw % per16 != 0 ||
+             !aligned16(x) || !aligned16(w))
+          : (ldx != kx || ldw != 4 * dim))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* b = static_cast<const float*>(bias);
@@ -265,10 +279,10 @@ extern "C" int stvd_gates_lstm(const void* x, const void* w, int mode,
   } else if (route == kRouteWgmma) {
     e = mode == 1 ? launch_wgmma<false>(x, w, GatesEpi<false>{b, sr, sc},
                                         c_prev, h_out, c_out, rows, kx, dim,
-                                        st)
+                                        ldx, ldw, st)
                   : launch_wgmma<true>(x, w, GatesEpi<true>{b, sr, sc},
                                        c_prev, h_out, c_out, rows, kx, dim,
-                                       st);
+                                       ldx, ldw, st);
   } else if (route == kRouteMma) {
     e = mode == 1 ? launch_gates_typed<__nv_bfloat16>(
                         x, w, GatesEpi<false>{b, sr, sc}, c_prev, h_out,

@@ -4,8 +4,9 @@
 // (train_tail.cu).
 //
 //   acc = x @ w     x (rows, Kx) K-major; w's four gate strips, columns
-//                   g dim + d of the (Kx, 4 dim) stack (bf16) or rows of
-//                   its K-major (4 dim, Kx) grid (int8)
+//                   g dim + d of the (Kx, 4 dim) stack (bf16, MN-major) or
+//                   rows g dim + d of its K-major (4 dim, Kx) transpose
+//                   (int8 always; bf16 with kWK)
 //   Epi::prefetch   the epilogue's loads, issued before the tile's products
 //                   so their latency hides behind the mainloop
 //   Epi::finish     the pre-activations, the LSTM pointwise and the stores,
@@ -18,11 +19,14 @@
 // kWgs consumer warpgroups each run m64n(4 kDims) wgmma on their 64 rows.
 // bf16: k16 steps with w MN-major (its transpose bit set), boxes of 64
 // depth rows x kDims columns, 128-byte swizzled at kDims 64 and 64-byte
-// swizzled at kDims 32 (a 32-column bf16 box is 64 bytes wide).  int8
-// (kDims 64): k32 steps with w K-major, as wgmma takes 8-bit operands only
-// so.  In the accumulator layout a thread holds the same dim offsets in all
-// four gate blocks (WgTile), so the epilogue needs no trip of the
-// accumulators through shared memory.  The block walks tiles (row tiles
+// swizzled at kDims 32 (a 32-column bf16 box is 64 bytes wide); or, with
+// kWK (kDims 64), w K-major in boxes of kDims rows x 128 bytes, whose first
+// row g dim + d0 may be any row: no dim rule, where an MN-major box must
+// start its columns on a 16-byte boundary.  int8 (kDims 64): k32 steps
+// with w K-major, as wgmma takes 8-bit operands only so.  In the
+// accumulator layout a thread holds the same dim offsets in all four gate
+// blocks (WgTile), so the epilogue needs no trip of the accumulators
+// through shared memory.  The block walks tiles (row tiles
 // fastest, so concurrent tiles share their weight strips in L2) with its
 // ring running on across them.
 //
@@ -43,10 +47,11 @@
 
 namespace {
 
-template <int kWgs, int kDims, bool kQuant>
+template <int kWgs, int kDims, bool kQuant, bool kWK = kQuant>
 struct WgShape {
-  static_assert(kDims == 64 || (kDims == 32 && !kQuant),
-                "strips of 64 dims, or 32 in bf16");
+  static_assert(kDims == 64 || (kDims == 32 && !kWK),
+                "strips of 64 dims, or 32 in bf16 with w MN-major");
+  static_assert(kWK || !kQuant, "int8 w is read K-major");
   using Acc = typename std::conditional<kQuant, int, float>::type;
   static constexpr int kRows = 64 * kWgs;              // rows per tile
   static constexpr int kThreads = 128 * (kWgs + 1);    // + the producer
@@ -83,12 +88,13 @@ struct WgTile {
   int first;    // whether this is the block's first tile
 };
 
-template <int kWgs, int kDims, bool kQuant, typename Epi>
-__global__ void __launch_bounds__(WgShape<kWgs, kDims, kQuant>::kThreads, 1)
+template <int kWgs, int kDims, bool kQuant, bool kWK, typename Epi>
+__global__ void __launch_bounds__(WgShape<kWgs, kDims, kQuant, kWK>::kThreads,
+                                  1)
     wg_gates_kernel(const __grid_constant__ CUtensorMap map_x,
                     const __grid_constant__ CUtensorMap map_w, Epi epi,
                     int rows, int kx, int dim) {
-  using S = WgShape<kWgs, kDims, kQuant>;
+  using S = WgShape<kWgs, kDims, kQuant, kWK>;
   constexpr int kRing = WgRing<S, Epi>::kStages;
   extern __shared__ unsigned char wg_smem_raw[];
   // 128-byte swizzle atoms are 1024 bytes and must start 1024-aligned
@@ -124,7 +130,7 @@ __global__ void __launch_bounds__(WgShape<kWgs, kDims, kQuant>::kThreads, 1)
 #pragma unroll
           for (int g = 0; g < 4; ++g) {
             const uint32_t b_s = a_s + S::kABytes + g * S::kBoxBytes;
-            if constexpr (kQuant)
+            if constexpr (kWK)
               tma_load(b_s, &map_w, full + 8 * st, k0, g * dim + d0);
             else
               tma_load(b_s, &map_w, full + 8 * st, g * dim + d0, k0);
@@ -170,6 +176,8 @@ __global__ void __launch_bounds__(WgShape<kWgs, kDims, kQuant>::kThreads, 1)
         const uint64_t da = sw128_desc(a_s + kk * 32, 16, 1024);
         if constexpr (kQuant)   // W^T K-major, 256 rows of 128 bytes
           wgmma_s8_256(d, da, sw128_desc(b_s + kk * 32, 16, 1024));
+        else if constexpr (kWK)   // the same, 16 bf16 of each row a step
+          wgmma_bf16_256<0, 0>(d, da, sw128_desc(b_s + kk * 32, 16, 1024));
         else if constexpr (kDims == 64)   // 16 rows of 128 bytes a step
           wgmma_bf16_256<0, 1>(
               d, da, sw128_desc(b_s + kk * 2048, S::kBoxBytes, 1024));
@@ -193,22 +201,23 @@ __global__ void __launch_bounds__(WgShape<kWgs, kDims, kQuant>::kThreads, 1)
 
 // One launch: min(tiles, SMs) persistent blocks; the kernel's shared
 // memory limit is raised once per device.  x is (rows, kx); map_w reads
-// the bf16 (kx, 4 dim) stack or the int8 (4 dim, kx) grid.
-template <int kWgs, int kDims, bool kQuant, typename Epi>
+// the bf16 (kx, 4 dim) stack or, with kWK (int8 always), its K-major
+// (4 dim, kx) transpose.
+template <int kWgs, int kDims, bool kQuant, bool kWK, typename Epi>
 cudaError_t launch_wg_gates(const CUtensorMap& map_x, const CUtensorMap& map_w,
                             const Epi& epi, int rows, int kx, int dim,
                             cudaStream_t stream) {
-  using S = WgShape<kWgs, kDims, kQuant>;
+  using S = WgShape<kWgs, kDims, kQuant, kWK>;
   constexpr size_t smem = WgRing<S, Epi>::kSmem;
   static_assert(smem <= kSmemLimit, "ring and epilogue exceed 227 KB");
   static std::atomic<int> allowed[kMaxDevices];
-  const cudaError_t e =
-      allow_smem(wg_gates_kernel<kWgs, kDims, kQuant, Epi>, smem, allowed);
+  const cudaError_t e = allow_smem(
+      wg_gates_kernel<kWgs, kDims, kQuant, kWK, Epi>, smem, allowed);
   if (e != cudaSuccess) return e;
   const int ntiles =
       (rows + S::kRows - 1) / S::kRows * ((dim + kDims - 1) / kDims);
   const int sms = num_sms();
-  wg_gates_kernel<kWgs, kDims, kQuant, Epi>
+  wg_gates_kernel<kWgs, kDims, kQuant, kWK, Epi>
       <<<ntiles < sms ? ntiles : sms, S::kThreads, smem, stream>>>(
           map_x, map_w, epi, rows, kx, dim);
   return cudaGetLastError();

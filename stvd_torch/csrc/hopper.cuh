@@ -19,7 +19,8 @@
 //   m64n128 product of a warpgroup (bf16 k16 with float32 sums, transpose
 //   bits as template arguments; s8 k32 with int32 sums, both operands
 //   K-major as the PTX requires).
-// * encode_map: a 2-D tensor map with a 128-byte (or 64-byte) swizzle and
+// * encode_map: a 2-D tensor map (rows at any stride of whole 16 bytes)
+//   with a 128-byte (or 64-byte) swizzle and
 //   zero fill past the edges, encoded through cuTensorMapEncodeTiled
 //   fetched from the CUDA runtime's entry-point query, so the library does
 //   not link libcuda.
@@ -344,19 +345,23 @@ inline EncodeTiled encoder() {
 // A row-major (rows, width) tensor read in boxes of box_rows rows x
 // box_width elements with 128-byte swizzle (box_width elements must be
 // 128 bytes; with CU_TENSOR_MAP_SWIZZLE_64B, 64 bytes); reads past its
-// edges fill zeros.  type is bf16 or uint8 (int8 bits); the row stride,
-// width * element bytes, must be a multiple of 16 and the base 16-byte
-// aligned.
+// edges (column width and row rows) fill zeros.  type is bf16 or uint8
+// (int8 bits).  Rows are ld elements apart (0: width, a dense tensor):
+// ld * element bytes must be a multiple of 16 and the base 16-byte
+// aligned, so a width off the 16-byte grid is described by a buffer
+// whose rows are padded to it, the map keeping the logical width.
 inline bool encode_map(
     CUtensorMap* map, const void* ptr, CUtensorMapDataType type,
     long long rows, long long width, int box_width, int box_rows,
-    CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
+    CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B,
+    long long ld = 0) {
   const EncodeTiled fn = encoder();
   if (fn == nullptr) return false;
   const int elem = type == CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 ? 2 : 1;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(width),
                               static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(width) * elem};
+  const cuuint64_t strides[1] = {
+      static_cast<cuuint64_t>(ld > 0 ? ld : width) * elem};
   const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_width),
                              static_cast<cuuint32_t>(box_rows)};
   const cuuint32_t step[2] = {1, 1};

@@ -18,7 +18,7 @@
 // allocates, and tail_merge_kernel (a warp per row) combines the partials:
 // the rescaled logsumexp lse = m + log(max(s, 1e-38)) and a k-way top-k
 // merge in the same (value desc, column asc) order.  Columns >= V are
-// masked inside the kernels, so the ragged vocab needs no padded copy of W.
+// masked inside the kernels.
 //
 // Bound: at rows=1280, dw=512, V=13056 the product is 2*1280*512*13056 =
 // 17 GFLOP and W is 13.4 MB (bf16): ~17 us at the bf16 tensor-core peak,
@@ -26,15 +26,19 @@
 // there.  Three routes, picked by the caller from dtype, widths and
 // alignment (stvd_torch/model/kernel.py:logit_tail_route):
 //
-// * wgmma (bf16; dw and V multiples of 8, 16-byte aligned bases): a
-//   persistent, warp-specialised kernel.  A tile is 128 rows x 256 vocab
-//   columns; one producer thread streams 64-deep stages of x (K-major) and
-//   W (MN-major: its transpose bit is set, so W is never copied) by TMA
-//   into a 4-stage mbarrier ring, and two consumer warpgroups each run
-//   m64n256k16 wgmma on them.  The epilogue stays in registers: in the
-//   accumulator layout a row's 256 columns sit in the four lanes of one
-//   quad, so each thread keeps a sorted top-k and (max, sumexp) over its 64
-//   columns of each of its two rows, and the quad merges them by shuffles.
+// * wgmma (bf16; rows of x and W at strides of whole 16 bytes, 16-byte
+//   aligned bases): a persistent, warp-specialised kernel.  A ragged dw or
+//   V (the reference recipes' 468 and 13010 / 20000) comes in rows padded
+//   to 128 bytes (stvd_torch/model/step.py:pad_cols); the tensor
+//   maps keep the logical widths, so TMA fills zeros past them.  A tile
+//   is 128 rows x 256 vocab columns; one producer thread streams 64-deep
+//   stages of x (K-major) and W (MN-major: its transpose bit is set, so W
+//   is never transposed) by TMA into a 4-stage mbarrier ring, and two
+//   consumer warpgroups each run m64n256k16 wgmma on them.  The epilogue
+//   stays in registers: in the accumulator layout a row's 256 columns sit
+//   in the four lanes of one quad, so each thread keeps a sorted top-k and
+//   (max, sumexp) over its 64 columns of each of its two rows, and the
+//   quad merges them by shuffles.
 //   The block walks tiles with its ring running on, so the next tile's
 //   loads overlap this tile's epilogue.
 // * wmma (other bf16): one block per 64-row x 128-column tile, logits into
@@ -90,24 +94,24 @@ __device__ __forceinline__ void warp_best(float& v, int& i) {
 }
 
 // Stage a (BM x bk) tile of x and a (bk x BN) tile of W, zero-filled
-// outside the matrices.
+// outside the matrices; rows of x are ldx elements apart, rows of W ldw.
 template <typename T>
 __device__ __forceinline__ void stage(const T* __restrict__ x,
                                       const T* __restrict__ w, T* a_s, T* b_s,
-                                      int bk, int rows, int dw, int v, int m0,
-                                      int n0, int k0) {
+                                      int bk, int rows, int dw, int v, int ldx,
+                                      int ldw, int m0, int n0, int k0) {
   const T zero = T(0.f);
   for (int i = threadIdx.x; i < BM * bk; i += kThreads) {
     const int r = i / bk, c = i - r * bk;
     const int gr = m0 + r, gc = k0 + c;
     a_s[i] = (gr < rows && gc < dw)
-                 ? x[static_cast<long long>(gr) * dw + gc] : zero;
+                 ? x[static_cast<long long>(gr) * ldx + gc] : zero;
   }
   for (int i = threadIdx.x; i < bk * BN; i += kThreads) {
     const int r = i / BN, c = i - r * BN;
     const int gr = k0 + r, gc = n0 + c;
     b_s[i] = (gr < dw && gc < v)
-                 ? w[static_cast<long long>(gr) * v + gc] : zero;
+                 ? w[static_cast<long long>(gr) * ldw + gc] : zero;
   }
 }
 
@@ -116,7 +120,7 @@ __device__ __forceinline__ void stage(const T* __restrict__ x,
 __device__ void gemm_tile(const __nv_bfloat16* __restrict__ x,
                           const __nv_bfloat16* __restrict__ w,
                           unsigned char* stage_buf, float* c_s, int rows,
-                          int dw, int v, int m0, int n0) {
+                          int dw, int v, int ldx, int ldw, int m0, int n0) {
   using namespace nvcuda;
   constexpr int BK = 32;
   __nv_bfloat16* a_s = reinterpret_cast<__nv_bfloat16*>(stage_buf);
@@ -128,7 +132,7 @@ __device__ void gemm_tile(const __nv_bfloat16* __restrict__ x,
 #pragma unroll
   for (int f = 0; f < 4; ++f) wmma::fill_fragment(acc[f], 0.f);
   for (int k0 = 0; k0 < dw; k0 += BK) {
-    stage(x, w, a_s, b_s, BK, rows, dw, v, m0, n0, k0);
+    stage(x, w, a_s, b_s, BK, rows, dw, v, ldx, ldw, m0, n0, k0);
     __syncthreads();
 #pragma unroll
     for (int kk = 0; kk < BK; kk += 16) {
@@ -156,7 +160,7 @@ __device__ void gemm_tile(const __nv_bfloat16* __restrict__ x,
 __device__ void gemm_tile(const float* __restrict__ x,
                           const float* __restrict__ w,
                           unsigned char* stage_buf, float* c_s, int rows,
-                          int dw, int v, int m0, int n0) {
+                          int dw, int v, int ldx, int ldw, int m0, int n0) {
   constexpr int BK = 16;
   float* a_s = reinterpret_cast<float*>(stage_buf);
   float* b_s = a_s + BM * BK;
@@ -168,7 +172,7 @@ __device__ void gemm_tile(const float* __restrict__ x,
 #pragma unroll
     for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
   for (int k0 = 0; k0 < dw; k0 += BK) {
-    stage(x, w, a_s, b_s, BK, rows, dw, v, m0, n0, k0);
+    stage(x, w, a_s, b_s, BK, rows, dw, v, ldx, ldw, m0, n0, k0);
     __syncthreads();
 #pragma unroll
     for (int kk = 0; kk < BK; ++kk) {
@@ -196,13 +200,13 @@ __global__ void __launch_bounds__(kThreads)
 tail_tile_kernel(const T* __restrict__ x, const T* __restrict__ w,
                  const float* __restrict__ bias, float* __restrict__ part_m,
                  float* __restrict__ part_s, float* __restrict__ part_v,
-                 int* __restrict__ part_i, int rows, int dw, int v, int ksel,
-                 int ntiles) {
+                 int* __restrict__ part_i, int rows, int dw, int v, int ldx,
+                 int ldw, int ksel, int ntiles) {
   __shared__ __align__(128) unsigned char smem[kTileBytes + kStageBytes];
   float* c_s = reinterpret_cast<float*>(smem);
   const int m0 = blockIdx.x * BM;
   const int n0 = blockIdx.y * BN;
-  gemm_tile(x, w, smem + kTileBytes, c_s, rows, dw, v, m0, n0);
+  gemm_tile(x, w, smem + kTileBytes, c_s, rows, dw, v, ldx, ldw, m0, n0);
   __syncthreads();
 
   const int lane = threadIdx.x & 31;
@@ -539,16 +543,20 @@ cudaError_t launch_wgmma_k(const CUtensorMap& map_x, const CUtensorMap& map_w,
   return cudaGetLastError();
 }
 
+// The maps keep the logical widths dw and V over row strides ldx and ldw
+// (multiples of 8): TMA fills zeros past dw in x and W and past V in W,
+// whatever the padding of the rows holds.
 cudaError_t launch_wgmma(const void* x, const void* w, const void* bias,
                          void* part_m, void* part_s, void* part_v,
                          void* part_i, void* vals, void* idx, void* lse,
-                         int rows, int dw, int v, int ksel,
+                         int rows, int dw, int v, int ldx, int ldw, int ksel,
                          cudaStream_t stream) {
   CUtensorMap map_x, map_w;
-  if (!encode_map(&map_x, x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rows, dw, kWgK,
-                  kWgRows) ||
-      !encode_map(&map_w, w, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, dw, v, 64,
-                  kWgK))
+  const CUtensorMapDataType bf = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  if (!encode_map(&map_x, x, bf, rows, dw, kWgK, kWgRows,
+                  CU_TENSOR_MAP_SWIZZLE_128B, ldx) ||
+      !encode_map(&map_w, w, bf, dw, v, 64, kWgK, CU_TENSOR_MAP_SWIZZLE_128B,
+                  ldw))
     return cudaErrorInvalidValue;
   // one instantiation per k: the per-thread top-k lists stay in registers
   typedef cudaError_t (*LaunchK)(const CUtensorMap&, const CUtensorMap&,
@@ -577,14 +585,14 @@ template <typename T>
 cudaError_t launch(const void* x, const void* w, const void* bias,
                    void* part_m, void* part_s, void* part_v, void* part_i,
                    void* vals, void* idx, void* lse, int rows, int dw, int v,
-                   int ksel, cudaStream_t stream) {
+                   int ldx, int ldw, int ksel, cudaStream_t stream) {
   const int ntiles = (v + BN - 1) / BN;
   const dim3 grid((rows + BM - 1) / BM, ntiles);
   tail_tile_kernel<T><<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(w),
       static_cast<const float*>(bias), static_cast<float*>(part_m),
       static_cast<float*>(part_s), static_cast<float*>(part_v),
-      static_cast<int*>(part_i), rows, dw, v, ksel, ntiles);
+      static_cast<int*>(part_i), rows, dw, v, ldx, ldw, ksel, ntiles);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   tail_merge_kernel<<<(rows + kWarps - 1) / kWarps, kThreads, 0, stream>>>(
@@ -608,7 +616,9 @@ extern "C" int stvd_logit_tail_ntiles(int v, int route) {
 }
 
 // route kRouteWgmma / kRouteMma: x (rows, dw) and w (dw, v) bf16;
-// kRouteF32: both float32.  bias (v,) float32.  Scratch, ntiles from
+// kRouteF32: both float32.  Rows of x are ldx >= dw elements apart, rows
+// of w ldw >= v (kRouteWgmma: both multiples of 8, so a ragged dw or V is
+// served from padded rows).  bias (v,) float32.  Scratch, ntiles from
 // stvd_logit_tail_ntiles: part_m, part_s (rows, ntiles) float32, part_v
 // (rows, ntiles, ksel) float32, part_i (rows, ntiles, ksel) int32.
 // Outputs: vals (rows, ksel) float32, idx (rows, ksel) int64, lse (rows,)
@@ -617,23 +627,24 @@ extern "C" int stvd_logit_tail(const void* x, const void* w, int route,
                                const void* bias, void* part_m, void* part_s,
                                void* part_v, void* part_i, void* vals,
                                void* idx, void* lse, int rows, int dw, int v,
-                               int ksel, void* stream) {
-  if (rows < 1 || dw < 1 || v < ksel || ksel < 1 || ksel > kMaxK)
+                               int ksel, int ldx, int ldw, void* stream) {
+  if (rows < 1 || dw < 1 || v < ksel || ksel < 1 || ksel > kMaxK ||
+      ldx < dw || ldw < v)
     return static_cast<int>(cudaErrorInvalidValue);
   if (route == kRouteWgmma &&
-      (dw % 8 != 0 || v % 8 != 0 || !aligned16(x) || !aligned16(w)))
+      (ldx % 8 != 0 || ldw % 8 != 0 || !aligned16(x) || !aligned16(w)))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   if (route == kRouteWgmma)
     e = launch_wgmma(x, w, bias, part_m, part_s, part_v, part_i, vals, idx,
-                     lse, rows, dw, v, ksel, s);
+                     lse, rows, dw, v, ldx, ldw, ksel, s);
   else if (route == kRouteMma)
     e = launch<__nv_bfloat16>(x, w, bias, part_m, part_s, part_v, part_i,
-                              vals, idx, lse, rows, dw, v, ksel, s);
+                              vals, idx, lse, rows, dw, v, ldx, ldw, ksel, s);
   else if (route == kRouteF32)
     e = launch<float>(x, w, bias, part_m, part_s, part_v, part_i, vals, idx,
-                      lse, rows, dw, v, ksel, s);
+                      lse, rows, dw, v, ldx, ldw, ksel, s);
   else
     e = cudaErrorInvalidValue;
   return static_cast<int>(e);

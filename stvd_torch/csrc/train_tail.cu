@@ -244,8 +244,8 @@ cudaError_t launch_wgmma(const void* x, const void* w, const TailWgEpi& epi,
       !encode_map(&map_w, w, bf, dc, 4LL * dim, TailWgEpi::kDims, S::kDepth,
                   CU_TENSOR_MAP_SWIZZLE_64B))
     return cudaErrorInvalidValue;
-  return launch_wg_gates<1, TailWgEpi::kDims, false>(map_x, map_w, epi, rows,
-                                                     dc, dim, stream);
+  return launch_wg_gates<1, TailWgEpi::kDims, false, false>(
+      map_x, map_w, epi, rows, dc, dim, stream);
 }
 
 // Route numbers shared with stvd_torch/model/kernel.py:TRAIN_TAIL_ROUTES.

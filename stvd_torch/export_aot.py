@@ -237,7 +237,8 @@ def _index(t: torch.Tensor, idx):
 
 class _GuardFreeMethods(TorchFunctionMode):
     """The tensor methods whose Python bindings take a CUDA device guard
-    (indexing, ``~`` and ``contiguous``) through explicit ops.  A build of
+    (indexing, ``~``, ``contiguous``, ``copy_`` and ``zero_``) through
+    explicit ops.  A build of
     PyTorch without CUDA cannot take that guard, even for a fake tensor,
     so an export for the card on such a host runs under this mode; it is
     not used where CUDA is."""
@@ -260,6 +261,8 @@ class _GuardFreeMethods(TorchFunctionMode):
             return None
         if name == "__invert__":
             return torch.bitwise_not(args[0])
+        if name in ("copy_", "zero_"):      # the padded layouts' fills
+            return getattr(torch.ops.aten, name)(*args, **kwargs)
         if name == "contiguous":
             fmt = kwargs.get("memory_format", torch.contiguous_format)
             t = args[0]

@@ -331,14 +331,20 @@ LOGIT_TAIL_ROUTES = ("wgmma", "wmma", "f32")
 
 
 def logit_tail_route(rows: int, dw: int, v: int, dtype, x_ptr: int,
-                     w_ptr: int) -> str:
-    """The logit tail's route, from shapes, dtype and alignment alone:
-    'f32' for float32 operands; for bf16 'wgmma' (TMA tiles need row
-    strides of whole 16 bytes and 16-byte aligned bases) when dw and V
-    are multiples of 8 and both bases are aligned, else 'wmma'."""
+                     w_ptr: int, ldx: Optional[int] = None,
+                     ldw: Optional[int] = None) -> str:
+    """The logit tail's route, from shapes, strides, dtype and alignment
+    alone: 'f32' for float32 operands; for bf16 'wgmma' (TMA tiles need
+    row strides of whole 16 bytes and 16-byte aligned bases) when the
+    row strides of x and W, ``ldx`` and ``ldw`` (default dw and V: dense
+    rows), are multiples of 8 and both bases are aligned, else 'wmma'.
+    A ragged dw or V takes wgmma from rows padded to 128 bytes
+    (``step.pad_cols``)."""
     if dtype == torch.float32:
         return "f32"
-    if dw % 8 == 0 and v % 8 == 0 and x_ptr % 16 == 0 and w_ptr % 16 == 0:
+    ldx = dw if ldx is None else ldx
+    ldw = v if ldw is None else ldw
+    if ldx % 8 == 0 and ldw % 8 == 0 and x_ptr % 16 == 0 and w_ptr % 16 == 0:
         return "wgmma"
     return "wmma"
 
@@ -360,17 +366,26 @@ def _logit_tail_check(x, w, b, k_sel: int) -> None:
 
 def _logit_tail_cuda(x, w, b, k_sel: int, route=None):
     """The kernel on ``logit_tail_route``'s route, or on ``route`` when
-    given (to time one route against another on the same operands)."""
+    given (to time one route against another on the same operands).
+    Operands may be row-strided (``stride(1) == 1``), and their strides
+    pick the route: W as it comes (a ragged vocab takes wgmma when its
+    rows are padded, as ``make_logit_tail`` pads them once a decode
+    call), x as it comes in W's dtype, else cast into rows padded to 128
+    bytes, the copy the cast makes anyway."""
     rows, dw = x.shape
     v = w.shape[1]
     lib = _build.lib()
     _logit_tail_check(x, w, b, k_sel)
-    x = x.to(w.dtype).contiguous()
-    w = w.contiguous()
+    if x.dtype != w.dtype:
+        x = step_mod.padded(rows, dw, w.dtype, x.device).copy_(x)
+    elif x.stride(1) != 1:
+        x = x.contiguous()
+    if w.stride(1) != 1:
+        w = w.contiguous()
     b = b.to(torch.float32).contiguous()
     if route is None:
         route = logit_tail_route(rows, dw, v, w.dtype, x.data_ptr(),
-                                 w.data_ptr())
+                                 w.data_ptr(), x.stride(0), w.stride(0))
     code = LOGIT_TAIL_ROUTES.index(route)
     nt = lib.stvd_logit_tail_ntiles(v, code)
     dev = x.device
@@ -386,7 +401,7 @@ def _logit_tail_cuda(x, w, b, k_sel: int, route=None):
         x.data_ptr(), w.data_ptr(), code, b.data_ptr(), part_m.data_ptr(),
         part_s.data_ptr(), part_v.data_ptr(), part_i.data_ptr(),
         vals.data_ptr(), idx.data_ptr(), lse.data_ptr(), rows, dw, v, k_sel,
-        _launch_stream())
+        x.stride(0), w.stride(0), _launch_stream())
     _build.check(err, "logit-tail kernel")
     logit_tail.launches += 1
     logit_tail.launches_by_route[route] += 1
@@ -436,10 +451,13 @@ def make_logit_tail(w, b, k_sel: int):
     decode call (mirror of the JAX ``make_logit_tail``), or ``None`` when
     ``k_sel > 8``: the kernel keeps at most eight candidates a row, and
     the caller then takes the materialized logits, as the JAX package's
-    callers do.  Columns past the vocab are masked inside the kernel, so
-    W needs no padded copy."""
+    callers do.  W's rows are padded to 128 bytes here, once a decode
+    call (``step.pad_cols``: a copy only for a ragged vocab, 12 MB at the
+    reference recipes' 468 x 13010 in bf16), so the kernel's wgmma route
+    reads them; columns past the vocab are masked inside the kernel."""
     if k_sel > 8:
         return None
+    w = step_mod.pad_cols(w)
     b = b.to(torch.float32)
 
     def tail(act):
@@ -613,23 +631,25 @@ GATES_ROUTES = ("wgmma", "wmma", "f32")
 
 
 def gates_route(rows: int, kx: int, dim: int, dtype, x_ptr: int,
-                w_ptr: int) -> str:
-    """The gates+LSTM kernel's route, from shapes, dtype and alignment
-    alone: 'f32' for float32 operands; 'wgmma' when TMA can describe the
-    operands (row strides of whole 16 bytes, 16-byte aligned bases, and
-    under bf16 boxes whose first column g dim + d0 starts on a 16-byte
-    boundary of the (Kx, 4 dim) stack): bf16 with Kx and dim multiples of
-    8, int8 (whose W is read K-major, so a gate's block starts at a row
-    and only Kx matters) with Kx a multiple of 16; else 'wmma'.  ``w_ptr``
-    is the address the route reads: under int8 wgmma that of the K-major
-    grid."""
+                w_ptr: int, ldx: Optional[int] = None,
+                ldw: Optional[int] = None) -> str:
+    """The gates+LSTM kernel's route, from shapes, strides, dtype and
+    alignment alone: 'f32' for float32 operands; 'wgmma' for bf16 and
+    int8 when TMA can describe x and the stack's K-major (4 dim, Kx)
+    transpose, which that route reads: their row strides ``ldx`` and
+    ``ldw`` (default Kx: dense rows) whole 16 bytes and both bases
+    16-byte aligned.  A gate's block starts at a row of the transpose,
+    so any dim is served; a Kx off the 16-byte grid takes wgmma from
+    rows padded to it (``step.padded``, ``step.kmajor``).  Else 'wmma'.
+    ``w_ptr`` is the address of the transpose."""
     if dtype == torch.float32:
         return "f32"
-    if x_ptr % 16 or w_ptr % 16:
+    per = 16 // dtype.itemsize
+    ldx = kx if ldx is None else ldx
+    ldw = kx if ldw is None else ldw
+    if x_ptr % 16 or w_ptr % 16 or ldx % per or ldw % per:
         return "wmma"
-    if dtype == torch.int8:
-        return "wgmma" if kx % 16 == 0 else "wmma"
-    return "wgmma" if kx % 8 == 0 and dim % 8 == 0 else "wmma"
+    return "wgmma"
 
 
 def _gates_lstm_check(x, w, b, c, s_r, scale) -> None:
@@ -656,7 +676,13 @@ def _gates_lstm_check(x, w, b, c, s_r, scale) -> None:
 def _gates_lstm_cuda(x, w, b, c, s_r=None, scale=None, route=None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The kernel on ``gates_route``'s route, or on ``route`` when given
-    (to time one route against another on the same operands)."""
+    (to time one route against another on the same operands).  The wgmma
+    route reads x and the stack's K-major transpose, each in rows a whole
+    16 bytes apart: x's strides pick the route (``step_with_core`` and
+    ``step.quantize_rows`` pad its rows to 128 bytes), and a stack not
+    stored so (as ``step.precompute`` and ``step.quantize_weights`` store
+    it, when this is a view) is copied to it.  The wmma and f32 routes
+    read dense x and the dense (Kx, 4 dim) stack."""
     f32 = torch.float32
     rows, kx = x.shape
     n4 = w.shape[1]
@@ -664,16 +690,18 @@ def _gates_lstm_cuda(x, w, b, c, s_r=None, scale=None, route=None
     lib = _build.lib()
     _gates_lstm_check(x, w, b, c, s_r, scale)
     quant = w.dtype == torch.int8
-    x = x.contiguous()
-    # int8 wgmma reads the K-major grid (step.quantize_weights stores it
-    # so: then this is a view); the other routes the (Kx, 4 dim) stack
-    kmajor = quant and route in (None, "wgmma")
-    w_read = w.t().contiguous() if kmajor else w.contiguous()
-    if route is None:
-        route = gates_route(rows, kx, dim, w.dtype, x.data_ptr(),
-                            w_read.data_ptr())
-        if quant and route != "wgmma":
-            w_read = w.contiguous()
+    if route in (None, "wgmma"):
+        x_read = x if x.stride(1) == 1 else x.contiguous()
+        w_read = step_mod.pad_cols(w.t())
+        if route is None:
+            route = gates_route(rows, kx, dim, w.dtype, x_read.data_ptr(),
+                                w_read.data_ptr(), x_read.stride(0),
+                                w_read.stride(0))
+    if route == "wgmma":
+        ldx, ldw = x_read.stride(0), w_read.stride(0)
+    else:
+        x_read, w_read = x.contiguous(), w.contiguous()
+        ldx, ldw = kx, n4
     b = b.to(f32).contiguous()
     c = c.to(f32).contiguous()
     if quant:
@@ -684,10 +712,10 @@ def _gates_lstm_cuda(x, w, b, c, s_r=None, scale=None, route=None
     h_t = torch.empty((rows, dim), dtype=f32, device=x.device)
     c_t = torch.empty((rows, dim), dtype=f32, device=x.device)
     err = lib.stvd_gates_lstm(
-        x.data_ptr(), w_read.data_ptr(), _GATES_MODES[w.dtype],
+        x_read.data_ptr(), w_read.data_ptr(), _GATES_MODES[w.dtype],
         GATES_ROUTES.index(route), b.data_ptr(), s_r.data_ptr(),
         scale.data_ptr(), c.data_ptr(), h_t.data_ptr(), c_t.data_ptr(), rows,
-        kx, dim, _launch_stream())
+        kx, dim, ldx, ldw, _launch_stream())
     _build.check(err, "gates+LSTM kernel")
     gates_lstm.launches += 1
     gates_lstm.launches_by_route[route] += 1

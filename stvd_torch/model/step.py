@@ -70,7 +70,7 @@ class StepContext(NamedTuple):
     ctx_mask: torch.Tensor  # (Bc, K) f32
     mean_ctx: torch.Tensor  # (Bc, ctx_dim) f32 masked mean (for h0/c0)
     h_att_w: torch.Tensor   # (dim, attn_dim + 1 [+ s]) = [Wd_att | W_sel (| Wsd_att)]
-    gates_w: Optional[torch.Tensor]  # decode: (dim_word + dim + ctx_dim, 4 dim) = [W; U; Wc]
+    gates_w: Optional[torch.Tensor]  # decode: (dim_word + dim + ctx_dim, 4 dim) = [W; U; Wc], kmajor
     regions: Optional[torch.Tensor] = None    # (Bc, K, R, Dr) spatial only
     pregion: Optional[torch.Tensor] = None    # (Bc, K, R, s) f32
     w_sf_att: Optional[torch.Tensor] = None   # (Dr, attn_dim) f32 = W_spat_fuse @ Wc_att
@@ -171,10 +171,59 @@ def _h_projection_weights(params: Params, cfg) -> torch.Tensor:
     return torch.cat([params["U"], _h_att_weights(params, cfg)], dim=1)
 
 
-def _gates_weights(params: Params) -> torch.Tensor:
-    """[W; U; Wc] stacked: decode computes the LSTM preactivation as one
-    matmul over [emb_t | h_{t-1} | ctx_t]."""
-    return torch.cat([params["W"], params["U"], params["Wc"]], dim=0)
+def padded(rows: int, cols: int, dtype: torch.dtype, device
+           ) -> torch.Tensor:
+    """A (rows, cols) view of a new (rows, cols') buffer, cols' = cols
+    rounded up to a whole 128 bytes of ``dtype``, whose columns past
+    ``cols`` are zero: rows a TMA map can step over (its row stride must
+    be a multiple of 16 bytes) and whose starts stay on the 128-byte
+    lines the maps' boxes read (a stride of 16 bytes but not 128 splits
+    each box row across two lines, which made kernel 3 markedly slower
+    on an H100).  A kernel's tensor map keeps the logical width, so no
+    kernel reads the padding; it is zero for any other reader."""
+    per = 128 // dtype.itemsize
+    wide = -(-cols // per) * per
+    buf = torch.empty((rows, wide), dtype=dtype, device=device)
+    if wide > cols:
+        buf.narrow(1, cols, wide - cols).zero_()
+    return buf.narrow(1, 0, cols)
+
+
+def pad_cols(t: torch.Tensor) -> torch.Tensor:
+    """``t`` (rows, cols) itself when its rows are dense and a whole 128
+    bytes apart, else a copy in ``padded``'s layout."""
+    per = 128 // t.dtype.itemsize
+    if t.stride(1) == 1 and t.stride(0) % per == 0:
+        return t
+    out = padded(t.shape[0], t.shape[1], t.dtype, t.device)
+    out.copy_(t)
+    return out
+
+
+def kmajor(blocks, dtype: torch.dtype) -> torch.Tensor:
+    """The (K, N) stack of the row blocks ``blocks`` (each (k_i, N)) in
+    ``dtype``, as the (K, N) view of its K-major (N, K) transpose with
+    rows padded to 128 bytes (``padded``): one copy, cast included.  The
+    gates kernel's wgmma route reads the transpose (a gate's block starts
+    at a row, so any dim is served; a ragged K in padded rows); a plain
+    product takes the view as it is."""
+    k = sum(b.shape[0] for b in blocks)
+    out = padded(blocks[0].shape[1], k, dtype, blocks[0].device)
+    o = 0
+    for b in blocks:
+        out.narrow(1, o, b.shape[0]).copy_(b.t())
+        o += b.shape[0]
+    return out.t()
+
+
+def _gates_weights(params: Params,
+                   dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """[W; U; Wc] stacked (Kx, 4 dim) in ``dtype`` (default W's): decode
+    computes the LSTM preactivation as one matmul over [emb_t | h_{t-1} |
+    ctx_t].  Stored K-major with padded rows (``kmajor``), the layout the
+    gates kernel reads; the copy is the one a concatenation makes."""
+    blocks = [params["W"], params["U"], params["Wc"]]
+    return kmajor(blocks, dtype or blocks[0].dtype)
 
 
 def quantize_weights(w: torch.Tensor, reduce_max=None
@@ -182,28 +231,32 @@ def quantize_weights(w: torch.Tensor, reduce_max=None
     """Per-output-column symmetric int8 grid of a (K, N) weight stack:
     (w_q int8, scale (N,) f32) with scale = max(max|w|, 1e-8) / 127 and
     w_q = clip(round(w / scale), +-127), round half to even as in JAX.
-    ``w_q`` is the (K, N) view of a K-major (N, K) tensor: the gates
-    kernel's wgmma takes int8 operands only K-major, and the plain path
-    multiplies the view as it is (on the card cuBLASLt takes it as a
-    transposed operand).  ``reduce_max`` turns the column maxima of
-    ``w`` into those of the whole stack when ``w`` holds some of its
-    rows (the maximum over the model axis)."""
+    ``w_q`` is the (K, N) view of a K-major (N, K) tensor whose rows are
+    padded to 128 bytes (``kmajor``): the gates kernel's wgmma takes int8
+    operands only K-major, and the plain path multiplies the view as it
+    is (on the card cuBLASLt takes it as a transposed operand).
+    ``reduce_max`` turns the column maxima of ``w`` into those of the
+    whole stack when ``w`` holds some of its rows (the maximum over the
+    model axis)."""
     w32 = w.to(torch.float32)
     amax = w32.abs().amax(dim=0)
     if reduce_max is not None:
         amax = reduce_max(amax)
     scale = amax.clamp_min(1e-8) / 127.0
     w_q = torch.clamp(torch.round(w32 / scale[None, :]), -127, 127)
-    return w_q.to(torch.int8).t().contiguous().t(), scale
+    return kmajor([w_q], torch.int8), scale
 
 
 def quantize_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Dynamic per-row int8 quantization of an activation:
     (x_q int8, s_r (rows, 1) f32), s_r = max(max|x|, 1e-8) / 127.  A
-    division by s_r, not a multiply by its reciprocal, as in JAX."""
+    division by s_r, not a multiply by its reciprocal, as in JAX.  x_q's
+    rows are padded to 128 bytes (``padded``), as the gates kernel reads
+    them."""
     x32 = x.to(torch.float32)
     s_r = x32.abs().amax(dim=1, keepdim=True).clamp_min(1e-8) / 127.0
-    x_q = torch.clamp(torch.round(x32 / s_r), -127, 127).to(torch.int8)
+    x_q = padded(x.shape[0], x.shape[1], torch.int8, x.device)
+    x_q.copy_(torch.clamp(torch.round(x32 / s_r), -127, 127))
     return x_q, s_r
 
 
@@ -256,10 +309,9 @@ def precompute(params: Params, cfg, ctx: torch.Tensor,
                 _gates_weights(params),
                 lambda m: tp.all_reduce(m.contiguous(), axis, "max"))
     else:
-        gates_w = _gates_weights(params)
+        gates_w = _gates_weights(params, cdtype)
         if cfg.decode_quant == "int8":
             gates_w_q, gates_scale = quantize_weights(gates_w)
-        gates_w = gates_w.to(cdtype)
     return StepContext(ctx=ctx, pctx=pctx, ctx_mask=ctx_mask,
                        mean_ctx=mean_ctx,
                        h_att_w=_h_att_weights(params, cfg),
@@ -472,8 +524,14 @@ def step_with_core(params: Params, cfg, state: StepState, sc: StepContext,
         h_t, c_t = lstm_update(preact, c)
         return StepOut(h=h_t, c=c_t, ctx_t=ctx_t, alpha=alpha,
                        alpha_s=alpha_s)
-    x_cat = torch.cat([emb_t.to(cdtype), h.to(cdtype), ctx_t.to(cdtype)],
-                      dim=1)
+    # [emb_t | h | ctx_t] in rows padded to 128 bytes, as the gates
+    # kernel reads them: the copies (and casts) a concatenation makes
+    parts = (emb_t, h, ctx_t)
+    x_cat = padded(bs, sum(p.shape[1] for p in parts), cdtype, h.device)
+    o = 0
+    for p in parts:
+        x_cat.narrow(1, o, p.shape[1]).copy_(p)
+        o += p.shape[1]
     if sc.gates_w_q is not None:
         # W8A8: the activation is quantized here, once, so the kernel and
         # the plain core see the same x_q and s_r

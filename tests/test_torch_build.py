@@ -168,25 +168,23 @@ def test_logit_tail_route(rows, dw, v, dtype, x_ptr, w_ptr, route):
     (1, 16, 8, I8, 0, 0, "wgmma"),
     (37, 272, 128, I8, 0, 0, "wgmma"),
     (130, 5120, 35, I8, 0, 0, "wgmma"),
-    (130, 5120, 35, BF16, 0, 0, "wmma"),
+    (130, 5120, 35, BF16, 0, 0, "wgmma"),
     (185, 277, 100, BF16, 0, 0, "wmma"),
     (185, 277, 100, I8, 0, 0, "wmma"),
-    (37, 272, 100, BF16, 0, 0, "wmma"),
+    (37, 272, 100, BF16, 0, 0, "wgmma"),
     (37, 272, 100, I8, 0, 0, "wgmma"),
-    (1280, 5120, 3588, BF16, 0, 0, "wmma"),
+    (1280, 5120, 3588, BF16, 0, 0, "wgmma"),
     (37, 264, 128, I8, 0, 0, "wmma"),
     (1280, 5120, 3584, BF16, 2, 0, "wmma"),
     (1280, 5120, 3584, I8, 0, 8, "wmma"),
     (1280, 5120, 3584, F32, 0, 0, "f32"),
     (185, 277, 100, F32, 4, 4, "f32")])
 def test_gates_route(rows, kx, dim, dtype, x_ptr, w_ptr, route):
-    """wgmma for bf16 with Kx and dim multiples of 8 (row strides of
-    whole 16 bytes for x and the (Kx, 4 dim) stack, and each gate's
-    column block g dim + d0 starting on a 16-byte boundary: a TMA box
-    whose first column does not faults the launch), for int8 with Kx a
-    multiple of 16 (x and the K-major grid, where a gate's block starts
-    at a row), both bases aligned; the wmma route for the other bf16 and
-    int8 shapes; float32 its own."""
+    """wgmma for bf16 with Kx a multiple of 8 and int8 with Kx a
+    multiple of 16 (dense rows of x and of the stack's K-major
+    transpose, both a whole 16 bytes; a gate's block starts at a row of
+    the transpose, so dim is free), both bases aligned; the wmma route
+    for the other bf16 and int8 shapes; float32 its own."""
     assert tkernel.gates_route(rows, kx, dim, dtype, x_ptr, w_ptr) == route
     assert route in tkernel.GATES_ROUTES
 

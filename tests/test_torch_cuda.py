@@ -411,12 +411,15 @@ def gates_operands(rows, kx, dim, mode, device, seed=0):
 
 
 def gates_route_of(mode, kx, dim):
-    """The route the wrapper must pick for contiguous, aligned operands."""
+    """The route the wrapper must pick for aligned operands: rows of x a
+    whole 16 bytes apart (bf16 x is dense here; int8 x comes padded to
+    128 bytes from ``quantize_rows``), the stack copied to its padded
+    K-major transpose where it is not one, which serves any dim."""
     if mode == "f32":
         return "f32"
     if mode == "int8":
-        return "wgmma" if kx % 16 == 0 else "wmma"
-    return "wgmma" if kx % 8 == 0 and dim % 8 == 0 else "wmma"
+        return "wgmma"
+    return "wgmma" if kx % 8 == 0 else "wmma"
 
 
 def check_gates(ops, mode, route):
@@ -442,9 +445,9 @@ def check_gates(ops, mode, route):
 def test_gates_lstm_kernel_matches_plain(cuda, mode, rows, kx, dim):
     """The path-B shape (1280, 5120, 3584) and ragged rows, depths and
     dims in every mode: rows off the 128-row tile, dims off the 64-dim
-    strip, depths off the stage.  kx 277 (and under bf16 dims 35 and
-    100, whose gate blocks start off 16-byte boundaries) is off the
-    16-byte grid TMA needs: the wmma route."""
+    strip, depths off the stage.  Dense bf16 x of kx 277 is off the
+    16-byte grid TMA needs: the wmma route (int8 x comes padded); dims 35
+    and 100 take wgmma, whose K-major gate blocks start at any row."""
     ops = gates_operands(rows, kx, dim, mode, cuda, seed=rows)
     check_gates(ops, mode, gates_route_of(mode, kx, dim))
 
@@ -473,6 +476,64 @@ def test_gates_lstm_kernel_is_deterministic(cuda, mode, rows, kx, dim):
     torch.cuda.synchronize()
     for p, q in zip(first, second):
         assert torch.equal(p, q)
+
+
+# The reference recipes' shapes (recipes/*.json: dim 3518, dim_word 468,
+# vocab 13010 / 20000; Kx 468 + 3518 + 1024 or 2048), decode batch 256 x
+# beam 5 rows, on the padded layouts the port stores
+RECIPE_TAILS = [(1280, 468, 13010), (1280, 468, 20000)]
+RECIPE_GATES = [(1280, 5010, 3518), (1280, 6034, 3518)]
+
+
+@pytest.mark.parametrize("rows,dw,v", RECIPE_TAILS)
+@pytest.mark.parametrize("k", [5, 1])
+def test_logit_tail_recipe_shapes_on_padded_rows(cuda, rows, dw, v, k):
+    """Kernel 2 at the recipes' shapes: x and W in rows padded to 16
+    bytes take wgmma and equal the plain version (top-k ids and values
+    exactly on the exact-tie inputs); the dense operands (the wmma route)
+    give the same values and ids."""
+    x, w, b = exact_tail_inputs(rows, dw, v, torch.bfloat16, cuda, seed=v)
+    xp, wp = tstep.pad_cols(x), tstep.pad_cols(w)
+    assert xp.stride(0) % 8 == 0 and wp.stride(0) % 8 == 0
+    check_tail(xp, wp, b, k, "wgmma")
+    padded = tkernel.logit_tail(xp, wp, b, k)
+    dense = tkernel._logit_tail_cuda(x, w, b, k, route="wmma")
+    torch.cuda.synchronize()
+    assert torch.equal(padded[0], dense[0])
+    assert torch.equal(padded[1], dense[1])
+    torch.testing.assert_close(padded[2], dense[2], rtol=1e-5, atol=1e-4)
+
+
+def recipe_gates_operands(rows, kx, dim, mode, device, seed):
+    """(x, w, b, c, s_r, scale) as the decode step stores them: x in rows
+    padded to 16 bytes, the stack as its padded K-major transpose (int8:
+    ``quantize_rows`` / ``quantize_weights``)."""
+    x, w, b, c, s_r, scale = gates_operands(rows, kx, dim, mode, device,
+                                            seed=seed)
+    if mode != "int8":
+        x, w = tstep.pad_cols(x), tstep.kmajor([w], w.dtype)
+    per = 16 // x.element_size()
+    assert x.stride(0) % per == 0 and w.t().stride(0) % per == 0
+    return x, w, b, c, s_r, scale
+
+
+@pytest.mark.parametrize("rows,kx,dim", RECIPE_GATES)
+@pytest.mark.parametrize("mode", ["bf16", "int8"])
+def test_gates_lstm_recipe_shapes_on_padded_rows(cuda, mode, rows, kx, dim):
+    """Kernel 3 at both recipes' gates shapes (Kx 5010 and 6034, dim
+    3518), bf16 and int8, on the padded layouts: wgmma, equal to the plain
+    version within 1e-4 (int8 1e-5); the dense operands (the wmma route)
+    give the same within the same bound."""
+    ops = recipe_gates_operands(rows, kx, dim, mode, cuda, seed=kx)
+    check_gates(ops, mode, "wgmma")
+    padded = tkernel.gates_lstm(*ops)
+    dense = tkernel._gates_lstm_cuda(ops[0].contiguous(),
+                                     ops[1].contiguous(), *ops[2:],
+                                     route="wmma")
+    torch.cuda.synchronize()
+    tol = 1e-5 if mode == "int8" else 1e-4
+    for p, q in zip(padded, dense):
+        torch.testing.assert_close(p, q, rtol=tol, atol=tol)
 
 
 def test_kernel_wrappers_reject_what_the_kernels_do_not_take(cuda):

@@ -72,9 +72,10 @@ def test_int8_weight_grid_matches_jax(compute_dtype):
 @pytest.mark.parametrize("cfg_fn", [gk_cfg, small_cfg], ids=["aligned",
                                                              "ragged"])
 def test_int8_weight_grid_is_k_major(cfg_fn):
-    """The grid is stored K-major, (4 dim, Kx), for the gates kernel's
-    int8 wgmma, and its (Kx, 4 dim) view is JAX's grid element for
-    element; the plain gates product of the view is exact."""
+    """The grid is stored K-major, (4 dim, Kx) with rows padded to a
+    whole 128 bytes (Kx rounded up to 128), for the gates kernel's int8
+    wgmma, and its (Kx, 4 dim) view is JAX's grid element for element;
+    the plain gates product of the view is exact."""
     cfg = cfg_fn(decode_quant="int8", gates_kernel="on")
     p = numpy_params(cfg, seed=2)
     frames, mask = numpy_frames(cfg, 2)
@@ -82,7 +83,7 @@ def test_int8_weight_grid_is_k_major(cfg_fn):
     w_q = tsc.gates_w_q
     kx = cfg.dim_word + cfg.dim + cfg.ctx_dim
     assert tuple(w_q.shape) == (kx, 4 * cfg.dim)
-    assert w_q.stride() == (1, kx) and w_q.t().is_contiguous()
+    assert w_q.stride() == (1, -(-kx // 128) * 128)
     np.testing.assert_array_equal(w_q.numpy(), np.asarray(jsc.gates_w_q))
     x_q = torch.from_numpy(np.random.RandomState(5).randint(
         -127, 128, (3, kx)).astype(np.int8))

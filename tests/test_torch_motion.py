@@ -668,8 +668,11 @@ def test_train_cli_takes_the_msrvtt_recipe(tmp_path):
 def test_msrvtt_recipe_routes():
     """``recipes/msrvtt.json`` is not preset 4 (dim 3518, dim_word 468,
     vocab 20000): its decode step takes kernel 1's cluster route (A = Dc
-    = 2048, float32 context) and the wmma routes of kernels 2, 3 and 6,
-    whose TMA boxes need widths that are multiples of 8."""
+    = 2048, float32 context) and, on the padded rows the port stores
+    (x of the tail and of the gates, the gates stack's K-major
+    transpose), the wgmma routes of kernels 2 and 3; kernel 6, whose
+    MN-major gate blocks need dim a multiple of 8, keeps its wmma
+    route."""
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     with open(os.path.join(repo, "recipes", "msrvtt.json")) as f:
         cfg = tconfig.Config.from_json(f.read())
@@ -680,10 +683,20 @@ def test_msrvtt_recipe_routes():
     assert tkernel.attention_core_route(d.beam_size, m.n_frames, m.attn_dim,
                                         m.ctx_dim, torch.float32, 0,
                                         0) == "cluster"
+    kx = m.dim_word + m.dim + m.ctx_dim
+    x = tstep.padded(rows, m.dim_word, bf16, "meta")
+    w = tstep.pad_cols(torch.empty(m.dim_word, m.n_words, dtype=bf16,
+                                   device="meta"))
     assert tkernel.logit_tail_route(rows, m.dim_word, m.n_words, bf16,
-                                    0, 0) == "wmma"
-    assert tkernel.gates_route(rows, m.dim_word + m.dim + m.ctx_dim, m.dim,
-                               bf16, 0, 0) == "wmma"
+                                    0, 0, x.stride(0),
+                                    w.stride(0)) == "wgmma"
+    for dtype in (bf16, torch.int8):
+        xg = tstep.padded(rows, kx, dtype, "meta")
+        wg = tstep.kmajor([torch.empty(kx, 4 * m.dim, device="meta")],
+                          dtype)
+        assert tkernel.gates_route(rows, kx, m.dim, dtype, 0, 0,
+                                   xg.stride(0),
+                                   wg.t().stride(0)) == "wgmma"
     assert tkernel.train_tail_route(cfg.train.batch_size, m.ctx_dim, m.dim,
                                     bf16, 0, 0) == "wmma"
     p4 = tconfig.preset("msrvtt-fused").model
