@@ -46,6 +46,7 @@ from .model.decoder import StepFn
 from .model.kernel import get_step_fn
 from .model.step import compute_dtype
 from .train import parallel
+from .utils.profiling import span, spanned
 
 # the config and vocabulary a caller needs
 __all__ = ["BankResident", "Captioner", "Config", "Vocab",
@@ -79,8 +80,11 @@ def _captions_in_window(results, vocab: Vocab, window: int) -> List[str]:
 
     def drain_one():
         count, toks = pending.pop(0)
-        toks = toks.cpu().numpy()
-        out.extend(" ".join(vocab.decode(toks[i])) for i in range(count))
+        with span("stvd.request.copy"):
+            toks = toks.cpu().numpy()
+        with span("stvd.request.detok"):
+            out.extend(" ".join(vocab.decode(toks[i]))
+                       for i in range(count))
 
     for item in results:
         pending.append(item)
@@ -118,8 +122,9 @@ def chunked_caption_ids(run_ids: Callable, params,
             chunk = np.zeros(bsz, np.int64)
             part = rows[s:s + bsz]
             chunk[:len(part)] = part
-            yield len(part), run_ids(params, bank,
-                                     torch.from_numpy(chunk).to(dev))[0]
+            with span("stvd.request.rows"):
+                chunk = torch.from_numpy(chunk).to(dev)
+            yield len(part), run_ids(params, bank, chunk)[0]
 
     return _captions_in_window(results(), vocab, window)
 
@@ -257,10 +262,13 @@ class BankResident:
     def _resident(self) -> Dict[str, torch.Tensor]:
         return {k: self._bank_dev[k] for k in self._bank_keys()}
 
+    @spanned("stvd.request")
     def caption_ids(self, ids: Sequence[str]) -> List[str]:
         """Captions of resident-bank videos by id (no feature transfer:
         each chunk gathers its rows on the device and decodes them)."""
-        return self._caption_rows(self._rows_for(ids))
+        with span("stvd.request.rows"):
+            rows = self._rows_for(ids)
+        return self._caption_rows(rows)
 
     def _caption_rows(self, rows: np.ndarray) -> List[str]:
         raise NotImplementedError  # Captioner
@@ -384,6 +392,7 @@ class Captioner(BankResident):
                 out = tuple(parallel.all_gather_rows(t, mesh) for t in out)
         return out
 
+    @spanned("stvd.request")
     def caption_batch(self, batch: Dict[str, torch.Tensor]) -> List[str]:
         """Caption a prepared device batch in ``decode_batch`` chunks."""
         return chunked_caption(self._run, self.params, batch,
@@ -473,6 +482,7 @@ class Captioner(BankResident):
         return [[" ".join(self.vocab.decode(toks[b, j]))
                  for j in range(toks.shape[1])] for b in range(toks.shape[0])]
 
+    @spanned("stvd.request")
     def caption(self, features: Union[np.ndarray, Sequence[np.ndarray]],
                 regions: Optional[Sequence[np.ndarray]] = None,
                 motion: Optional[Sequence[np.ndarray]] = None
@@ -480,7 +490,8 @@ class Captioner(BankResident):
         """Caption raw per-video feature arrays: (N, F, D) or a list of
         (F_i, D) arrays, with per-video (F_i, R, Dr) region features for
         the spatial model and (F_i, Dm) motion features for the
-        dual-stream model."""
+        dual-stream model (its ``stvd.request`` span holds the packing
+        and that of ``caption_batch``)."""
         return self.caption_batch(
             pack_request(self.cfg.model, features, regions, motion,
                          device=self.device))

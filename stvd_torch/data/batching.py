@@ -14,6 +14,7 @@ from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..utils.profiling import spanned
 from .bank import FeatureBank, synthetic_bank
 from .text import Vocab, encode_captions
 
@@ -139,6 +140,7 @@ class BucketedBatchIterator:
         return iter(batches)
 
 
+@spanned("stvd.train.feed")
 def gather_batch(dev_bank: Dict[str, torch.Tensor], caps: CaptionSet,
                  idx: np.ndarray, seq_len: int = 0
                  ) -> Dict[str, torch.Tensor]:

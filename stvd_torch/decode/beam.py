@@ -22,6 +22,7 @@ from ..model import step as step_mod
 from ..model.decoder import StepFn, encode_context
 from ..model.step import (StepState, init_state, logit_activation,
                           logits_from_states, precompute, topk_rows)
+from ..utils.profiling import span, spanned
 
 _NEG = -1.0e30
 
@@ -48,6 +49,7 @@ def _length_penalty(lengths: torch.Tensor, alpha: float, mode: str
     return torch.ones_like(lf)
 
 
+@spanned("stvd.decode")
 def beam_decode(params, cfg, batch: Dict[str, torch.Tensor],
                 beam_size: int = 5, maxlen: int = 30,
                 length_norm: float = 0.6, norm_mode: str = "gnmt",
@@ -91,58 +93,66 @@ def beam_decode(params, cfg, batch: Dict[str, torch.Tensor],
     row_base = torch.arange(B, device=dev)[:, None] * k
 
     for t in range(maxlen):
-        if t == 0:
-            emb_t = torch.zeros((B * k, cfg.dim_word),
-                                dtype=params["Wemb"].dtype, device=dev)
-        else:
-            emb_t = params["Wemb"][prev.reshape(B * k)]
-        out = step_fn(params, cfg, StepState(h, c), sc, emb_t)
-        if tail is not None:
-            # fused path: the (B*k, V) logits never reach memory
-            act = logit_activation(params, cfg, out.h, out.ctx_t, emb_t)
-            vals, idx, lse = tail(act)
-            pb_vals = (vals - lse[:, None]).reshape(B, k, ki)
-            pb_idx = idx.reshape(B, k, ki)
-        else:
-            logits = logits_from_states(params, cfg, out.h, out.ctx_t, emb_t)
-            logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
-            pb_vals, pb_idx = topk_rows(logp, ki)
-            pb_vals = pb_vals.reshape(B, k, ki)
-            pb_idx = pb_idx.reshape(B, k, ki)
+        with span("stvd.decode.step"):
+            if t == 0:
+                emb_t = torch.zeros((B * k, cfg.dim_word),
+                                    dtype=params["Wemb"].dtype, device=dev)
+            else:
+                emb_t = params["Wemb"][prev.reshape(B * k)]
+            out = step_fn(params, cfg, StepState(h, c), sc, emb_t)
+            if tail is not None:
+                # fused path: the (B*k, V) logits never reach memory
+                act = logit_activation(params, cfg, out.h, out.ctx_t, emb_t)
+                vals, idx, lse = tail(act)
+                pb_vals = (vals - lse[:, None]).reshape(B, k, ki)
+                pb_idx = idx.reshape(B, k, ki)
+            else:
+                logits = logits_from_states(params, cfg, out.h, out.ctx_t,
+                                            emb_t)
+                logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+                pb_vals, pb_idx = topk_rows(logp, ki)
+                pb_vals = pb_vals.reshape(B, k, ki)
+                pb_idx = pb_idx.reshape(B, k, ki)
 
-        pb_vals = torch.where(finished[..., None], eos_vals, pb_vals)
-        pb_idx = torch.where(finished[..., None], eos_idx, pb_idx)
-        cand = (scores[..., None] + pb_vals).reshape(B, k * ki)
-        scores, merge_idx = topk_rows(cand, k)        # (B, k)
-        parent = merge_idx // ki
-        word = torch.gather(pb_idx.reshape(B, k * ki), 1, merge_idx)
+        with span("stvd.decode.select"):
+            pb_vals = torch.where(finished[..., None], eos_vals, pb_vals)
+            pb_idx = torch.where(finished[..., None], eos_idx, pb_idx)
+            cand = (scores[..., None] + pb_vals).reshape(B, k * ki)
+            scores, merge_idx = topk_rows(cand, k)        # (B, k)
+            parent = merge_idx // ki
+            word = torch.gather(pb_idx.reshape(B, k * ki), 1, merge_idx)
 
-        par_finished = torch.gather(finished, 1, parent)
-        finished = par_finished | (word == EOS_ID)
-        lengths = torch.gather(lengths, 1, parent) + (~par_finished).long()
+            par_finished = torch.gather(finished, 1, parent)
+            finished = par_finished | (word == EOS_ID)
+            lengths = (torch.gather(lengths, 1, parent)
+                       + (~par_finished).long())
 
-        rows = (row_base + parent).reshape(B * k)
-        h, c = out.h[rows], out.c[rows]
-        buf = buf.reshape(B * k, maxlen)[rows].reshape(B, k, maxlen)
-        buf[:, :, t] = torch.where(par_finished, EOS_ID, word)
-        prev = word
+            rows = (row_base + parent).reshape(B * k)
+            h, c = out.h[rows], out.c[rows]
+            buf = buf.reshape(B * k, maxlen)[rows].reshape(B, k, maxlen)
+            buf[:, :, t] = torch.where(par_finished, EOS_ID, word)
+            prev = word
         # early exit: one host sync per step reads the finished flags;
         # an exported graph runs all maxlen steps (a finished row only
         # extends with EOS at no cost, so its result is the same)
-        if (not torch.compiler.is_exporting()
-                and bool(finished.all())):
-            break
+        if not torch.compiler.is_exporting():
+            with span("stvd.decode.sync"):
+                done = bool(finished.all())
+            if done:
+                break
 
-    lp = _length_penalty(lengths, length_norm, norm_mode)
-    norm = scores / lp
-    best = torch.argmax(norm, dim=1)                    # first max on ties
-    bi = best[:, None]
-    return BeamOut(
-        tokens=torch.gather(buf, 1, bi[..., None].expand(B, 1, maxlen))[:, 0],
-        scores=torch.gather(scores, 1, bi)[:, 0],
-        norm_scores=torch.gather(norm, 1, bi)[:, 0],
-        lengths=torch.gather(lengths, 1, bi)[:, 0],
-        all_tokens=buf,
-        all_scores=scores,
-        all_norm_scores=norm,
-    )
+    with span("stvd.decode.best"):
+        lp = _length_penalty(lengths, length_norm, norm_mode)
+        norm = scores / lp
+        best = torch.argmax(norm, dim=1)                # first max on ties
+        bi = best[:, None]
+        return BeamOut(
+            tokens=torch.gather(buf, 1,
+                                bi[..., None].expand(B, 1, maxlen))[:, 0],
+            scores=torch.gather(scores, 1, bi)[:, 0],
+            norm_scores=torch.gather(norm, 1, bi)[:, 0],
+            lengths=torch.gather(lengths, 1, bi)[:, 0],
+            all_tokens=buf,
+            all_scores=scores,
+            all_norm_scores=norm,
+        )

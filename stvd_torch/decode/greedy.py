@@ -11,6 +11,7 @@ from ..model import step as step_mod
 from ..model.decoder import StepFn, encode_context
 from ..model.step import (StepState, init_state, logit_activation,
                           logits_from_states, precompute)
+from ..utils.profiling import span, spanned
 
 
 class GreedyOut(NamedTuple):
@@ -20,6 +21,7 @@ class GreedyOut(NamedTuple):
     alphas: Optional[torch.Tensor] = None  # (B, maxlen, K) temporal attention
 
 
+@spanned("stvd.decode")
 def greedy_decode(params, cfg, batch: Dict[str, torch.Tensor],
                   maxlen: int = 30, step_fn: Optional[StepFn] = None,
                   return_alphas: bool = False) -> GreedyOut:
@@ -49,36 +51,41 @@ def greedy_decode(params, cfg, batch: Dict[str, torch.Tensor],
                         dtype=torch.float32, device=dev)
             if return_alphas else None)
     for t in range(maxlen):
-        if t == 0:
-            emb_t = torch.zeros((B, cfg.dim_word),
-                                dtype=params["Wemb"].dtype, device=dev)
-        else:
-            emb_t = params["Wemb"][prev]
-        out = step_fn(params, cfg, state, sc, emb_t)
-        if tail is not None:
-            act = logit_activation(params, cfg, out.h, out.ctx_t, emb_t)
-            vals, idx, lse = tail(act)
-            nxt = idx[:, 0]
-            tok_logp = vals[:, 0] - lse
-        else:
-            logits = logits_from_states(params, cfg, out.h, out.ctx_t, emb_t)
-            logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
-            nxt = torch.argmax(logp, dim=-1)           # first max on ties
-            tok_logp = torch.gather(logp, 1, nxt[:, None])[:, 0]
-        alive = ~finished
-        score = score + torch.where(alive, tok_logp, 0.0)
-        length = length + alive.long()
-        emit = torch.where(alive, nxt, EOS_ID)
-        finished = finished | (nxt == EOS_ID)
-        buf[:, t] = emit
-        if abuf is not None:
-            abuf[:, t] = out.alpha.to(torch.float32)
-        state = StepState(out.h, out.c)
-        prev = emit
+        with span("stvd.decode.step"):
+            if t == 0:
+                emb_t = torch.zeros((B, cfg.dim_word),
+                                    dtype=params["Wemb"].dtype, device=dev)
+            else:
+                emb_t = params["Wemb"][prev]
+            out = step_fn(params, cfg, state, sc, emb_t)
+            if tail is not None:
+                act = logit_activation(params, cfg, out.h, out.ctx_t, emb_t)
+                vals, idx, lse = tail(act)
+                nxt = idx[:, 0]
+                tok_logp = vals[:, 0] - lse
+            else:
+                logits = logits_from_states(params, cfg, out.h, out.ctx_t,
+                                            emb_t)
+                logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+                nxt = torch.argmax(logp, dim=-1)       # first max on ties
+                tok_logp = torch.gather(logp, 1, nxt[:, None])[:, 0]
+        with span("stvd.decode.select"):
+            alive = ~finished
+            score = score + torch.where(alive, tok_logp, 0.0)
+            length = length + alive.long()
+            emit = torch.where(alive, nxt, EOS_ID)
+            finished = finished | (nxt == EOS_ID)
+            buf[:, t] = emit
+            if abuf is not None:
+                abuf[:, t] = out.alpha.to(torch.float32)
+            state = StepState(out.h, out.c)
+            prev = emit
         # early exit: one host sync per step reads the finished flags;
         # an exported graph runs all maxlen steps (a finished row only
         # extends with EOS at no cost, so its result is the same)
-        if (not torch.compiler.is_exporting()
-                and bool(finished.all())):
-            break
+        if not torch.compiler.is_exporting():
+            with span("stvd.decode.sync"):
+                done = bool(finished.all())
+            if done:
+                break
     return GreedyOut(tokens=buf, scores=score, lengths=length, alphas=abuf)

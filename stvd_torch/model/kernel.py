@@ -42,6 +42,7 @@ import torch
 from . import step as step_mod
 from . import tp
 from .. import _build
+from ..utils.profiling import spanned
 
 
 def _launch_stream() -> int:
@@ -295,6 +296,7 @@ class AttentionCore(torch.autograd.Function):
         return (*grads, None)
 
 
+@spanned("stvd.kernel.attention_core")
 def attention_core(h_att, beta_logit, pctx, ctx, ctx_mask, u_att, c_att,
                    b_sel, selector: bool
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -427,6 +429,7 @@ def _(x, w, b, k_sel):
             x.new_empty((rows,), dtype=f32))
 
 
+@spanned("stvd.kernel.logit_tail")
 def logit_tail(x, w, b, k_sel: int):
     """Activation (rows, dw) -> (top-k raw logits, their vocab ids,
     logsumexp per row); top-k log-probs are ``vals - lse[:, None]``.
@@ -602,6 +605,7 @@ class SpatialCore(torch.autograd.Function):
                             (g_spat, g_alpha)), None)
 
 
+@spanned("stvd.kernel.spatial_core")
 def spatial_core(h_satt, pregion, regions, u_s, c_s, cdtype
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Drop-in for ``step._spatial_core`` (same contract, beam broadcast
@@ -740,6 +744,7 @@ def _(x, w, b, c, s_r, scale):
     return x.new_empty(shape, dtype=f32), x.new_empty(shape, dtype=f32)
 
 
+@spanned("stvd.kernel.gates_lstm")
 def gates_lstm(x, w, b, c, s_r=None, scale=None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Drop-in for ``step._gates_lstm``: (h_t, c_t) from the row block
@@ -837,6 +842,7 @@ def _train_tail_cuda(ctx_t, x_pre_t, h_gates, c, wc, cdtype, route=None):
     return h_t, c_t, pre
 
 
+@spanned("stvd.kernel.train_tail")
 def train_tail(ctx_t, x_pre_t, h_gates, c, wc, cdtype
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(h_t, c_t, preact) of one train-scan step, the preactivation kept
@@ -953,6 +959,7 @@ def _spatial_bwd_cuda(h_satt, pregion_c, regions_c, alpha_s, alpha_prev,
     return dh, du, dss, spat_prev
 
 
+@spanned("stvd.kernel.spatial_bwd")
 def spatial_bwd(h_satt, pregion_c, regions_c, alpha_s, alpha_prev, dspat,
                 u_s, dpe_acc):
     """The spatial sequence VJP's reverse step (contract of
@@ -1025,6 +1032,7 @@ def _dws_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return out
 
 
+@spanned("stvd.kernel.dws_gemm")
 def dws_gemm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a^T @ b`` with a float32 result: the region projection's weight
     gradient.  CPU tensors take the plain version; CUDA tensors take the

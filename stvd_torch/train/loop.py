@@ -37,7 +37,7 @@ from ..model.kernel import get_step_fn
 from ..model.step import Params, compute_dtype, global_rows
 from ..utils.debug import enable_nan_debug, grad_stats, report_bad_grads
 from ..utils.logging import MetricsLogger
-from ..utils.profiling import StepTimer, start_trace
+from ..utils.profiling import StepTimer, span, spanned, start_trace
 from . import parallel
 from .evaluate import evaluate_split
 from .loss import loss_from_terms, loss_terms
@@ -240,6 +240,7 @@ def init_train_state(seed: int, mcfg, tcfg,
             "generator": torch.Generator(device=device).manual_seed(seed + 1)}
 
 
+@spanned("stvd.train.backward")
 def _grads(obj: torch.Tensor, params: Params) -> Tensors:
     keys = list(params)
     gs = torch.autograd.grad(obj, [params[k] for k in keys],
@@ -324,7 +325,7 @@ def make_train_step(mcfg, tcfg, step_fn=None, mesh=None,
         b = batch["tokens"].shape[0]
         with (contextlib.nullcontext() if mesh is None
               else global_rows(b * n_data, rank * b)), \
-                tp.model_axis(mesh, mcfg):
+                tp.model_axis(mesh, mcfg), span("stvd.train.forward"):
             return loss_terms(params, mcfg, batch, generator=gen,
                               train=True, ss_prob=tcfg.ss_prob,
                               step_fn=step_fn)
@@ -338,14 +339,16 @@ def make_train_step(mcfg, tcfg, step_fn=None, mesh=None,
         obj, t = objective(params, batch, gen)
         grads = _grads(obj, params)
         keys = sorted(grads)
-        summed = parallel.all_reduce_flat(
-            [grads[k] for k in keys] + [t[k] for k in _TERMS], mesh)
+        with span("stvd.train.allreduce"):
+            summed = parallel.all_reduce_flat(
+                [grads[k] for k in keys] + [t[k] for k in _TERMS], mesh)
         den = summed[len(keys) + _TERMS.index("ex_den")].clamp_min(1.0)
         grads = {k: g / den for k, g in zip(keys, summed)}
         loss, aux = loss_from_terms(dict(zip(_TERMS, summed[len(keys):])),
                                     mcfg)
         return grads, loss, aux
 
+    @spanned("stvd.train.step")
     def train_step(state: TrainState, batch):
         params = state["params"]
         for p in params.values():
@@ -374,9 +377,10 @@ def make_train_step(mcfg, tcfg, step_fn=None, mesh=None,
             grads = _grads(loss, params)
         if tcfg.debug_nans:
             _check_finite(loss, grads)
-        gnorm = norm(grads)
-        updates, opt_state = opt.update(grads, state["opt_state"])
-        apply_updates(params, updates)
+        with span("stvd.train.optimizer"):
+            gnorm = norm(grads)
+            updates, opt_state = opt.update(grads, state["opt_state"])
+            apply_updates(params, updates)
         new_state = {"params": params, "opt_state": opt_state,
                      "step": state["step"] + 1, "generator": gen}
         metrics = {"loss": loss.detach(), "nll": aux["nll"].detach(),
@@ -565,9 +569,10 @@ def fit(cfg, train_ds: Dataset, valid_ds: Optional[Dataset] = None,
     default teacher-forced scan takes its kernels from the model config.
 
     Every ``disp_freq`` updates a ``train`` record (loss, grad norm and,
-    once a window of ``max(disp_freq, 10)`` updates has passed, their
-    ``steps_per_sec``), every ``sample_freq`` two greedy
-    ``sample`` records of the training split, and every ``valid_freq``
+    once a window of ``max(disp_freq, 10)`` updates has passed since the
+    record that opened it, their ``steps_per_sec``, timed between the two
+    records' loss reads, so finished updates), every ``sample_freq`` two
+    greedy ``sample`` records of the training split, and every ``valid_freq``
     a ``valid`` record (NLL and every caption metric) and, with
     ``test_ds``, a ``test`` record; the model is selected on valid only.
     Records go through ``logger`` (a ``utils.logging.MetricsLogger``,
@@ -728,11 +733,13 @@ def fit(cfg, train_ds: Dataset, valid_ds: Optional[Dataset] = None,
                                    "dir": tcfg.profile_dir,
                                    "first_update": tcfg.profile_start + 1,
                                    "steps": tcfg.profile_steps})
-                rate = timer.tick()
                 if update % tcfg.disp_freq == 0:
                     rec = {"kind": "train", "epoch": epoch,
                            "update": update, "loss": float(m["loss"]),
                            "grad_norm": float(m["grad_norm"])}
+                    # the loss read waited for the card: a rate of
+                    # finished updates
+                    rate = timer.tick(update)
                     if rate:
                         rec["steps_per_sec"] = round(rate, 2)
                     log.append(_emit(logger, rec))
