@@ -806,11 +806,40 @@ def streams(feats, model_cfg, seed):
             motion_for(feats, model_cfg, seed + 7))
 
 
+def count_replays() -> None:
+    """Credit the decode steps that a ``Captioner``'s CUDA graphs replay
+    to the counter of the ``counted_step`` they were captured from (a
+    replay calls no step function): ``beam._replay`` is wrapped once (a
+    tree without graphs has none)."""
+    from stvd_torch.decode import beam
+    real = getattr(beam, "_replay", None)
+    if real is None or getattr(real, "counts_replays", False):
+        return
+
+    def replay(graphs, chain, *args):
+        before = graphs.replayed
+        out = real(graphs, chain, *args)
+        counter = getattr(graphs.step_fn, "counter", None)
+        if counter is not None:
+            counter[0] += graphs.replayed - before
+        return out
+
+    replay.counts_replays = True
+    beam._replay = replay
+
+
 def counted_step(inner, counter):
+    """``inner`` counting its decode steps in ``counter[0]``: its calls,
+    but not those made while a CUDA graph is captured (they launch
+    nothing), and the steps that graphs captured from it replay."""
+    count_replays()
+
     def step_fn(*args):
-        counter[0] += 1
+        if not torch.cuda.is_current_stream_capturing():
+            counter[0] += 1
         return inner(*args)
     step_fn.make_logit_tail = inner.make_logit_tail
+    step_fn.counter = counter
     return step_fn
 
 

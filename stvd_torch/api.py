@@ -18,7 +18,11 @@ and id-addressed requests against a feature bank resident on the device
 ``cli.convert`` or of the port's ``cli.train`` (``from_run_dir``) and
 swaps in new weights of the same shapes between requests
 (``swap_params``).  The weights are an input of every decode call, so a
-swap is the assignment of a new dict.  A bank too large for one device
+swap is the assignment of a new dict.  On a CUDA device its beam decodes
+(``caption``, ``caption_batch``, ``caption_ids`` and the n-best calls)
+run as CUDA graphs captured at the first chunk of each shape and
+replayed for every later one (``decode/graphs.py``); a swap drops them,
+and the next chunk captures them anew.  A bank too large for one device
 is sharded over the data axis of a mesh of ranks
 (``attach_bank(bank, mesh=mesh)``, ``train.parallel``; a 1-D
 ``('data',)`` mesh, or a sharded artifact's 2-D ``('data', 'model')``
@@ -29,8 +33,10 @@ every rank gets every caption.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
+import threading
 from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -39,6 +45,7 @@ import torch
 from .config import Config, preset, validate
 from .data.bank import pack_bank, to_device, to_device_sharded
 from .data.text import Vocab
+from .decode import graphs as decode_graphs
 from .decode.beam import beam_decode
 from .decode.greedy import greedy_decode
 from .decode.sample import sample_decode
@@ -305,6 +312,8 @@ class Captioner(BankResident):
         self.cfg = cfg
         self.vocab = vocab
         self.step_fn = step_fn or get_step_fn(None, self.device)
+        self._graphs: Optional[decode_graphs.DecodeGraphs] = None
+        self._graphs_lock = threading.Lock()
 
     def _on_device(self, params) -> Dict[str, torch.Tensor]:
         return {k: (v if isinstance(v, torch.Tensor)
@@ -350,6 +359,34 @@ class Captioner(BankResident):
         params = dict(params)
         _check_swap_compatible(self.params, params)
         self.params = self._on_device(params)
+        with self._graphs_lock:
+            self._graphs = None
+
+    @property
+    def decode_graphs(self) -> Optional[decode_graphs.DecodeGraphs]:
+        """The CUDA graphs of the current weights' beam decodes, once a
+        decode has made them."""
+        return self._graphs
+
+    def _graphs_for(self, params):
+        """A context giving the graph set of ``params`` for this
+        thread's beam decode, or None: on the CPU, for greedy decoding,
+        under an export, a compile or a model axis, for weights a swap
+        has replaced (a request begun before it finishes eagerly on
+        them), and while another thread decodes with the set.  The set
+        is made on first use and made anew for new weights or a new
+        ``step_fn``."""
+        if (self.device.type != "cuda" or self.cfg.decode.beam_size <= 1
+                or not decode_graphs.available()):
+            return contextlib.nullcontext()
+        with self._graphs_lock:
+            gs = self._graphs
+            if gs is None or not gs.serves(params, self.step_fn):
+                if params is not self.params:
+                    return contextlib.nullcontext()
+                gs = self._graphs = decode_graphs.DecodeGraphs(
+                    params, self.step_fn)
+        return gs.claim()
 
     def _run(self, params, batch: Dict[str, torch.Tensor]
              ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -365,18 +402,25 @@ class Captioner(BankResident):
                 out = greedy_decode(params, cfg.model, batch,
                                     maxlen=d.maxlen, step_fn=self.step_fn)
                 return out.tokens, out.scores
-            out = beam_decode(params, cfg.model, batch,
-                              beam_size=d.beam_size, maxlen=d.maxlen,
-                              length_norm=d.length_norm,
-                              step_fn=self.step_fn)
+            with self._graphs_for(params) as graphs:
+                out = beam_decode(params, cfg.model, batch,
+                                  beam_size=d.beam_size, maxlen=d.maxlen,
+                                  length_norm=d.length_norm,
+                                  step_fn=self.step_fn, graphs=graphs)
             return out.tokens, out.norm_scores
 
     def _run_ids(self, params, bank: Dict[str, torch.Tensor],
                  rows: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        if self._bank_mesh is None:
+        """The decode of ``rows`` of the resident bank; with a graph set
+        the rows are gathered straight into its static inputs, which
+        the set stays claimed for until the decode is done."""
+        if self._bank_mesh is not None:
+            return self._on_shards(self._run, params, bank, rows)
+        with self._graphs_for(params) as graphs:
+            if graphs is not None:
+                return self._run(params, graphs.gather(bank, rows))
             return self._run(params, {k: v.index_select(0, rows)
                                       for k, v in bank.items()})
-        return self._on_shards(self._run, params, bank, rows)
 
     def _on_shards(self, run: Callable, params,
                    bank: Dict[str, torch.Tensor], rows: torch.Tensor):
@@ -425,12 +469,12 @@ class Captioner(BankResident):
                       norm: bool) -> Tuple[torch.Tensor, torch.Tensor]:
         """Every hypothesis's tokens (B, beam, maxlen) and its score."""
         cfg = self.cfg
-        with torch.inference_mode():
+        with torch.inference_mode(), self._graphs_for(params) as graphs:
             out = beam_decode(params, cfg.model, batch,
                               beam_size=cfg.decode.beam_size,
                               maxlen=cfg.decode.maxlen,
                               length_norm=cfg.decode.length_norm,
-                              step_fn=self.step_fn)
+                              step_fn=self.step_fn, graphs=graphs)
         return out.all_tokens, (out.all_norm_scores if norm
                                 else out.all_scores)
 

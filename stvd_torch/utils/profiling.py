@@ -20,10 +20,15 @@ shared no-op context, at the cost of one flag read.  The spans are named
     stvd.request.copy       a chunk's tokens to the host
     stvd.request.detok      a chunk's ids to strings
     stvd.decode             one beam or greedy decode of a chunk
-    stvd.decode.step        the decoder step and the logit tail
+    stvd.decode.step        the decoder step and the logit tail, or the
+                            replay of a step's CUDA graph
+    stvd.decode.replay      one replay of a step's CUDA graph (the step,
+                            the tail and the select) inside its step
     stvd.decode.select      the beam merge, reorder and token write
     stvd.decode.sync        the early-exit read of the finished flags
     stvd.decode.best        the beam decode's length penalty and best beam
+    stvd.decode.capture     the warm-up and capture of a chunk shape's
+                            CUDA graphs
     stvd.kernel.<wrapper>   a kernel wrapper of model/kernel.py
     stvd.train.feed         gather_batch
     stvd.train.step         one train_step
