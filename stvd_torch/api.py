@@ -56,7 +56,7 @@ from .train import parallel
 from .utils.profiling import span, spanned
 
 # the config and vocabulary a caller needs
-__all__ = ["BankResident", "Captioner", "Config", "Vocab",
+__all__ = ["BankResident", "BeamCaptioner", "Captioner", "Config", "Vocab",
            "chunked_caption", "chunked_caption_ids", "pack_request",
            "preset"]
 
@@ -291,7 +291,131 @@ class BankResident:
         return self.caption_nbest(batch, n=n, norm=norm)
 
 
-class Captioner(BankResident):
+class BeamCaptioner(BankResident):
+    """Mixin: the serving side every beam-decoded model shares: the CUDA
+    graphs of its decodes, id requests over the resident bank, prepared
+    batches and n-best lists.  A model's captioner sets ``device``,
+    ``cfg``, ``vocab``, ``params``, ``step_fn`` (what its graph set
+    serves), ``_graphs`` (None) and ``_graphs_lock``, and gives
+    ``_run(params, batch) -> (tokens, scores)`` and ``_nbest_decode(
+    params, batch, norm)``."""
+
+    @property
+    def decode_graphs(self) -> Optional[decode_graphs.DecodeGraphs]:
+        """The CUDA graphs of the current weights' beam decodes, once a
+        decode has made them."""
+        return self._graphs
+
+    def _graphs_for(self, params):
+        """A context giving the graph set of ``params`` for this
+        thread's beam decode, or None: on the CPU, for greedy decoding,
+        under an export, a compile or a model axis, for weights a swap
+        has replaced (a request begun before it finishes eagerly on
+        them), and while another thread decodes with the set.  The set
+        is made on first use and made anew for new weights or a new
+        ``step_fn``."""
+        if (self.device.type != "cuda" or self.cfg.decode.beam_size <= 1
+                or not decode_graphs.available()):
+            return contextlib.nullcontext()
+        with self._graphs_lock:
+            gs = self._graphs
+            if gs is None or not gs.serves(params, self.step_fn):
+                if params is not self.params:
+                    return contextlib.nullcontext()
+                gs = self._graphs = self._new_graphs(params)
+        return gs.claim()
+
+    def _new_graphs(self, params) -> decode_graphs.DecodeGraphs:
+        return decode_graphs.DecodeGraphs(params, self.step_fn)
+
+    def _run_ids(self, params, bank: Dict[str, torch.Tensor],
+                 rows: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The decode of ``rows`` of the resident bank; with a graph set
+        the rows are gathered straight into its static inputs, which
+        the set stays claimed for until the decode is done."""
+        if self._bank_mesh is not None:
+            return self._on_shards(self._run, params, bank, rows)
+        with self._graphs_for(params) as graphs:
+            if graphs is not None:
+                return self._run(params, graphs.gather(bank, rows))
+            return self._run(params, {k: v.index_select(0, rows)
+                                      for k, v in bank.items()})
+
+    def _on_shards(self, run: Callable, params,
+                   bank: Dict[str, torch.Tensor], rows: torch.Tensor):
+        """``run(params, batch)`` over ``rows`` of the sharded bank: the
+        chunk is gathered (``_bank_local_gather``); one that divides the
+        data axis is decoded a slice a rank and its outputs gathered, any
+        other whole on every rank."""
+        mesh = self._bank_mesh
+        scatter = rows.shape[0] % parallel.axis_size(mesh) == 0
+        with torch.inference_mode():
+            out = run(params, _bank_local_gather(bank, rows, mesh, scatter))
+            if scatter:
+                out = tuple(parallel.all_gather_rows(t, mesh) for t in out)
+        return out
+
+    @spanned("stvd.request")
+    def caption_batch(self, batch: Dict[str, torch.Tensor]) -> List[str]:
+        """Caption a prepared device batch in ``decode_batch`` chunks."""
+        return chunked_caption(self._run, self.params, batch,
+                               self.cfg.decode.decode_batch, self.vocab)
+
+    def _caption_rows(self, rows: np.ndarray) -> List[str]:
+        return chunked_caption_ids(self._run_ids, self.params,
+                                   self._resident(), rows,
+                                   self.cfg.decode.decode_batch, self.vocab)
+
+    def caption_nbest(self, batch: Dict[str, torch.Tensor],
+                      n: Optional[int] = None, norm: bool = True
+                      ) -> List[List[tuple]]:
+        """Every beam hypothesis per video, ``[(text, logprob), ...]``
+        best first, decoded in ``decode_batch`` chunks like ``caption``.
+        ``norm=True`` ranks by the length-normalized score, the one
+        best-beam selection uses, so entry 0 is ``caption()``'s caption;
+        ``norm=False`` ranks by the raw log-prob.  The score given is the
+        one ranked by."""
+        if self.cfg.decode.beam_size <= 1:
+            raise ValueError("n-best export requires beam_size > 1")
+        params = self.params
+        res: List[List[tuple]] = []
+        for count, chunk in padded_chunks(batch, self.cfg.decode.decode_batch):
+            toks, scores = self._nbest_decode(params, chunk, norm)
+            res += self._nbest_lists(toks[:count], scores[:count], n)
+        return res
+
+    def _nbest_lists(self, toks: torch.Tensor, scores: torch.Tensor,
+                     n: Optional[int]) -> List[List[tuple]]:
+        toks, scores = toks.cpu().numpy(), scores.cpu().numpy()
+        k = n or toks.shape[1]
+        res = []
+        for b in range(toks.shape[0]):
+            order = np.argsort(-scores[b])[:k]
+            res.append([(" ".join(self.vocab.decode(toks[b, j])),
+                         float(scores[b, j])) for j in order])
+        return res
+
+    def _nbest_rows(self, rows: np.ndarray, n: Optional[int] = None,
+                    norm: bool = True) -> List[List[tuple]]:
+        """``nbest_ids`` over a sharded bank, in ``decode_batch`` chunks
+        of bank rows (short chunks repeat row 0), each run ``_on_shards``:
+        feature bytes never leave the device."""
+        if self.cfg.decode.beam_size <= 1:
+            raise ValueError("n-best export requires beam_size > 1")
+        bank = self._resident()
+        bsz = self.cfg.decode.decode_batch
+        res: List[List[tuple]] = []
+        for s in range(0, int(rows.shape[0]), bsz):
+            part = rows[s:s + bsz]
+            chunk = np.zeros(bsz, np.int64)
+            chunk[:len(part)] = part
+            toks, scores = self._on_shards(
+                lambda p, b: self._nbest_decode(p, b, norm), self.params,
+                bank, torch.from_numpy(chunk).to(self.device))
+            res += self._nbest_lists(toks[:len(part)], scores[:len(part)], n)
+        return res
+
+class Captioner(BeamCaptioner):
     """Caption pre-extracted video features with a model on ``device``.
 
     ``params`` is a dict of numpy arrays or tensors keyed by the JAX
@@ -362,32 +486,6 @@ class Captioner(BankResident):
         with self._graphs_lock:
             self._graphs = None
 
-    @property
-    def decode_graphs(self) -> Optional[decode_graphs.DecodeGraphs]:
-        """The CUDA graphs of the current weights' beam decodes, once a
-        decode has made them."""
-        return self._graphs
-
-    def _graphs_for(self, params):
-        """A context giving the graph set of ``params`` for this
-        thread's beam decode, or None: on the CPU, for greedy decoding,
-        under an export, a compile or a model axis, for weights a swap
-        has replaced (a request begun before it finishes eagerly on
-        them), and while another thread decodes with the set.  The set
-        is made on first use and made anew for new weights or a new
-        ``step_fn``."""
-        if (self.device.type != "cuda" or self.cfg.decode.beam_size <= 1
-                or not decode_graphs.available()):
-            return contextlib.nullcontext()
-        with self._graphs_lock:
-            gs = self._graphs
-            if gs is None or not gs.serves(params, self.step_fn):
-                if params is not self.params:
-                    return contextlib.nullcontext()
-                gs = self._graphs = decode_graphs.DecodeGraphs(
-                    params, self.step_fn)
-        return gs.claim()
-
     def _run(self, params, batch: Dict[str, torch.Tensor]
              ) -> Tuple[torch.Tensor, torch.Tensor]:
         """(params, batch) -> (tokens, scores): the best beam and its
@@ -409,62 +507,6 @@ class Captioner(BankResident):
                                   step_fn=self.step_fn, graphs=graphs)
             return out.tokens, out.norm_scores
 
-    def _run_ids(self, params, bank: Dict[str, torch.Tensor],
-                 rows: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        """The decode of ``rows`` of the resident bank; with a graph set
-        the rows are gathered straight into its static inputs, which
-        the set stays claimed for until the decode is done."""
-        if self._bank_mesh is not None:
-            return self._on_shards(self._run, params, bank, rows)
-        with self._graphs_for(params) as graphs:
-            if graphs is not None:
-                return self._run(params, graphs.gather(bank, rows))
-            return self._run(params, {k: v.index_select(0, rows)
-                                      for k, v in bank.items()})
-
-    def _on_shards(self, run: Callable, params,
-                   bank: Dict[str, torch.Tensor], rows: torch.Tensor):
-        """``run(params, batch)`` over ``rows`` of the sharded bank: the
-        chunk is gathered (``_bank_local_gather``); one that divides the
-        data axis is decoded a slice a rank and its outputs gathered, any
-        other whole on every rank."""
-        mesh = self._bank_mesh
-        scatter = rows.shape[0] % parallel.axis_size(mesh) == 0
-        with torch.inference_mode():
-            out = run(params, _bank_local_gather(bank, rows, mesh, scatter))
-            if scatter:
-                out = tuple(parallel.all_gather_rows(t, mesh) for t in out)
-        return out
-
-    @spanned("stvd.request")
-    def caption_batch(self, batch: Dict[str, torch.Tensor]) -> List[str]:
-        """Caption a prepared device batch in ``decode_batch`` chunks."""
-        return chunked_caption(self._run, self.params, batch,
-                               self.cfg.decode.decode_batch, self.vocab)
-
-    def _caption_rows(self, rows: np.ndarray) -> List[str]:
-        return chunked_caption_ids(self._run_ids, self.params,
-                                   self._resident(), rows,
-                                   self.cfg.decode.decode_batch, self.vocab)
-
-    def caption_nbest(self, batch: Dict[str, torch.Tensor],
-                      n: Optional[int] = None, norm: bool = True
-                      ) -> List[List[tuple]]:
-        """Every beam hypothesis per video, ``[(text, logprob), ...]``
-        best first, decoded in ``decode_batch`` chunks like ``caption``.
-        ``norm=True`` ranks by the length-normalized score, the one
-        best-beam selection uses, so entry 0 is ``caption()``'s caption;
-        ``norm=False`` ranks by the raw log-prob.  The score given is the
-        one ranked by."""
-        if self.cfg.decode.beam_size <= 1:
-            raise ValueError("n-best export requires beam_size > 1")
-        params = self.params
-        res: List[List[tuple]] = []
-        for count, chunk in padded_chunks(batch, self.cfg.decode.decode_batch):
-            toks, scores = self._nbest_decode(params, chunk, norm)
-            res += self._nbest_lists(toks[:count], scores[:count], n)
-        return res
-
     def _nbest_decode(self, params, batch: Dict[str, torch.Tensor],
                       norm: bool) -> Tuple[torch.Tensor, torch.Tensor]:
         """Every hypothesis's tokens (B, beam, maxlen) and its score."""
@@ -477,37 +519,6 @@ class Captioner(BankResident):
                               step_fn=self.step_fn, graphs=graphs)
         return out.all_tokens, (out.all_norm_scores if norm
                                 else out.all_scores)
-
-    def _nbest_lists(self, toks: torch.Tensor, scores: torch.Tensor,
-                     n: Optional[int]) -> List[List[tuple]]:
-        toks, scores = toks.cpu().numpy(), scores.cpu().numpy()
-        k = n or toks.shape[1]
-        res = []
-        for b in range(toks.shape[0]):
-            order = np.argsort(-scores[b])[:k]
-            res.append([(" ".join(self.vocab.decode(toks[b, j])),
-                         float(scores[b, j])) for j in order])
-        return res
-
-    def _nbest_rows(self, rows: np.ndarray, n: Optional[int] = None,
-                    norm: bool = True) -> List[List[tuple]]:
-        """``nbest_ids`` over a sharded bank, in ``decode_batch`` chunks
-        of bank rows (short chunks repeat row 0), each run ``_on_shards``:
-        feature bytes never leave the device."""
-        if self.cfg.decode.beam_size <= 1:
-            raise ValueError("n-best export requires beam_size > 1")
-        bank = self._resident()
-        bsz = self.cfg.decode.decode_batch
-        res: List[List[tuple]] = []
-        for s in range(0, int(rows.shape[0]), bsz):
-            part = rows[s:s + bsz]
-            chunk = np.zeros(bsz, np.int64)
-            chunk[:len(part)] = part
-            toks, scores = self._on_shards(
-                lambda p, b: self._nbest_decode(p, b, norm), self.params,
-                bank, torch.from_numpy(chunk).to(self.device))
-            res += self._nbest_lists(toks[:len(part)], scores[:len(part)], n)
-        return res
 
     def caption_sample(self, batch: Dict[str, torch.Tensor],
                        generator: Optional[torch.Generator] = None,

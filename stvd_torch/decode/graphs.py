@@ -35,7 +35,7 @@ import torch
 from ..model import kernel, tp
 from ..utils.profiling import span
 
-# the wrappers a decode step can launch, whose counts a replay keeps
+# the wrappers an LSTM decode step can launch, whose counts a replay keeps
 _WRAPPERS = (kernel.attention_core, kernel.logit_tail, kernel.spatial_core,
              kernel.gates_lstm)
 
@@ -52,8 +52,8 @@ def available() -> bool:
                 or tp.current() is not None)
 
 
-def _counts() -> List[Tuple[int, Dict[str, int]]]:
-    return [(fn.launches, dict(fn.launches_by_route)) for fn in _WRAPPERS]
+def _counts(wrappers) -> List[Tuple[int, Dict[str, int]]]:
+    return [(fn.launches, dict(fn.launches_by_route)) for fn in wrappers]
 
 
 class _Graph:
@@ -76,11 +76,15 @@ class _Graph:
 class DecodeGraphs:
     """The CUDA graphs of the decodes of weights ``params`` through
     ``step_fn``, on the current CUDA device; ``replayed`` counts the
-    decode steps run by a replay."""
+    decode steps run by a replay.  ``wrappers`` are the kernel wrappers
+    the decode can launch (by default the LSTM step's), whose launch
+    counts a replay adds."""
 
-    def __init__(self, params: Dict[str, torch.Tensor], step_fn: Callable):
+    def __init__(self, params: Dict[str, torch.Tensor], step_fn: Callable,
+                 wrappers: Tuple[Callable, ...] = _WRAPPERS):
         self.params = params
         self.step_fn = step_fn
+        self.wrappers = wrappers
         self.replayed = 0
         # chain key -> the captured chain, or None: its capture raised
         self.chains: Dict[tuple, object] = {}
@@ -196,7 +200,7 @@ class DecodeGraphs:
         the graph and ``fn``'s outputs (tensors of the pool, which each
         replay writes anew)."""
         graph = torch.cuda.CUDAGraph()
-        before = _counts()
+        before = _counts(self.wrappers)
         try:
             with torch.cuda.stream(self._stream), torch.inference_mode():
                 graph.capture_begin(pool=self._pool,
@@ -209,13 +213,13 @@ class DecodeGraphs:
                     raise
                 graph.capture_end()
         finally:
-            after = _counts()
-            for fn_, (n, routes) in zip(_WRAPPERS, before):
+            after = _counts(self.wrappers)
+            for fn_, (n, routes) in zip(self.wrappers, before):
                 fn_.launches = n
                 fn_.launches_by_route.update(routes)
         launches = [(fn_, route, got - routes[route])
                     for fn_, (_, routes), (_, got_routes) in zip(
-                        _WRAPPERS, before, after)
+                        self.wrappers, before, after)
                     for route, got in got_routes.items()
                     if got != routes[route]]
         return _Graph(graph, launches), out

@@ -27,9 +27,12 @@ shared no-op context, at the cost of one flag read.  The spans are named
     stvd.decode.select      the beam merge, reorder and token write
     stvd.decode.sync        the early-exit read of the finished flags
     stvd.decode.best        the beam decode's length penalty and best beam
+    stvd.decode.prefill     a transformer decode's prologue (its prompt's
+                            prefill), eager or replayed
     stvd.decode.capture     the warm-up and capture of a chunk shape's
                             CUDA graphs
-    stvd.kernel.<wrapper>   a kernel wrapper of model/kernel.py
+    stvd.kernel.<wrapper>   a kernel wrapper of model/kernel.py, and
+                            model/moe.py's expert_mm
     stvd.train.feed         gather_batch
     stvd.train.step         one train_step
     stvd.train.forward      the loss terms
