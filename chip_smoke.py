@@ -688,7 +688,9 @@ def phase_gates(kernel, step_mod, dev, g, cfg, phase="kernel_gates_lstm"
     multiplies with torch._int_mm), each case with its route (bf16 and
     int8 must take wgmma).  Timed beside the plain version: the wmma route
     at the same shapes; in bf16 ``torch.lstm_cell`` (library_ms: the same
-    function in one call, checked against the plain version); in int8,
+    function in one call, checked against the plain version), the product
+    alone over Kx (product_ms) and over the depth the decode step pads it
+    to (padded_product_ms; padded_plain_ms the plain version so); in int8,
     where no one call computes it, ``torch._int_mm`` of the product alone
     (product_ms)."""
     m = cfg.model
@@ -736,7 +738,24 @@ def phase_gates(kernel, step_mod, dev, g, cfg, phase="kernel_gates_lstm"
                 t["product_ms"] = time_ms(
                     lambda: torch.mm(ops[0], ops[1], out_dtype=torch.float32),
                     20)
-                del lc, lib_out
+                # the same product over the depth padded to 128 bytes,
+                # zero columns of x and rows of the K-major stack, as the
+                # decode step takes it (a ragged Kx leaves cuBLAS on sm80)
+                kp = -(-kx // 64) * 64
+                xw = torch.nn.functional.pad(ops[0], (0, kp - kx))
+                ww = torch.nn.functional.pad(ops[1].t(), (0, kp - kx)).t()
+                t["padded_depth"] = kp
+                t["padded_product_ms"] = time_ms(
+                    lambda: torch.mm(xw, ww, out_dtype=torch.float32), 20)
+                if hasattr(step_mod, "padded_buffer"):  # not a parent's
+                    wide = lambda: step_mod._gates_lstm(   # noqa: E731
+                        *ops, padded_ops=(xw, ww))
+                    t["padded_plain_err"] = max_err(wide(), ref)
+                    require(t["padded_plain_err"] <= KERNEL_TOL,
+                            "plain gates over the padded depth: "
+                            f"{t['padded_plain_err']}")
+                    t["padded_plain_ms"] = time_ms(wide, 20)
+                del lc, lib_out, xw, ww
             else:
                 t["library_ms"] = None
                 t["product_ms"] = time_ms(
@@ -1242,13 +1261,12 @@ def simple_attention_step(kernel, step_mod):
     """The kernel step with the attention core on route 'simple' (the
     first design), for a witness on the same weights and videos."""
     def step_fn(params, cfg, state, sc, emb_t):
-        gates = (kernel.gates_lstm if cfg.gates_kernel != "off"
-                 else step_mod._gates_lstm)
         return step_mod.step_with_core(
             params, cfg, state, sc, emb_t,
             attention_core=lambda *a: kernel._attention_core_cuda(
                 *a, route="simple"),
-            spatial_core=kernel.spatial_core, gates_core=gates)
+            spatial_core=kernel.spatial_core,
+            gates_core=kernel._gates_core(cfg))
     step_fn.make_logit_tail = kernel.make_logit_tail
     return step_fn
 

@@ -1111,14 +1111,15 @@ def _gates_core(cfg):
     if cfg.gates_kernel == "off":
         return step_mod._gates_lstm
 
-    def gates(x, w, b, c, s_r=None, scale=None):
+    def gates(x, w, b, c, s_r=None, scale=None, padded_ops=None):
         if _needs_grad(x, w, b, c):
             if cfg.gates_kernel == "on" or x.is_cuda:
                 raise ValueError(
                     f"gates_kernel={cfg.gates_kernel!r}: the gates+LSTM "
                     "kernel has no backward; train with "
                     "gates_kernel='off'")
-            return step_mod._gates_lstm(x, w, b, c, s_r, scale)
+            return step_mod._gates_lstm(x, w, b, c, s_r, scale, padded_ops)
+        # the kernel's tensor maps take the logical depth
         return gates_lstm(x, w, b, c, s_r, scale)
 
     return gates

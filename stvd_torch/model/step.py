@@ -77,6 +77,7 @@ class StepContext(NamedTuple):
     gates_w_q: Optional[torch.Tensor] = None  # int8 gates stack (decode_quant), K-major
     gates_scale: Optional[torch.Tensor] = None  # (4 dim,) f32 per-column scale
     h_proj_w: Optional[torch.Tensor] = None  # train: (dim, 4 dim + attn + 1 [+ s]) = [U | h_att_w]
+    gates_w_pad: Optional[torch.Tensor] = None  # gates_w over Kx', zero past Kx
 
 
 class StepOut(NamedTuple):
@@ -171,22 +172,28 @@ def _h_projection_weights(params: Params, cfg) -> torch.Tensor:
     return torch.cat([params["U"], _h_att_weights(params, cfg)], dim=1)
 
 
-def padded(rows: int, cols: int, dtype: torch.dtype, device
-           ) -> torch.Tensor:
-    """A (rows, cols) view of a new (rows, cols') buffer, cols' = cols
-    rounded up to a whole 128 bytes of ``dtype``, whose columns past
-    ``cols`` are zero: rows a TMA map can step over (its row stride must
-    be a multiple of 16 bytes) and whose starts stay on the 128-byte
-    lines the maps' boxes read (a stride of 16 bytes but not 128 splits
-    each box row across two lines, which made kernel 3 markedly slower
-    on an H100).  A kernel's tensor map keeps the logical width, so no
-    kernel reads the padding; it is zero for any other reader."""
+def padded_buffer(rows: int, cols: int, dtype: torch.dtype, device
+                  ) -> torch.Tensor:
+    """A new (rows, cols') buffer, cols' = cols rounded up to a whole 128
+    bytes of ``dtype``, whose columns past ``cols`` are zero."""
     per = 128 // dtype.itemsize
     wide = -(-cols // per) * per
     buf = torch.empty((rows, wide), dtype=dtype, device=device)
     if wide > cols:
         buf.narrow(1, cols, wide - cols).zero_()
-    return buf.narrow(1, 0, cols)
+    return buf
+
+
+def padded(rows: int, cols: int, dtype: torch.dtype, device
+           ) -> torch.Tensor:
+    """The (rows, cols) view of a new ``padded_buffer``: rows a TMA map
+    can step over (its row stride must be a multiple of 16 bytes) and
+    whose starts stay on the 128-byte lines the maps' boxes read (a
+    stride of 16 bytes but not 128 splits each box row across two lines,
+    which made kernel 3 markedly slower on an H100).  A kernel's tensor
+    map keeps the logical width, so no kernel reads the padding; it is
+    zero for any other reader."""
+    return padded_buffer(rows, cols, dtype, device).narrow(1, 0, cols)
 
 
 def pad_cols(t: torch.Tensor) -> torch.Tensor:
@@ -200,30 +207,40 @@ def pad_cols(t: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def kmajor(blocks, dtype: torch.dtype) -> torch.Tensor:
-    """The (K, N) stack of the row blocks ``blocks`` (each (k_i, N)) in
-    ``dtype``, as the (K, N) view of its K-major (N, K) transpose with
-    rows padded to 128 bytes (``padded``): one copy, cast included.  The
-    gates kernel's wgmma route reads the transpose (a gate's block starts
-    at a row, so any dim is served; a ragged K in padded rows); a plain
-    product takes the view as it is."""
+def kmajor_padded(blocks, dtype: torch.dtype) -> torch.Tensor:
+    """The (K', N) stack of the row blocks ``blocks`` (each (k_i, N)) in
+    ``dtype``, K' = K rounded up to a whole 128 bytes, its rows past K
+    zero: the view of a K-major (N, K') ``padded_buffer``, one copy, cast
+    included.  ``kmajor`` is its first K rows."""
     k = sum(b.shape[0] for b in blocks)
-    out = padded(blocks[0].shape[1], k, dtype, blocks[0].device)
+    buf = padded_buffer(blocks[0].shape[1], k, dtype, blocks[0].device)
     o = 0
     for b in blocks:
-        out.narrow(1, o, b.shape[0]).copy_(b.t())
+        buf.narrow(1, o, b.shape[0]).copy_(b.t())
         o += b.shape[0]
-    return out.t()
+    return buf.t()
+
+
+def kmajor(blocks, dtype: torch.dtype) -> torch.Tensor:
+    """The (K, N) stack of the row blocks ``blocks`` in ``dtype``, as the
+    (K, N) view of its K-major (N, K) transpose with rows padded to 128
+    bytes (``kmajor_padded``).  The gates kernel's wgmma route reads the
+    transpose (a gate's block starts at a row, so any dim is served; a
+    ragged K in padded rows); a plain product takes the view as it is."""
+    k = sum(b.shape[0] for b in blocks)
+    return kmajor_padded(blocks, dtype).narrow(0, 0, k)
 
 
 def _gates_weights(params: Params,
                    dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """[W; U; Wc] stacked (Kx, 4 dim) in ``dtype`` (default W's): decode
-    computes the LSTM preactivation as one matmul over [emb_t | h_{t-1} |
-    ctx_t].  Stored K-major with padded rows (``kmajor``), the layout the
-    gates kernel reads; the copy is the one a concatenation makes."""
+    """[W; U; Wc] stacked (Kx', 4 dim) in ``dtype`` (default W's) over
+    the padded depth Kx' (``kmajor_padded``; its first Kx rows are the
+    stack): decode computes the LSTM preactivation as one matmul over
+    [emb_t | h_{t-1} | ctx_t].  Stored K-major with padded rows, the
+    layout the gates kernel reads; the copy is the one a concatenation
+    makes."""
     blocks = [params["W"], params["U"], params["Wc"]]
-    return kmajor(blocks, dtype or blocks[0].dtype)
+    return kmajor_padded(blocks, dtype or blocks[0].dtype)
 
 
 def quantize_weights(w: torch.Tensor, reduce_max=None
@@ -296,7 +313,8 @@ def precompute(params: Params, cfg, ctx: torch.Tensor,
         w_sf_att = _dot(params["W_spat_fuse"],
                         tp.whole_rows(params["Wc_att"], ctx.shape[-1]),
                         cdtype)
-    gates_w = gates_w_q = gates_scale = h_proj_w = None
+    gates_w = gates_w_pad = gates_w_q = gates_scale = h_proj_w = None
+    kx = sum(params[n].shape[0] for n in ("W", "U", "Wc"))
     if train:
         h_proj_w = _h_projection_weights(params, cfg)
     elif tp.current() is not None:
@@ -306,10 +324,11 @@ def precompute(params: Params, cfg, ctx: torch.Tensor,
         if cfg.decode_quant == "int8":
             axis = tp.current()
             gates_w_q, gates_scale = quantize_weights(
-                _gates_weights(params),
+                _gates_weights(params).narrow(0, 0, kx),
                 lambda m: tp.all_reduce(m.contiguous(), axis, "max"))
     else:
-        gates_w = _gates_weights(params, cdtype)
+        gates_w_pad = _gates_weights(params, cdtype)
+        gates_w = gates_w_pad.narrow(0, 0, kx)
         if cfg.decode_quant == "int8":
             gates_w_q, gates_scale = quantize_weights(gates_w)
     return StepContext(ctx=ctx, pctx=pctx, ctx_mask=ctx_mask,
@@ -317,7 +336,8 @@ def precompute(params: Params, cfg, ctx: torch.Tensor,
                        h_att_w=_h_att_weights(params, cfg),
                        gates_w=gates_w, regions=regions, pregion=pregion,
                        w_sf_att=w_sf_att, gates_w_q=gates_w_q,
-                       gates_scale=gates_scale, h_proj_w=h_proj_w)
+                       gates_scale=gates_scale, h_proj_w=h_proj_w,
+                       gates_w_pad=gates_w_pad)
 
 
 def init_state(params: Params, cfg, sc: StepContext) -> StepState:
@@ -414,7 +434,7 @@ def lstm_update(preact: torch.Tensor, c: torch.Tensor
     return o * torch.tanh(c_t), c_t
 
 
-def _gates_lstm(x, w, b, c, s_r=None, scale=None
+def _gates_lstm(x, w, b, c, s_r=None, scale=None, padded_ops=None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """LSTM gates and state update: the plain version of the gates+LSTM
     kernel.  ``x`` (rows, Kx) is the [emb | h | ctx_t] row block and ``w``
@@ -422,11 +442,19 @@ def _gates_lstm(x, w, b, c, s_r=None, scale=None
     int8 with the row scales ``s_r`` (rows, 1) and column scales ``scale``
     (4 dim,) of W8A8.  The preactivation is the float32 sum (int32 under
     int8, dequantized as ``acc * (s_r * scale)``) plus ``b``; gate order
-    i, f, o, g.  Returns (h_t, c_t), float32."""
+    i, f, o, g.  Returns (h_t, c_t), float32.
+
+    ``padded_ops``, from ``step_with_core``: (x', w') over the padded
+    depth Kx' (a whole 128-byte row), x and w followed by zero columns and
+    rows, which the float32 product is then taken over: the same sum, and
+    at a ragged Kx cuBLAS declines its Hopper kernels for an sm80 one
+    about 2.5x slower on an H100."""
     if w.dtype == torch.int8:
         acc = _int8_mm(x, w)
         preact = acc.to(torch.float32) * (s_r * scale[None, :]) + b
     else:
+        if padded_ops is not None:
+            x, w = padded_ops
         preact = _dot(x, w, w.dtype) + b
     return lstm_update(preact, c)
 
@@ -527,7 +555,9 @@ def step_with_core(params: Params, cfg, state: StepState, sc: StepContext,
     # [emb_t | h | ctx_t] in rows padded to 128 bytes, as the gates
     # kernel reads them: the copies (and casts) a concatenation makes
     parts = (emb_t, h, ctx_t)
-    x_cat = padded(bs, sum(p.shape[1] for p in parts), cdtype, h.device)
+    kx = sum(p.shape[1] for p in parts)
+    x_pad = padded_buffer(bs, kx, cdtype, h.device)
+    x_cat = x_pad.narrow(1, 0, kx)
     o = 0
     for p in parts:
         x_cat.narrow(1, o, p.shape[1]).copy_(p)
@@ -539,7 +569,11 @@ def step_with_core(params: Params, cfg, state: StepState, sc: StepContext,
         h_t, c_t = gates_core(x_q, sc.gates_w_q, params["b"], c, s_r,
                               sc.gates_scale)
     else:
-        h_t, c_t = gates_core(x_cat, sc.gates_w, params["b"], c)
+        # both operands were built with zero tails (here and in
+        # ``precompute``): the plain core may multiply over their padding
+        ops = None if sc.gates_w_pad is None else (x_pad, sc.gates_w_pad)
+        h_t, c_t = gates_core(x_cat, sc.gates_w, params["b"], c,
+                              padded_ops=ops)
     return StepOut(h=h_t, c=c_t, ctx_t=ctx_t, alpha=alpha, alpha_s=alpha_s)
 
 

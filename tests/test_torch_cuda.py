@@ -536,6 +536,29 @@ def test_gates_lstm_recipe_shapes_on_padded_rows(cuda, mode, rows, kx, dim):
         torch.testing.assert_close(p, q, rtol=tol, atol=tol)
 
 
+@pytest.mark.parametrize("rows,kx,dim", RECIPE_GATES)
+def test_plain_gates_over_the_padded_depth_at_recipe_shapes(cuda, rows, kx,
+                                                            dim):
+    """The plain bf16 gates (cuBLAS's float32-out product, then the LSTM
+    pointwise) over the depth the decode step pads to (5056 and 6080,
+    zero columns of x and rows of the K-major stack) against the float32
+    plain version of the same bf16 values, within 1e-4, as over Kx."""
+    x, w, b, c, _, _ = recipe_gates_operands(rows, kx, dim, "bf16", cuda,
+                                             seed=kx)
+    xw = tstep.padded_buffer(rows, kx, torch.bfloat16, cuda)
+    xw[:, :kx].copy_(x)
+    ww = tstep.kmajor_padded([w], torch.bfloat16)
+    kp = -(-kx // 64) * 64
+    assert xw.shape[1] == ww.shape[0] == kp > kx
+    wide = tstep._gates_lstm(x, w, b, c, padded_ops=(xw, ww))
+    narrow = tstep._gates_lstm(x, w, b, c)
+    ref = tstep._gates_lstm(x.float(), w.float(), b, c)
+    torch.cuda.synchronize()
+    for got in (wide, narrow):
+        for p, q in zip(got, ref):
+            torch.testing.assert_close(p, q, rtol=1e-4, atol=1e-4)
+
+
 def test_kernel_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError):
         tkernel.logit_tail(torch.zeros(4, 8, device=cuda),

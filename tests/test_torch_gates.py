@@ -261,3 +261,140 @@ def test_wrappers_take_plain_versions_on_cpu():
         assert seen == [torch.int8]
     finally:
         tkernel.gates_lstm = orig
+
+
+# The plain gates product over the padded depth: the step builds x = [emb |
+# h | ctx_t] and the [W; U; Wc] stack in rows padded to 128 bytes with zero
+# tails, so the product may run over that depth (a whole 128-byte row,
+# where cuBLAS keeps its Hopper kernels); Kx 72 and 65 lie off it.
+RAGGED_DIMS = {"kx72": dict(), "kx65": dict(dim_word=10, dim=20, ctx_dim=35)}
+
+
+def torch_context(cfg, p, frames, mask):
+    tp = tstep.cast_params(params_from_numpy(p, "cpu"), cfg)
+    return tp, tstep.precompute(tp, cfg, torch.from_numpy(frames).to(
+        tstep.compute_dtype(cfg)), torch.from_numpy(mask))
+
+
+def gates_depths(monkeypatch, cfg):
+    """The depth K of each (rows, K) @ (K, 4 dim) gates product, as the
+    plain gates take it through ``step._dot``."""
+    seen = []
+    real = tstep._dot
+
+    def dot(a, b, cdtype):
+        if b.shape[-1] == 4 * cfg.dim and b.shape[0] == a.shape[-1]:
+            seen.append(a.shape[-1])
+        return real(a, b, cdtype)
+
+    monkeypatch.setattr(tstep, "_dot", dot)
+    return seen
+
+
+def depths(cfg):
+    """(Kx, Kx padded to a whole 128 bytes of the compute dtype)."""
+    kx = cfg.dim_word + cfg.dim + cfg.ctx_dim
+    per = 128 // tstep.compute_dtype(cfg).itemsize
+    return kx, -(-kx // per) * per
+
+
+@pytest.mark.parametrize("step_name", ["plain", "kernels"])
+@pytest.mark.parametrize("dims", RAGGED_DIMS.values(), ids=RAGGED_DIMS)
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_plain_gates_take_the_padded_depth(monkeypatch, compute_dtype, dims,
+                                           step_name):
+    """At a ragged Kx the decode step's plain gates (``gates_kernel='off'``)
+    multiply over the padded depth that ``precompute`` and the step built
+    with zero tails, and give the h_t and c_t of the product over Kx."""
+    cfg = small_cfg(compute_dtype=compute_dtype, gates_kernel="off", **dims)
+    kx, kp = depths(cfg)
+    assert kx % 64 and kp > kx
+    p, frames, mask, h, c, emb = step_inputs(cfg)
+    tp, tsc = torch_context(cfg, p, frames, mask)
+    assert tuple(tsc.gates_w_pad.shape) == (kp, 4 * cfg.dim)
+    assert torch.equal(tsc.gates_w_pad[:kx], tsc.gates_w)
+    assert not tsc.gates_w_pad[kx:].any()
+    assert tsc.gates_w.stride() == tsc.gates_w_pad.stride() == (1, kp)
+    st = tstep.StepState(torch.from_numpy(h), torch.from_numpy(c))
+    seen = gates_depths(monkeypatch, cfg)
+    fn = STEPS[step_name]
+    got = fn(tp, cfg, st, tsc, torch.from_numpy(emb))
+    ref = fn(tp, cfg, st, tsc._replace(gates_w_pad=None),
+             torch.from_numpy(emb))
+    assert seen == [kp, kx]
+    for name in ("h", "c"):
+        torch.testing.assert_close(getattr(got, name), getattr(ref, name),
+                                   **TOL)
+
+
+@pytest.mark.parametrize("operand", ["cat", "padded_view"])
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_gates_operands_of_a_caller_keep_their_depth(monkeypatch,
+                                                     compute_dtype, operand):
+    """A caller's operands are multiplied over their own depth: a dense
+    ``torch.cat`` row block, and a narrow view of a padded buffer (whose
+    strides alone say nothing of what lies past Kx), through the plain
+    gates and through the kernel wrapper's plain version."""
+    cfg = small_cfg(compute_dtype=compute_dtype)
+    kx, _ = depths(cfg)
+    p, frames, mask, h, c, emb = step_inputs(cfg, bc=5, nb=1, seed=14)
+    tp, tsc = torch_context(cfg, p, frames, mask)
+    ctx_t = np.random.RandomState(15).randn(5, cfg.ctx_dim).astype(
+        np.float32)
+    cdtype = tstep.compute_dtype(cfg)
+    x = torch.cat([torch.from_numpy(a).to(cdtype) for a in (emb, h, ctx_t)],
+                  dim=1)
+    if operand == "padded_view":
+        x = tstep.padded(5, kx, cdtype, "cpu").copy_(x)
+        assert x.stride(0) > kx
+    seen = gates_depths(monkeypatch, cfg)
+    c = torch.from_numpy(c)
+    got = tstep._gates_lstm(x, tsc.gates_w, tp["b"], c)
+    wrapped = tkernel.gates_lstm(x, tsc.gates_w, tp["b"], c)
+    assert seen == [kx, kx]
+    assert all(torch.equal(g, w) for g, w in zip(got, wrapped))
+
+
+@pytest.mark.parametrize("step_name", ["plain", "kernels"])
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_scheduled_sampling_gradients_through_the_padded_depth(
+        monkeypatch, compute_dtype, step_name):
+    """The scheduled-sampling scan runs the decode branch's gates under a
+    gradient: W, U and Wc (and every other weight) get the gradients of
+    the product over Kx, through the copies into the padded buffers
+    (``gates_kernel='auto'`` on CPU tensors: the plain fallback)."""
+    from stvd_torch.train.loss import loss_fn
+    cfg = small_cfg(compute_dtype=compute_dtype, gates_kernel="auto",
+                    **RAGGED_DIMS["kx65"])
+    kx, kp = depths(cfg)
+    p = numpy_params(cfg, seed=16)
+    frames, mask = numpy_frames(cfg, 3, seed=17)
+    rng = np.random.RandomState(18)
+    batch = {"frames": torch.from_numpy(frames),
+             "frame_mask": torch.from_numpy(mask),
+             "tokens": torch.from_numpy(rng.randint(1, cfg.n_words, (3, 5))),
+             "token_mask": torch.from_numpy(
+                 (np.arange(5)[None] < np.array([[5], [3], [4]])).astype(
+                     np.float32))}
+    fn = STEPS[step_name]
+
+    def logical(params, cfg, state, sc, emb_t, x_pre=None):
+        return fn(params, cfg, state, sc._replace(gates_w_pad=None), emb_t,
+                  x_pre)
+
+    seen = gates_depths(monkeypatch, cfg)
+    grads = []
+    for step_fn in (fn, logical):
+        leaves = {k: v.requires_grad_(True)
+                  for k, v in params_from_numpy(p, "cpu").items()}
+        loss, _ = loss_fn(leaves, cfg, batch,
+                          torch.Generator().manual_seed(19), train=True,
+                          ss_prob=0.5, step_fn=step_fn)
+        loss.backward()
+        grads.append({k: v.grad for k, v in leaves.items()})
+    assert seen == [kp] * 5 + [kx] * 5
+    padded, ref = grads
+    assert sorted(padded) == sorted(ref)
+    for name in ref:
+        torch.testing.assert_close(padded[name], ref[name], **TOL)
+    assert all(float(ref[n].abs().max()) > 0 for n in ("W", "U", "Wc"))
